@@ -20,19 +20,45 @@ Phases, in order; any failure raises and the script exits non-zero:
    launch counters must rise; one frame is held against the plain path
    in float64 on the CPU, plus a B-mode splat and a nearest frame;
 5. times (CUDA events, after warm-up): each kernel against its plain
-   version, and the request latency of each tier.
+   version, and the request latency of each tier;
+6. K3 row-gather probe against its plain version and a float64 sum, at
+   the probe's own shapes (M = 131072 rows of 128 floats, 2^20 rows,
+   n_buf 8, offsets 0, 5065, -7, M + 3) and one small case; then its entry
+   point ``diffus_tpu_torch.kernels.gather_probe.main`` (K3's path), whose
+   launches must rise;
+7. training path: ``train_impedance`` at ``ImpedanceTrainConfig``'s full
+   defaults (MLP (32, 32), lr 0.01, 50 epochs, 512 samples, slice 128,
+   SSIM, 256 x 256 image, start 110) with
+   ``RenderConfig(interp='trilinear_fused', use_pallas=True)`` on the 256^3
+   T1 phantom, 256 rays from apex [128, 4, 128], against the splatted frame
+   of the 256^3 impedance phantom; K1's and K2's launches must rise, the
+   losses be finite and the last below the first; one step's parameter
+   gradients through the kernels are held against the plain path in
+   float64 on the CPU, no further from it than max(1e-3, 2x) the plain
+   path's in float32 on the card;
+8. times: the median training step (CUDA events), and its forward,
+   backward and optimizer device time from ``torch.profiler``, with K1's
+   and K2's part of each.
 
-The line before the last is a JSON object of the kernels; the last line
-is ``{"ok": true, "device": {...}}``.
+TF32 is off for matmuls and cuDNN (``torch.backends``), so no comparison
+depends on those defaults.  The line before the last is a JSON object of
+the kernels; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
 import time
+
+# cuBLAS is deterministic only with a fixed workspace; the training run
+# below turns on torch's deterministic algorithms, which require it
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import numpy as np
 import torch
@@ -42,6 +68,7 @@ SHAPE = (256, 256, 256)
 N_RAYS, N_SAMPLES = 256, 512
 TIERS = (1, 8, 32)
 APEX = np.array([128.0, 4.0, 128.0])
+TRAIN_SEED = 1
 
 
 def _card() -> str:
@@ -95,6 +122,245 @@ def _frame_rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
     return float((got - want).abs().max() / want.abs().max())
 
 
+def _gather_probe_phase(dev) -> dict:
+    """K3 against its plain version and a float64 sum, then its entry point."""
+    from diffus_tpu_torch.kernels import gather_probe as probe
+
+    m, n_rows = 131072, 1 << 20
+    table_np = np.random.default_rng(0).normal(size=(m, 128)).astype(np.float32)
+    table = torch.from_numpy(table_np).to(dev)
+    t64, a64 = table_np.astype(np.float64), np.abs(table_np.astype(np.float64))
+    # The kernel and the plain version sum in different orders; both are held
+    # against the float64 sum of the same rows, per lane within
+    # 1e-6 * sum |x_i|, a bound any summation order meets at these sizes.
+    worst = {"kernel": 0.0, "plain": 0.0}
+    k3_err = 0.0
+    for off in (0, 5065, -7, m + 3):
+        rows = np.remainder(off + 97 * np.arange(n_rows, dtype=np.int64), m)
+        counts = np.bincount(rows, minlength=m).astype(np.float64)
+        want, bound = counts @ t64, 1e-6 * (counts @ a64)
+        got = probe.gather_probe(off, table, n_rows, 8)
+        plain = probe.take_probe(off, table, n_rows)
+        torch.cuda.synchronize()
+        if tuple(got.shape) != (1, 128) or tuple(plain.shape) != (128,):
+            raise AssertionError(f"K3 shapes {tuple(got.shape)}, plain {tuple(plain.shape)}")
+        for name, x in (("kernel", got[0]), ("plain", plain)):
+            ratio = float(np.max(np.abs(x.double().cpu().numpy() - want) / bound))
+            if not ratio <= 1.0:
+                raise AssertionError(f"K3 {name} at offset {off}: {ratio:.3g} x the float64 "
+                                     f"bound 1e-6 * sum |x|")
+            worst[name] = max(worst[name], ratio)
+        k3_err = max(k3_err, float((got[0] - plain).abs().max()))
+    small_np = np.random.default_rng(1).normal(size=(64, 128)).astype(np.float32)
+    small = torch.from_numpy(small_np).to(dev)
+    got = probe.gather_probe(5, small, 48, 4)[0]
+    plain = probe.take_probe(5, small, 48)
+    rows = np.remainder(5 + 97 * np.arange(48), 64)
+    atol = torch.from_numpy(1e-6 * np.abs(small_np[rows].astype(np.float64)).sum(0)).to(dev)
+    bad = (got - plain).abs() > 1e-5 * plain.abs() + atol
+    if bool(bad.any()):
+        raise AssertionError(f"K3 small case: {int(bad.sum())} lanes beyond rtol 1e-5")
+    print(f"K3 gather probe vs plain and float64 at ({m}, 128), {n_rows} rows, n_buf 8, "
+          f"offsets 0, 5065, -7, M+3: ok, worst error in units of the bound: kernel "
+          f"{worst['kernel']:.3e}, plain {worst['plain']:.3e}; max_abs_err {k3_err:.3e}; "
+          f"small (64, 128) x 48 rows ok", flush=True)
+
+    probe.gather_probe.launches = 0
+    record = probe.main()
+    launches = probe.gather_probe.launches
+    if launches < 1:
+        raise AssertionError("K3's entry point never launched the kernel")
+    per_call = n_rows * 1e-6
+    return {"launches": launches, "max_abs_err": k3_err,
+            "ns_per_row": record["cuda_gather_ns_per_row"],
+            "plain_ns_per_row": record["torch_take_ns_per_row"],
+            "ms": record["cuda_gather_ns_per_row"] * per_call,
+            "plain_ms": record["torch_take_ns_per_row"] * per_call}
+
+
+def _param_grads(model, *args) -> dict:
+    from diffus_tpu_torch.train import synth_loss
+
+    model.zero_grad(set_to_none=True)
+    synth_loss(model, *args).backward()
+    return {n: p.grad.detach().double().cpu() for n, p in model.named_parameters()}
+
+
+def _training_phase(dev, vol) -> dict:
+    """``train_impedance`` at full width through K1 and K2; the three-way
+    gradient check."""
+    from diffus_tpu_torch.geometry import fan_directions_2d
+    from diffus_tpu_torch.impedance.mlp import init_params
+    from diffus_tpu_torch.kernels.propagation_cuda import echo_fused
+    from diffus_tpu_torch.kernels.trilinear_cuda import sample_trilinear_fused
+    from diffus_tpu_torch.ops.splat import differentiable_splat
+    from diffus_tpu_torch.phantoms import t1_phantom_3d
+    from diffus_tpu_torch.render.renderer import render_frame
+    from diffus_tpu_torch.train import ImpedanceTrainConfig, train_impedance
+    from diffus_tpu_torch.types import RenderConfig
+
+    cfg = ImpedanceTrainConfig(render=RenderConfig(
+        attenuation_coeff=ATT, start=110, interp="trilinear_fused", use_pallas=True))
+    t1 = torch.from_numpy(t1_phantom_3d(SHAPE)).to(dev)
+    dirs = fan_directions_2d([0.0, 1.0], np.radians(45.0), N_RAYS, device=dev)
+    src = torch.tensor(APEX, dtype=torch.float32, device=dev)
+    # the target: the splatted frame of the impedance phantom (tests/test_train.py)
+    x, y, _, frame = render_frame(vol, src, dirs, cfg.num_samples, cfg.render)
+    target = differentiable_splat(x.float(), y.float(), frame, *cfg.image_shape,
+                                  cfg.splat_sigma)
+    torch.cuda.synchronize()
+
+    echo_fused.launches = 0
+    sample_trilinear_fused.launches = 0
+    # Deterministic algorithms (the splat's and the sampler backward's
+    # scatter-adds without atomics) make the trajectory repeat run to run:
+    # at lr 0.01 the SSIM loss of this scene is chaotic, and most seeds
+    # collapse to SSIM ~ 0 within a few steps (PERF.md, Findings).
+    torch.use_deterministic_algorithms(True)
+    try:
+        t0 = time.perf_counter()
+        model, losses = train_impedance(torch.Generator().manual_seed(TRAIN_SEED), t1, target,
+                                        src, dirs, cfg)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+    finally:
+        torch.use_deterministic_algorithms(False)
+    launches = {"echo_scan": echo_fused.launches,
+                "trilinear_sample": sample_trilinear_fused.launches}
+    losses = losses.cpu()
+    if min(launches.values()) < 1:
+        raise AssertionError(f"a kernel of the training path never launched: {launches}")
+    if tuple(losses.shape) != (cfg.epochs,) or not bool(torch.isfinite(losses).all()):
+        raise AssertionError(f"training losses: shape {tuple(losses.shape)}, {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"training loss did not fall: {losses.tolist()}")
+    print(f"training: {cfg.epochs} steps at {SHAPE[0]}^3, {N_RAYS} rays x {cfg.num_samples} "
+          f"samples, SSIM, image {cfg.image_shape}, seed {TRAIN_SEED}: {train_s:.2f} s "
+          f"(first step included); launches {launches}; loss {losses[0].item():.6f} -> "
+          f"{losses[-1].item():.6f} (min {losses.min().item():.6f})", flush=True)
+
+    # One step's gradients three ways, from the same initial weights:
+    # through the kernels, through the plain versions on the card, and
+    # through the plain path in float64 on the CPU (same f32 ray points).
+    # Near a resonance of the echo scan f32 is off from f64 in any
+    # evaluation order, so the kernel path is held to the plain f32 path's
+    # own distance from f64 (at most 2x it, or 1e-3).
+    us_norm = (target - target.min()) / (target.max() - target.min() + 1e-8)
+    mask = torch.ones_like(us_norm, dtype=torch.bool)
+    cfg_plain = dataclasses.replace(cfg, render=dataclasses.replace(
+        cfg.render, interp="trilinear", use_pallas=False))
+    model0 = init_params(torch.Generator().manual_seed(TRAIN_SEED), cfg.hidden)
+    g_kernel = _param_grads(copy.deepcopy(model0).to(dev), t1, us_norm, mask, src, dirs, cfg)
+    g_plain = _param_grads(copy.deepcopy(model0).to(dev), t1, us_norm, mask, src, dirs,
+                           cfg_plain)
+    g_64 = _param_grads(copy.deepcopy(model0).double(), t1.double().cpu(),
+                        us_norm.double().cpu(), mask.cpu(), src.cpu(), dirs.cpu(), cfg_plain)
+    report = []
+    for name, ref in g_64.items():
+        scale = max(float(ref.abs().max()), 1e-30)
+        e_k = float((g_kernel[name] - ref).abs().max()) / scale
+        e_p = float((g_plain[name] - ref).abs().max()) / scale
+        if not e_k <= max(1e-3, 2.0 * e_p):
+            raise AssertionError(f"gradient of {name}: kernel path {e_k:.3e} from f64, "
+                                 f"plain f32 path {e_p:.3e}")
+        report.append(f"{name} {e_k:.2e}/{e_p:.2e}")
+    print("training gradients vs float64 CPU (max abs err / max |f64|, kernel/plain f32): "
+          + ", ".join(report), flush=True)
+    return {"cfg": cfg, "t1": t1, "us_norm": us_norm, "mask": mask, "src": src, "dirs": dirs,
+            "launches": launches}
+
+
+def _training_times(dev, train: dict, card: str) -> None:
+    """Median step time (CUDA events) and the profiler's phase split."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from diffus_tpu_torch.impedance.mlp import init_params
+    from diffus_tpu_torch.train import make_optimizer, synth_loss, train_step
+
+    cfg = train["cfg"]
+    args = (train["t1"], train["us_norm"], train["mask"], train["src"], train["dirs"], cfg)
+    model = init_params(torch.Generator().manual_seed(TRAIN_SEED), cfg.hidden, dev)
+    opt = make_optimizer(model, cfg)
+    for _ in range(3):
+        train_step(model, opt, *args)
+    torch.cuda.synchronize()
+    step_ms = []
+    for _ in range(20):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        train_step(model, opt, *args)
+        end.record()
+        torch.cuda.synchronize()
+        step_ms.append(start.elapsed_time(end))
+    # back to back, as train_impedance runs them: the host queues the next
+    # step while the device finishes this one
+    loop_ms = _event_ms(lambda: train_step(model, opt, *args), 20)
+    fwd_ms = _event_ms(lambda: synth_loss(model, *args), 10)
+    med = statistics.median(step_ms)
+    print(f"times [{card}]: training step, median of 20 steps each ended by a synchronize "
+          f"{med:.4f} ms (min {min(step_ms):.4f}, max {max(step_ms):.4f}); 20 steps back to "
+          f"back {loop_ms:.4f} ms a step; forward alone (synth_loss) {fwd_ms:.4f} ms",
+          flush=True)
+
+    steps = 5
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            train_step(model, opt, *args)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = prof.events()
+    ranges = ("train_step.forward", "train_step.backward", "train_step.optimizer")
+    device = [e for e in events if e.device_type != torch.autograd.DeviceType.CPU
+              and e.name not in ranges and not getattr(e, "is_user_annotation", False)]
+    total = sum(e.device_time_total for e in device)
+    if total <= 0:
+        raise AssertionError("torch.profiler saw no device time in the training steps")
+    keys = {"K1": "echo_scan_kernel", "K2": "trilinear_kernel"}
+    kernel_total = {k: sum(e.device_time_total for e in device if v in e.name)
+                    for k, v in keys.items()}
+    phase = {}
+    for name in ("train_step.forward", "train_step.optimizer"):
+        roots = [e for e in events if e.name == name
+                 and e.device_type == torch.autograd.DeviceType.CPU]
+        phase[name] = {"us": sum(e.device_time_total for e in roots),
+                       **{k: sum(kern.duration for r in roots for e in _subtree(r)
+                                 for kern in e.kernels if v in kern.name)
+                          for k, v in keys.items()}}
+    fwd, opt_p = phase["train_step.forward"], phase["train_step.optimizer"]
+    bwd = {"us": total - fwd["us"] - opt_p["us"],
+           **{k: kernel_total[k] - fwd[k] - opt_p[k] for k in keys}}
+    per = 1.0 / steps
+    lines = []
+    for label, d in (("forward", fwd), ("backward", bwd), ("optimizer", opt_p)):
+        lines.append(f"{label} {d['us'] * per / 1e3:.4f} ms ({d['us'] / total:.1%}; K1 "
+                     f"{d['K1'] * per / 1e3:.4f} ms, K2 {d['K2'] * per / 1e3:.4f} ms)")
+    print(f"times [{card}]: training step device time per step {total * per / 1e3:.4f} ms "
+          f"(profiler, {steps} steps; device idle {1 - total / wall_us:.1%} of "
+          f"{wall_us * per / 1e3:.4f} ms profiled wall, "
+          f"{max(0.0, 1 - total * per / 1e3 / loop_ms):.1%} of the {loop_ms:.4f} ms "
+          f"unprofiled step): " + "; ".join(lines), flush=True)
+    top = sorted(((e.key, e.self_device_time_total) for e in prof.key_averages()
+                  if e.device_type != torch.autograd.DeviceType.CPU
+                  and e.key not in ranges and e.self_device_time_total > 0),
+                 key=lambda kv: -kv[1])[:8]
+    print(f"times [{card}]: device time by kernel per step ({len(device) * per:.0f} device "
+          f"activities a step): " + "; ".join(
+              f"{name[:60]} {us * per / 1e3:.4f} ms" for name, us in top), flush=True)
+    host = sorted(((e.key, e.self_cpu_time_total, e.count) for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CPU),
+                  key=lambda kv: -kv[1])[:8]
+    print(f"times [{card}]: host time by op per step (profiled): " + "; ".join(
+        f"{name[:40]} {us * per / 1e3:.4f} ms x{count * per:.0f}" for name, us, count in host),
+        flush=True)
+
+
+def _subtree(event):
+    yield event
+    for child in event.cpu_children:
+        yield from _subtree(child)
+
+
 def main() -> int:
     # -- 1. device ---------------------------------------------------------
     if not torch.cuda.is_available():
@@ -110,6 +376,9 @@ def main() -> int:
     from diffus_tpu_torch.serve import RendererService
     from diffus_tpu_torch.types import BeamGeometry, RenderConfig
 
+    # full float32 in every matmul and convolution, whatever the defaults
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda:0")
     card = _card()
     print(f"device: {card} | torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
@@ -264,6 +533,15 @@ def main() -> int:
               f"(min {min(lat):.3f}, max {max(lat):.3f}), {tier * 1e3 / med:.1f} frames/s",
               flush=True)
 
+    # -- 6. K3 against its plain version, then its path ----------------------
+    k3 = _gather_probe_phase(dev)
+
+    # -- 7. training path -----------------------------------------------------
+    train = _training_phase(dev, vol)
+
+    # -- 8. times of the training step ----------------------------------------
+    _training_times(dev, train, card)
+
     kernels = [
         {"name": "echo_scan", "route": "cuda", "source": "diffus_tpu_torch/csrc/echo_scan.cu",
          "replaces": "diffus_tpu/kernels/propagation_pallas.py:45",
@@ -274,7 +552,15 @@ def main() -> int:
          "replaces": "diffus_tpu/kernels/tile_select_pallas.py:46",
          "launches": launches["trilinear_sample"], "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain},
+        {"name": "gather_probe", "route": "cuda",
+         "source": "diffus_tpu_torch/csrc/gather_probe.cu",
+         "replaces": "diffus_tpu/kernels/gather_dma_probe.py:43",
+         "launches": k3["launches"], "max_abs_err": k3["max_abs_err"],
+         "ms": k3["ms"], "plain_ms": k3["plain_ms"],
+         "ns_per_row": k3["ns_per_row"], "plain_ns_per_row": k3["plain_ns_per_row"]},
     ]
+    for k in kernels[:2]:
+        k["training_launches"] = train["launches"][k["name"]]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

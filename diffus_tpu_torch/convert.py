@@ -5,8 +5,9 @@ of each pytree leaf) and plain field values (``dataclasses.asdict`` of a
 static config), so this module needs neither jax nor ``diffus_tpu``.
 :func:`from_state` builds the port's objects from such a state and
 :func:`state_of` takes one apart again, so a round trip can be checked.
-The impedance MLP's parameter converter comes with ``impedance/mlp.py``
-(ROADMAP item A8).
+:func:`mlp_state_from_flax` and :func:`mlp_state_to_flax` carry the
+impedance MLP's parameters between flax and
+:class:`~diffus_tpu_torch.impedance.mlp.ImpedanceMLP`, both ways.
 """
 
 from __future__ import annotations
@@ -59,3 +60,34 @@ def state_of(obj) -> dict:
         return dataclasses.asdict(obj)
     return {f.name: getattr(obj, f.name).detach().cpu().numpy()
             for f in dataclasses.fields(obj)}
+
+
+def mlp_state_from_flax(params: dict) -> dict:
+    """An :class:`~diffus_tpu_torch.impedance.mlp.ImpedanceMLP` ``state_dict``
+    from flax parameters ``{"params": {"Dense_i": {"kernel", "bias"}}}``.
+
+    flax's ``Dense`` keeps its kernel ``(in, out)`` and computes ``x @ kernel``;
+    ``nn.Linear`` keeps ``weight`` ``(out, in)``, so ``weight = kernel.T``.
+    Values are copied as float32 tensors; a round trip is exact.
+    """
+    layers = params["params"]
+    n = len(layers)
+    if sorted(layers) != sorted(f"Dense_{i}" for i in range(n)):
+        raise KeyError(f"expected Dense_0..Dense_{n - 1}, got {sorted(layers)}")
+    state = {}
+    for i in range(n):
+        dense = layers[f"Dense_{i}"]
+        state[f"layers.{i}.weight"] = torch.tensor(np.asarray(dense["kernel"], np.float32).T)
+        state[f"layers.{i}.bias"] = torch.tensor(np.asarray(dense["bias"], np.float32))
+    return state
+
+
+def mlp_state_to_flax(state_dict: dict) -> dict:
+    """flax parameters (numpy float32) from an ``ImpedanceMLP`` ``state_dict``;
+    the inverse of :func:`mlp_state_from_flax`."""
+    n = len(state_dict) // 2
+    return {"params": {
+        f"Dense_{i}": {
+            "kernel": state_dict[f"layers.{i}.weight"].detach().cpu().numpy().T.copy(),
+            "bias": state_dict[f"layers.{i}.bias"].detach().cpu().numpy().copy(),
+        } for i in range(n)}}

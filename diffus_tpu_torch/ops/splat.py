@@ -39,7 +39,8 @@ def differentiable_splat(
     """
     c0 = torch.clamp(torch.round(coord0.float()).long(), 0, width - 1).reshape(-1)
     c1 = torch.clamp(torch.round(coord1.float()).long(), 0, height - 1).reshape(-1)
-    vals = intensities.float().reshape(-1)
+    # at least f32, as the reference's f32 cast; an f64 frame stays f64
+    vals = intensities.to(torch.promote_types(intensities.dtype, torch.float32)).reshape(-1)
     image = vals.new_zeros((height, width)).index_put((c1, c0), vals, accumulate=True)
     weight = vals.new_zeros((height, width)).index_put(
         (c1, c0), torch.ones_like(vals), accumulate=True)

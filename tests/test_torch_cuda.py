@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from diffus_tpu_torch.geometry import fan_directions_2d
+from diffus_tpu_torch.kernels.gather_probe import gather_probe, take_probe
 from diffus_tpu_torch.kernels.propagation_cuda import echo_fused, echo_plain
 from diffus_tpu_torch.kernels.trilinear_cuda import sample_trilinear_fused
 from diffus_tpu_torch.ops.sampling import sample_trilinear
@@ -127,3 +128,110 @@ def test_trilinear_kernel_rejects_bf16(cuda):
     vol = torch.ones((4, 4, 4), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(TypeError, match="float32"):
         sample_trilinear_fused(vol, torch.zeros((2, 3), device=cuda))
+
+
+def _f64_bound_ratio(x, table_np, off, n_rows):
+    """max |x - f64 sum| / (1e-6 * sum |x_i|) per lane: <= 1 in any
+    summation order at these sizes."""
+    m = table_np.shape[0]
+    rows = np.remainder(off + 97 * np.arange(n_rows, dtype=np.int64), m)
+    counts = np.bincount(rows, minlength=m).astype(np.float64)
+    want = counts @ table_np.astype(np.float64)
+    bound = 1e-6 * (counts @ np.abs(table_np.astype(np.float64)))
+    return float(np.max(np.abs(x.double().cpu().numpy().reshape(-1) - want) / bound))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n_rows,n_buf,off", [
+    (64, 48, 4, 5), (64, 48, 4, -7), (64, 48, 4, 67), (1000, 5000, 1, 12345),
+    (4099, 100000, 16, -123456), (131072, 1 << 18, 8, 5065), (7, 3, 3, 0),
+])
+def test_gather_probe_kernel_matches_plain_and_f64(cuda, m, n_rows, n_buf, off):
+    table_np = np.random.default_rng(m).normal(size=(m, 128)).astype(np.float32)
+    table = torch.from_numpy(table_np).to(cuda)
+    before = gather_probe.launches
+    got = gather_probe(off, table, n_rows, n_buf)
+    plain = take_probe(off, table, n_rows)
+    torch.cuda.synchronize()
+    assert gather_probe.launches == before + 1
+    assert got.shape == (1, 128) and plain.shape == (128,)
+    assert _f64_bound_ratio(got, table_np, off, n_rows) <= 1.0
+    assert _f64_bound_ratio(plain, table_np, off, n_rows) <= 1.0
+
+
+@pytest.mark.cuda
+def test_gather_probe_offset_tensor_on_the_card(cuda):
+    table = torch.from_numpy(np.random.default_rng(0).normal(size=(64, 128)).astype(np.float32))
+    want = take_probe(5, table, 48)
+    off = torch.tensor([5], dtype=torch.int32, device=cuda)
+    got = gather_probe(off, table.to(cuda), 48, 4)
+    torch.testing.assert_close(got[0].cpu(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_gather_probe_kernel_rejects(cuda):
+    table = torch.zeros((64, 128), device=cuda)
+    with pytest.raises(TypeError, match="float32"):
+        gather_probe(0, table.double(), 8, 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        gather_probe(0, torch.zeros((128, 64), device=cuda).t(), 8, 4)
+    with pytest.raises(ValueError, match=r"\(M, 128\)"):
+        gather_probe(0, torch.zeros((64, 64), device=cuda), 8, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        gather_probe(0, torch.zeros((64, 128), device="meta"), 8, 4)
+    with pytest.raises(ValueError, match="n_buf"):
+        gather_probe(0, table, 8, 17)
+    with pytest.raises(ValueError, match="int32"):
+        gather_probe((1 << 31) - 10, table, 8, 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("loss", ["ssim", "masked_mse_edge"])
+def test_train_step_on_the_card(cuda, loss):
+    """One Adam step through K1 and K2 against the same step through the
+    plain versions, on the card: same loss, gradients within 2e-3 of the
+    largest (the scan's evaluation order differs)."""
+    import copy
+    import dataclasses
+
+    from diffus_tpu_torch.impedance.mlp import fit_table_mlp
+    from diffus_tpu_torch.impedance.table import table_arrays
+    from diffus_tpu_torch.ops.splat import differentiable_splat
+    from diffus_tpu_torch.phantoms import t1_phantom_3d
+    from diffus_tpu_torch.render.renderer import render_frame
+    from diffus_tpu_torch.train import ImpedanceTrainConfig, make_optimizer, train_step
+    from diffus_tpu_torch.types import RenderConfig
+
+    t1 = torch.from_numpy(t1_phantom_3d((24, 24, 24))).to(cuda)
+    z = torch.from_numpy(brain_phantom_3d((24, 24, 24))).to(cuda)
+    dirs = fan_directions_2d([0.0, 1.0], np.radians(40.0), 8, device=cuda)
+    src = torch.tensor([12.0, 1.0, 12.0], device=cuda)
+    cfg = ImpedanceTrainConfig(num_samples=20, slice_index=12, loss=loss, image_shape=(32, 32),
+                               render=RenderConfig(attenuation_coeff=1e-4,
+                                                   interp="trilinear_fused", use_pallas=True))
+    plain = dataclasses.replace(cfg, render=dataclasses.replace(
+        cfg.render, interp="trilinear", use_pallas=False))
+    x, y, _, frame = render_frame(z, src, dirs, 20, plain.render)
+    target = differentiable_splat(x.float(), y.float(), frame, 32, 32, 2.0)
+    target = (target - target.min()) / (target.max() - target.min() + 1e-8)
+    mask = torch.ones_like(target, dtype=torch.bool)
+    # from weights fitted to the tissue table: from a raw initialisation this
+    # scene's bias gradients are f32 rounding noise (tests/test_torch_train.py)
+    tx, ty, _ = table_arrays()
+    model0, _ = fit_table_mlp(torch.Generator().manual_seed(0), tx, ty, epochs=1000, lr=0.01,
+                              device=cuda)
+    out = {}
+    for name, c in (("kernel", cfg), ("plain", plain)):
+        model = copy.deepcopy(model0)
+        before = (echo_fused.launches, sample_trilinear_fused.launches)
+        loss_value = train_step(model, make_optimizer(model, c), t1, target, mask, src, dirs, c)
+        torch.cuda.synchronize()
+        launched = (echo_fused.launches - before[0], sample_trilinear_fused.launches - before[1])
+        assert launched == ((1, 1) if name == "kernel" else (0, 0)), (name, launched)
+        out[name] = (loss_value, {n: p.grad for n, p in model.named_parameters()}, model)
+    torch.testing.assert_close(out["kernel"][0], out["plain"][0], rtol=1e-4, atol=1e-6)
+    for n, g in out["plain"][1].items():
+        err = float((out["kernel"][1][n] - g).abs().max() / g.abs().max().clamp_min(1e-30))
+        assert err <= 2e-3, (n, err)
+    for p, p0 in zip(out["kernel"][2].parameters(), model0.parameters()):
+        assert bool(torch.isfinite(p).all()) and not torch.equal(p, p0)

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from diffus_tpu_torch.kernels import _build
+from diffus_tpu_torch.kernels.gather_probe import gather_probe
 from diffus_tpu_torch.kernels.propagation_cuda import echo_fused
 from diffus_tpu_torch.kernels.trilinear_cuda import sample_trilinear_fused
 
@@ -23,6 +24,11 @@ MODULES = [
     "diffus_tpu_torch.impedance", "diffus_tpu_torch.ops", "diffus_tpu_torch.ops.sampling",
     "diffus_tpu_torch.ops.splat", "diffus_tpu_torch.ops.filters", "diffus_tpu_torch.render",
     "diffus_tpu_torch.kernels.propagation_cuda", "diffus_tpu_torch.kernels.trilinear_cuda",
+    "diffus_tpu_torch.kernels.gather_probe", "diffus_tpu_torch.impedance.mlp",
+    "diffus_tpu_torch.impedance.ct", "diffus_tpu_torch.impedance.preproc",
+    "diffus_tpu_torch.ops.morphology", "diffus_tpu_torch.train",
+    "diffus_tpu_torch.train.losses", "diffus_tpu_torch.train.impedance_train",
+    "diffus_tpu_torch.train.checkpoint", "diffus_tpu_torch.train.metrics",
 ]
 
 
@@ -31,7 +37,8 @@ def test_import_pulls_in_no_jax():
         "import importlib, sys\n"
         f"for m in {MODULES!r}: importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules\n"
-        "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'diffus_tpu'))\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'orbax',\n"
+        "                                    'diffus_tpu'))\n"
         "print(bad)\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -61,6 +68,9 @@ def test_cpu_tensors_launch_no_kernel():
     frame = render_frame(vol, [8.3, 1.2, 7.9], [[0.0, 1.0, 0.0], [0.1, 0.99, 0.0]], 12, cfg)[3]
     assert frame.shape == (2, 12) and bool(torch.isfinite(frame).all())
     assert (echo_fused.launches, sample_trilinear_fused.launches) == before
+    probe_before = gather_probe.launches
+    assert gather_probe(5, torch.ones((64, 128)), 48, 4).shape == (1, 128)
+    assert gather_probe.launches == probe_before
 
 
 def test_build_is_stale_until_built_from_these_sources(tmp_path, monkeypatch):
