@@ -13,7 +13,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    the main path's shapes (K1 echo scan on the reflection coefficients of
    a 32-pose batch, 8192 rays x 511 interfaces, parity and symmetric, with
    a NaN row and d' = 0 rows; K2 trilinear on the 256^3 brain phantom at
-   32 x 256 x 512 points, some outside);
+   32 x 256 x 512 points, some outside and three with a NaN component);
 4. main path: a ``RendererService`` on the 256^3 phantom at 256 rays x 512
    samples, ``interp='trilinear_fused'`` with ``use_pallas=True``, tiers
    (1, 8, 32), answers requests of 1, 5 and 32 poses; both kernels'
@@ -38,7 +38,29 @@ Phases, in order; any failure raises and the script exits non-zero:
    path's in float32 on the card;
 8. times: the median training step (CUDA events), and its forward,
    backward and optimizer device time from ``torch.profiler``, with K1's
-   and K2's part of each.
+   and K2's part of each;
+9. image formation: a second ``RendererService`` on the 256^3 phantom at
+   256 rays x 512 samples with ``trilinear_fused``, ``use_pallas``, an even
+   16-sample pulse and the envelope answers requests of 5 and 32 poses
+   (finite frames, each frame's max 1; K1's and K2's launches must rise);
+   one frame is held against the plain path in float64 on the CPU; then
+   ``render_sweep`` with the artifacts and a CUDA generator must repeat
+   from one seed, and the artifact stack on the card must equal the same
+   stack on the CPU fed the same noise; latency at each tier;
+10. pose recovery: ``svc.recover_pose`` on the phase-4 service (the
+   annealed schedule's default 600 steps, 8 starts drawn like JAX's
+   acceptance test, radius 1.5 and rot 0.03, around a ``render_pose``
+   target at apex [128, 4, 128]); K1's and K2's launches must rise, every
+   final loss be finite and the best start's exact-frame loss fall; the
+   frames of the target, the starts and the ends through the kernels, and
+   the starts' losses, are held against the float64 CPU plain path like
+   phase 3's K1; the position errors are printed (at 512 samples the
+   descent does not converge on this phantom, in either package: PERF.md);
+   one step's pose gradient through the kernels is held against the
+   float64 CPU plain path like phase 7's;
+   the step's times and profiler split as in phase 8; then the same entry
+   point on a service of the JAX tests' 64 x 128 geometry over the same
+   volume must bring the best start and half the starts within 1 voxel.
 
 TF32 is off for matmuls and cuDNN (``torch.backends``), so no comparison
 depends on those defaults.  The line before the last is a JSON object of
@@ -69,6 +91,8 @@ N_RAYS, N_SAMPLES = 256, 512
 TIERS = (1, 8, 32)
 APEX = np.array([128.0, 4.0, 128.0])
 TRAIN_SEED = 1
+PULSE = 16                          # even: the pulse's N + 1 output is cropped
+STARTS, RADIUS, ROT_SCALE, RECOVERY_SEED = 8, 1.5, 0.03, 0   # JAX's acceptance distribution
 
 
 def _card() -> str:
@@ -105,9 +129,10 @@ def _paired_ms(kernel, plain, iters: int):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
-def _assert_close(got, want, rtol: float, atol: float, what: str) -> None:
+def _assert_close(got, want, rtol: float, atol: float, what: str,
+                  equal_nan: bool = False) -> None:
     """``torch.testing.assert_close``, naming the first rows that differ."""
-    bad = ~torch.isclose(got, want, rtol=rtol, atol=atol)
+    bad = ~torch.isclose(got, want, rtol=rtol, atol=atol, equal_nan=equal_nan)
     if bool(bad.any()):
         rows = torch.nonzero(bad.reshape(bad.shape[0], -1).any(dim=1)).flatten()
         i = tuple(torch.nonzero(bad)[0].tolist())
@@ -191,8 +216,6 @@ def _training_phase(dev, vol) -> dict:
     gradient check."""
     from diffus_tpu_torch.geometry import fan_directions_2d
     from diffus_tpu_torch.impedance.mlp import init_params
-    from diffus_tpu_torch.kernels.propagation_cuda import echo_fused
-    from diffus_tpu_torch.kernels.trilinear_cuda import sample_trilinear_fused
     from diffus_tpu_torch.ops.splat import differentiable_splat
     from diffus_tpu_torch.phantoms import t1_phantom_3d
     from diffus_tpu_torch.render.renderer import render_frame
@@ -210,8 +233,7 @@ def _training_phase(dev, vol) -> dict:
                                   cfg.splat_sigma)
     torch.cuda.synchronize()
 
-    echo_fused.launches = 0
-    sample_trilinear_fused.launches = 0
+    _counts_reset()
     # Deterministic algorithms (the splat's and the sampler backward's
     # scatter-adds without atomics) make the trajectory repeat run to run:
     # at lr 0.01 the SSIM loss of this scene is chaotic, and most seeds
@@ -225,11 +247,8 @@ def _training_phase(dev, vol) -> dict:
         train_s = time.perf_counter() - t0
     finally:
         torch.use_deterministic_algorithms(False)
-    launches = {"echo_scan": echo_fused.launches,
-                "trilinear_sample": sample_trilinear_fused.launches}
+    launches = _counts("training path")
     losses = losses.cpu()
-    if min(launches.values()) < 1:
-        raise AssertionError(f"a kernel of the training path never launched: {launches}")
     if tuple(losses.shape) != (cfg.epochs,) or not bool(torch.isfinite(losses).all()):
         raise AssertionError(f"training losses: shape {tuple(losses.shape)}, {losses}")
     if not losses[-1] < losses[0]:
@@ -271,9 +290,7 @@ def _training_phase(dev, vol) -> dict:
 
 
 def _training_times(dev, train: dict, card: str) -> None:
-    """Median step time (CUDA events) and the profiler's phase split."""
-    from torch.profiler import ProfilerActivity, profile
-
+    """Phase 8: the training step's times."""
     from diffus_tpu_torch.impedance.mlp import init_params
     from diffus_tpu_torch.train import make_optimizer, synth_loss, train_step
 
@@ -281,78 +298,396 @@ def _training_times(dev, train: dict, card: str) -> None:
     args = (train["t1"], train["us_norm"], train["mask"], train["src"], train["dirs"], cfg)
     model = init_params(torch.Generator().manual_seed(TRAIN_SEED), cfg.hidden, dev)
     opt = make_optimizer(model, cfg)
+    _step_times(card, "training step", "train_step", lambda: train_step(model, opt, *args),
+                forward=("synth_loss", lambda: synth_loss(model, *args)))
+
+
+def _step_times(card: str, label: str, prefix: str, step, forward=None) -> dict:
+    """Median step time (CUDA events), the mean of steps run back to back,
+    and ``torch.profiler``'s split of the device time over the step's
+    ``{prefix}.forward``, ``.backward`` and ``.optimizer`` ranges, with K1's
+    and K2's part of each.  ``forward``: ``(name, callable)`` timed alone."""
+    from torch.profiler import ProfilerActivity, profile
+
     for _ in range(3):
-        train_step(model, opt, *args)
+        step()
     torch.cuda.synchronize()
     step_ms = []
     for _ in range(20):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        train_step(model, opt, *args)
+        step()
         end.record()
         torch.cuda.synchronize()
         step_ms.append(start.elapsed_time(end))
-    # back to back, as train_impedance runs them: the host queues the next
-    # step while the device finishes this one
-    loop_ms = _event_ms(lambda: train_step(model, opt, *args), 20)
-    fwd_ms = _event_ms(lambda: synth_loss(model, *args), 10)
+    # back to back, as the loops run them: the host queues the next step
+    # while the device finishes this one
+    loop_ms = _event_ms(step, 20)
     med = statistics.median(step_ms)
-    print(f"times [{card}]: training step, median of 20 steps each ended by a synchronize "
+    alone = ""
+    if forward is not None:
+        alone = f"; forward alone ({forward[0]}) {_event_ms(forward[1], 10):.4f} ms"
+    print(f"times [{card}]: {label}, median of 20 steps each ended by a synchronize "
           f"{med:.4f} ms (min {min(step_ms):.4f}, max {max(step_ms):.4f}); 20 steps back to "
-          f"back {loop_ms:.4f} ms a step; forward alone (synth_loss) {fwd_ms:.4f} ms",
-          flush=True)
+          f"back {loop_ms:.4f} ms a step{alone}", flush=True)
 
     steps = 5
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            train_step(model, opt, *args)
+            step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     events = prof.events()
-    ranges = ("train_step.forward", "train_step.backward", "train_step.optimizer")
+    ranges = tuple(f"{prefix}.{p}" for p in ("forward", "backward", "optimizer"))
     device = [e for e in events if e.device_type != torch.autograd.DeviceType.CPU
               and e.name not in ranges and not getattr(e, "is_user_annotation", False)]
     total = sum(e.device_time_total for e in device)
     if total <= 0:
-        raise AssertionError("torch.profiler saw no device time in the training steps")
+        raise AssertionError(f"torch.profiler saw no device time in the {label}s")
     keys = {"K1": "echo_scan_kernel", "K2": "trilinear_kernel"}
     kernel_total = {k: sum(e.device_time_total for e in device if v in e.name)
                     for k, v in keys.items()}
     phase = {}
-    for name in ("train_step.forward", "train_step.optimizer"):
+    for name in (ranges[0], ranges[2]):
         roots = [e for e in events if e.name == name
                  and e.device_type == torch.autograd.DeviceType.CPU]
         phase[name] = {"us": sum(e.device_time_total for e in roots),
                        **{k: sum(kern.duration for r in roots for e in _subtree(r)
                                  for kern in e.kernels if v in kern.name)
                           for k, v in keys.items()}}
-    fwd, opt_p = phase["train_step.forward"], phase["train_step.optimizer"]
+    fwd, opt_p = phase[ranges[0]], phase[ranges[2]]
     bwd = {"us": total - fwd["us"] - opt_p["us"],
            **{k: kernel_total[k] - fwd[k] - opt_p[k] for k in keys}}
     per = 1.0 / steps
+    idle = max(0.0, 1 - total * per / 1e3 / loop_ms)
     lines = []
-    for label, d in (("forward", fwd), ("backward", bwd), ("optimizer", opt_p)):
-        lines.append(f"{label} {d['us'] * per / 1e3:.4f} ms ({d['us'] / total:.1%}; K1 "
+    for name, d in (("forward", fwd), ("backward", bwd), ("optimizer", opt_p)):
+        lines.append(f"{name} {d['us'] * per / 1e3:.4f} ms ({d['us'] / total:.1%}; K1 "
                      f"{d['K1'] * per / 1e3:.4f} ms, K2 {d['K2'] * per / 1e3:.4f} ms)")
-    print(f"times [{card}]: training step device time per step {total * per / 1e3:.4f} ms "
+    print(f"times [{card}]: {label} device time per step {total * per / 1e3:.4f} ms "
           f"(profiler, {steps} steps; device idle {1 - total / wall_us:.1%} of "
-          f"{wall_us * per / 1e3:.4f} ms profiled wall, "
-          f"{max(0.0, 1 - total * per / 1e3 / loop_ms):.1%} of the {loop_ms:.4f} ms "
+          f"{wall_us * per / 1e3:.4f} ms profiled wall, {idle:.1%} of the {loop_ms:.4f} ms "
           f"unprofiled step): " + "; ".join(lines), flush=True)
     top = sorted(((e.key, e.self_device_time_total) for e in prof.key_averages()
                   if e.device_type != torch.autograd.DeviceType.CPU
-                  and e.key not in ranges and e.self_device_time_total > 0),
+                  and e.key not in ranges and e.self_device_time_total > 0
+                  and not getattr(e, "is_user_annotation", False)
+                  and not e.key.startswith("Optimizer.step#")),
                  key=lambda kv: -kv[1])[:8]
-    print(f"times [{card}]: device time by kernel per step ({len(device) * per:.0f} device "
-          f"activities a step): " + "; ".join(
+    print(f"times [{card}]: {label} device time by kernel per step ({len(device) * per:.0f} "
+          f"device activities a step): " + "; ".join(
               f"{name[:60]} {us * per / 1e3:.4f} ms" for name, us in top), flush=True)
     host = sorted(((e.key, e.self_cpu_time_total, e.count) for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CPU),
                   key=lambda kv: -kv[1])[:8]
-    print(f"times [{card}]: host time by op per step (profiled): " + "; ".join(
+    print(f"times [{card}]: {label} host time by op per step (profiled): " + "; ".join(
         f"{name[:40]} {us * per / 1e3:.4f} ms x{count * per:.0f}" for name, us, count in host),
         flush=True)
+    return {"median_ms": med, "loop_ms": loop_ms, "device_ms": total * per / 1e3,
+            "idle": idle}
+
+
+def _tier_latencies(svc, rng, card: str, label: str) -> None:
+    """Median of 10 requests at each batch tier, host clock to a synchronize."""
+    for tier in TIERS:
+        src_t = _sources(rng, tier)
+        for _ in range(3):
+            svc.render(src_t)
+        torch.cuda.synchronize()
+        lat = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            svc.render(src_t)
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t0) * 1e3)
+        med = statistics.median(lat)
+        print(f"times [{card}]: {label} of {tier} poses, median of 10 {med:.3f} ms "
+              f"(min {min(lat):.3f}, max {max(lat):.3f}), {tier * 1e3 / med:.1f} frames/s",
+              flush=True)
+
+
+def _counts_reset() -> None:
+    from diffus_tpu_torch.kernels.propagation_cuda import echo_fused
+    from diffus_tpu_torch.kernels.trilinear_cuda import sample_trilinear_fused
+
+    echo_fused.launches = 0
+    sample_trilinear_fused.launches = 0
+
+
+def _counts(what: str) -> dict:
+    """K1's and K2's launches since :func:`_counts_reset`; raises if either is 0."""
+    from diffus_tpu_torch.kernels.propagation_cuda import echo_fused
+    from diffus_tpu_torch.kernels.trilinear_cuda import sample_trilinear_fused
+
+    launches = {"echo_scan": echo_fused.launches,
+                "trilinear_sample": sample_trilinear_fused.launches}
+    if min(launches.values()) < 1:
+        raise AssertionError(f"a kernel of the {what} never launched: {launches}")
+    return launches
+
+
+def _image_formation_phase(dev, vol, rng, card: str) -> dict:
+    """Phase 9: the enveloped service at full width, then the artifact stack."""
+    from diffus_tpu_torch.ops.artifacts import (
+        depth_dependent_lateral_blur,
+        draw_speckle_arcs,
+        sharpen,
+        speckle_arcs,
+    )
+    from diffus_tpu_torch.phantoms import brain_phantom_3d
+    from diffus_tpu_torch.render.renderer import render_frame, render_sweep
+    from diffus_tpu_torch.serve import RendererService
+    from diffus_tpu_torch.types import BeamGeometry, RenderConfig
+
+    cfg = RenderConfig(attenuation_coeff=ATT, interp="trilinear_fused", use_pallas=True,
+                       pulse_length=PULSE, envelope=True)
+    art = dataclasses.replace(cfg, artifacts=True, std_radial=0.05, std_local=0.2)
+    svc = RendererService(vol, BeamGeometry(N_RAYS, N_SAMPLES), cfg, batch_tiers=TIERS,
+                          device=dev)
+    warm_s = svc.warmup()
+    requests = {p: _sources(rng, p) for p in (5, 32)}
+    src8 = _sources(rng, 8).to(dev)
+
+    _counts_reset()
+    frames = {p: svc.render(s) for p, s in requests.items()}
+    sweeps = [render_sweep(vol, src8, svc.directions, N_SAMPLES, art,
+                           generator=torch.Generator(device=dev).manual_seed(7))[3]
+              for _ in range(2)]
+    torch.cuda.synchronize()
+    launches = _counts("image-formation path")
+
+    for p, f in frames.items():
+        if tuple(f.shape) != (p, N_RAYS, N_SAMPLES) or not bool(torch.isfinite(f).all()):
+            raise AssertionError(f"enveloped request of {p}: shape {tuple(f.shape)} or "
+                                 f"non-finite values")
+        peak = f.amax(dim=(1, 2))
+        if not bool(torch.allclose(peak, torch.ones_like(peak), rtol=1e-6, atol=0)) \
+                or float(f.min()) < 0:
+            raise AssertionError(f"enveloped request of {p}: frame maxima {peak.tolist()}, "
+                                 f"min {float(f.min())}")
+    vol64 = torch.from_numpy(brain_phantom_3d(SHAPE)).double()
+    src = requests[32][17]
+    ref = render_frame(vol64, src, svc.directions.cpu(), N_SAMPLES, cfg)[3]
+    err = _frame_rel_err(frames[32][17], ref)
+    if not err < 1e-4:
+        raise AssertionError(f"enveloped frame vs float64 CPU: rel err {err:.3e}")
+
+    if not torch.equal(sweeps[0], sweeps[1]):
+        raise AssertionError("artifact sweeps from one seed differ")
+    # the same stack on the CPU, fed the noise the card drew
+    clean = render_sweep(vol, src8, svc.directions, N_SAMPLES, cfg)[3]
+    radial, local = draw_speckle_arcs(clean, torch.Generator(device=dev).manual_seed(7))
+
+    def stack(x, r, l):
+        x = speckle_arcs(x, r, l, art.std_radial, art.std_local)
+        return sharpen(depth_dependent_lateral_blur(x, art.max_sigma), art.sharpen_alpha)
+
+    on_card = stack(clean, radial, local)
+    on_cpu = stack(clean.cpu(), radial.cpu(), local.cpu())
+    _assert_close(on_card.cpu(), on_cpu, 1e-5, 1e-6, "artifact stack, card vs CPU")
+    _assert_close(sweeps[0], on_card, 1e-6, 1e-7, "artifact sweep vs its stack")
+    art_err = float((on_card.cpu() - on_cpu).abs().max())
+    print(f"image formation: pulse {PULSE}, envelope; warmup {warm_s:.2f} s; requests of 5, "
+          f"32 poses ok, frame maxima 1; launches {launches}; enveloped frame vs f64 CPU "
+          f"{err:.3e}; artifact sweep (8 poses) repeats from one seed; card vs CPU on the "
+          f"same noise max_abs_err {art_err:.3e} (rtol 1e-5, atol 1e-6)", flush=True)
+    _tier_latencies(svc, rng, card, "enveloped request")
+    art_ms = _event_ms(lambda: render_sweep(vol, src8, svc.directions, N_SAMPLES, art,
+                                            generator=torch.Generator(device=dev)), 5)
+    print(f"times [{card}]: render_sweep of 8 poses with pulse, envelope and artifacts "
+          f"{art_ms:.3f} ms (CUDA events, mean of 5)", flush=True)
+    return {"launches": launches}
+
+
+def _pose_grads(volume, target_b, position, rotvec, cfg, sigma: float):
+    from diffus_tpu_torch.train.pose_recovery import pose_loss
+    from diffus_tpu_torch.types import TransducerPose
+
+    pose = TransducerPose(position.detach().clone().requires_grad_(True),
+                          rotvec.detach().clone().requires_grad_(True))
+    pose_loss(volume, target_b, pose, cfg, sigma).sum().backward()
+    return {"position": pose.position.grad.double().cpu(),
+            "rotvec": pose.rotvec.grad.double().cpu()}
+
+
+def _recover(dev, svc, label: str) -> dict:
+    """``svc.recover_pose`` from STARTS starts around a ``render_pose`` target
+    at APEX, between a reset and a read of K1's and K2's counts; prints the
+    outcome and checks what every run must show: launches, finite losses,
+    and the best start's exact-frame loss below its starting value."""
+    from diffus_tpu_torch.train.pose_recovery import pose_loss, render_pose, sample_init_poses
+    from diffus_tpu_torch.types import TransducerPose
+
+    cfg = svc._recovery_config()
+    base = cfg.as_base()
+    steps = sum(p[3] for p in cfg.phases)
+    with torch.no_grad():
+        target = render_pose(svc.volume, TransducerPose.create(APEX, device=dev), base)
+
+    _counts_reset()
+    t0 = time.perf_counter()
+    fit = svc.recover_pose(target, APEX, count=STARTS, radius=RADIUS, rot_scale=ROT_SCALE,
+                           seed=RECOVERY_SEED)
+    torch.cuda.synchronize()
+    rec_s = time.perf_counter() - t0
+    launches = _counts(f"recovery path ({label})")
+
+    # the starts the service drew, and their exact-frame loss before any step
+    init = sample_init_poses(torch.Generator(device=dev).manual_seed(RECOVERY_SEED), APEX,
+                             RADIUS, ROT_SCALE, STARTS)
+    with torch.no_grad():
+        first = pose_loss(svc.volume, target, init, base).cpu().numpy()
+    finals = np.asarray(fit["final_losses"])
+    b = fit["best_index"]
+    pos_err = np.linalg.norm(np.asarray(fit["positions"]) - APEX, axis=1)
+    rot_err = np.linalg.norm(np.asarray(fit["rotvecs"]), axis=1)
+    init_err = np.linalg.norm(init.position.cpu().numpy() - APEX, axis=1)
+    if not np.all(np.isfinite(finals)):
+        raise AssertionError(f"recovery ({label}): non-finite final losses {finals.tolist()}")
+    if not finals[b] < first[b]:
+        raise AssertionError(f"recovery ({label}): best start's loss {first[b]:.4e} -> "
+                             f"{finals[b]:.4e}")
+    frames = _recovery_frame_check(dev, svc, init, fit, first, label)
+    geo = svc.geometry
+    print(f"recovery ({label}): {STARTS} starts, radius {RADIUS}, rot {ROT_SCALE}, {steps} "
+          f"steps {cfg.phases} at {SHAPE[0]}^3, {geo.n_rays} rays x {geo.num_samples} "
+          f"samples: {rec_s:.2f} s ({rec_s * 1e3 / steps:.3f} ms a step, host clock); "
+          f"launches {launches}; best start {b}: exact-frame loss {first[b]:.4e} -> "
+          f"{finals[b]:.4e}, position error {init_err[b]:.3f} -> {pos_err[b]:.4f} voxels, "
+          f"rotvec error {rot_err[b]:.4f}; starts' position errors "
+          f"{np.round(init_err, 3).tolist()} -> {np.round(pos_err, 3).tolist()}, "
+          f"{int(np.sum(pos_err < 1.0))} of {STARTS} within 1 voxel", flush=True)
+    print(frames, flush=True)
+    print(f"recovery starts ({label}, the card's generator, seed {RECOVERY_SEED}): positions "
+          f"{init.position.cpu().numpy().tolist()}, rotvecs {init.rotvec.cpu().numpy().tolist()}",
+          flush=True)
+    return {"launches": launches, "target": target, "init": init, "pos_err": pos_err,
+            "best": b, "cfg": cfg}
+
+
+def _recovery_frame_check(dev, svc, init, fit: dict, first, label: str) -> str:
+    """The frames the recovery renders, through the kernels, against the
+    plain path in float64 on the CPU (the same f32 ray directions): the
+    target at APEX, the STARTS starts and the poses the descent ended at.
+    Near a resonance of the echo scan f32 is off from f64 in any evaluation
+    order (at 256 x 512, ~1e-3 of a frame's max), so, as phase 3 holds K1,
+    each kernel frame may be at most max(1e-4, 2x) the plain f32 path's
+    distance from f64 (frame-max-relative); so may the starts' exact-frame
+    losses ``first`` (relative), which ``_recover`` took through the kernels."""
+    from diffus_tpu_torch.geometry.fan import pose_fan_directions
+    from diffus_tpu_torch.phantoms import brain_phantom_3d
+    from diffus_tpu_torch.render.renderer import render_frame
+    from diffus_tpu_torch.types import TransducerPose
+
+    base = svc._recovery_config().as_base()
+    plain = dataclasses.replace(base.render, interp="trilinear", use_pallas=False)
+    n = base.geometry.num_samples
+    f32 = {"dtype": torch.float32, "device": dev}
+    position = torch.cat([torch.tensor(APEX[None], **f32), init.position,
+                          torch.tensor(fit["positions"], **f32)])
+    rotvec = torch.cat([torch.zeros((1, 3), **f32), init.rotvec,
+                        torch.tensor(fit["rotvecs"], **f32)])
+    with torch.no_grad():
+        dirs = pose_fan_directions(TransducerPose(position, rotvec), base.geometry)
+        kernel = render_frame(svc.volume, position, dirs, n, base.render)[3].double().cpu()
+        plain32 = render_frame(svc.volume, position, dirs, n, plain)[3].double().cpu()
+        vol64 = torch.from_numpy(brain_phantom_3d(tuple(svc.volume.shape))).double()
+        ref = render_frame(vol64, position.cpu(), dirs.cpu(), n, plain)[3]
+    peak = ref.abs().amax(dim=(1, 2))
+    e_k = ((kernel - ref).abs().amax(dim=(1, 2)) / peak).numpy()
+    e_p = ((plain32 - ref).abs().amax(dim=(1, 2)) / peak).numpy()
+    bad = np.nonzero(~(e_k <= np.maximum(1e-4, 2.0 * e_p)))[0]
+    if bad.size:
+        raise AssertionError(f"recovery frames ({label}) vs float64 CPU, frames {bad.tolist()} "
+                             f"(0: target, 1-{STARTS}: starts, then ends): kernel "
+                             f"{e_k[bad].tolist()}, plain f32 {e_p[bad].tolist()}")
+
+    def start_losses(frames):
+        return ((frames[1:STARTS + 1] - frames[0]) ** 2).mean(dim=(1, 2)).numpy()
+
+    loss64 = start_losses(ref)
+    l_k = np.abs(np.asarray(first, np.float64) - loss64) / loss64
+    l_p = np.abs(start_losses(plain32) - loss64) / loss64
+    if not np.all(l_k <= np.maximum(1e-4, 2.0 * l_p)):
+        raise AssertionError(f"starts' losses ({label}) vs float64 CPU: kernel {l_k.tolist()}, "
+                             f"plain f32 {l_p.tolist()}")
+    return (f"recovery frames ({label}) vs float64 CPU (frame-max-relative, worst of target, "
+            f"{STARTS} starts, {STARTS} ends; kernel/plain f32): {e_k.max():.3e}/"
+            f"{e_p.max():.3e}, target {e_k[0]:.3e}/{e_p[0]:.3e}; starts' exact-frame losses "
+            f"(relative): {l_k.max():.3e}/{l_p.max():.3e}")
+
+
+def _recovery_grad_check(dev, svc, run: dict, label: str) -> None:
+    """One step's pose gradient at the starts (first phase's blur) three ways:
+    through the kernels, through the plain versions on the card, and the
+    plain path in float64 on the CPU; the kernel path is held to at most 2x
+    the plain f32 path's distance from f64 (or 1e-3)."""
+    from diffus_tpu_torch.phantoms import brain_phantom_3d
+    from diffus_tpu_torch.train.pose_recovery import gaussian_blur_frame
+
+    cfg, init = run["cfg"], run["init"]
+    base = cfg.as_base()
+    sigma = cfg.phases[0][0]
+    target_b = gaussian_blur_frame(run["target"], sigma)
+    plain = dataclasses.replace(base, render=dataclasses.replace(
+        base.render, interp="trilinear", use_pallas=False))
+    g_kernel = _pose_grads(svc.volume, target_b, init.position, init.rotvec, base, sigma)
+    g_plain = _pose_grads(svc.volume, target_b, init.position, init.rotvec, plain, sigma)
+    vol64 = torch.from_numpy(brain_phantom_3d(SHAPE)).double()
+    g_64 = _pose_grads(vol64, target_b.double().cpu(), init.position.double().cpu(),
+                       init.rotvec.double().cpu(), plain, sigma)
+    report = []
+    for name, ref in g_64.items():
+        scale = max(float(ref.abs().max()), 1e-30)
+        e_k = float((g_kernel[name] - ref).abs().max()) / scale
+        e_p = float((g_plain[name] - ref).abs().max()) / scale
+        if not e_k <= max(1e-3, 2.0 * e_p):
+            raise AssertionError(f"pose gradient of {name} ({label}): kernel path {e_k:.3e} "
+                                 f"from f64, plain f32 path {e_p:.3e}")
+        report.append(f"{name} {e_k:.2e}/{e_p:.2e}")
+    print(f"recovery gradients ({label}) vs float64 CPU (max abs err / max |f64|, "
+          f"kernel/plain f32): " + ", ".join(report), flush=True)
+
+
+def _recovery_phase(dev, svc, vol, card: str) -> dict:
+    """Phase 10: ``svc.recover_pose`` at full width through K1 and K2, one
+    step's pose gradient three ways and the step's times; then the same
+    entry point at the JAX tests' acceptance geometry, which must converge."""
+    from diffus_tpu_torch.serve import RendererService
+    from diffus_tpu_torch.train.pose_recovery import (
+        gaussian_blur_frame,
+        make_pose_optimizer,
+        pose_step,
+    )
+    from diffus_tpu_torch.types import BeamGeometry, TransducerPose
+
+    full = _recover(dev, svc, "full width")
+    # Not asserted: at 512 samples the annealed descent does not converge on
+    # this phantom, in float32 or float64 (PERF.md, Findings: near-resonant
+    # echoes at depth make the loss rough at the half-voxel scale).
+    _recovery_grad_check(dev, svc, full, "full width")
+    cfg, init = full["cfg"], full["init"]
+    base = cfg.as_base()
+    sigma = cfg.phases[0][0]
+    target_b = gaussian_blur_frame(full["target"], sigma)
+    pose = TransducerPose(init.position.clone().requires_grad_(True),
+                          init.rotvec.clone().requires_grad_(True))
+    opt = make_pose_optimizer(pose, cfg.phases[0][1], cfg.phases[0][2])
+    times = _step_times(card, f"recovery step ({STARTS} starts, full width)", "pose_step",
+                        lambda: pose_step(svc.volume, target_b, pose, opt, base, sigma))
+
+    # the acceptance geometry of the JAX tests, 64 rays x 128 samples, on the
+    # same volume and config: the descent must converge there
+    small = RendererService(vol, BeamGeometry(64, 128), svc.config, batch_tiers=(1,),
+                            device=dev)
+    acc = _recover(dev, small, "64 x 128")
+    _recovery_grad_check(dev, small, acc, "64 x 128")
+    b = acc["best"]
+    if not (acc["pos_err"][b] < 1.0 and np.sum(acc["pos_err"] < 1.0) >= STARTS // 2):
+        raise AssertionError(f"recovery (64 x 128): position errors {acc['pos_err'].tolist()}")
+    launches = {k: full["launches"][k] + acc["launches"][k] for k in full["launches"]}
+    return {"launches": launches, "times": times}
 
 
 def _subtree(event):
@@ -454,26 +789,31 @@ def main() -> int:
     pts = ray_points(src32, dirs.expand(32, -1, -1), N_SAMPLES).contiguous()
     pts[:, ::16] = torch.from_numpy(
         rng.uniform(-20.0, 276.0, size=pts[:, ::16].shape).astype(np.float32)).to(dev)
+    # a diverged pose's NaN components: the value is NaN in both, index 0
+    pts[0, 0, 7:10] = torch.tensor([[float("nan"), 9.5, 9.5], [9.5, float("nan"), 9.5],
+                                    [9.5, 9.5, float("nan")]])
     idx_k, val_k = sample_trilinear_fused(vol, pts)
     idx_p, val_p = sample_trilinear(vol, pts)
     torch.cuda.synchronize()
-    _assert_close(val_k, val_p, 1e-6, 1e-7, "K2")
+    _assert_close(val_k, val_p, 1e-6, 1e-7, "K2", equal_nan=True)
     if not torch.equal(idx_k, idx_p):
         raise AssertionError("K2 idx differs from the plain sampler's")
-    k2_err = float((val_k - val_p).abs().max())
+    n_nan = int(torch.isnan(val_k).sum())
+    if n_nan != 3 or not bool(torch.isnan(val_k[0, 0, 7:10]).all()):
+        raise AssertionError(f"K2: {n_nan} NaN values, expected the 3 NaN points")
+    k2_err = float((val_k - val_p).nan_to_num(0.0).abs().max())
     print(f"K2 trilinear vs plain at {tuple(pts.shape[:-1])} points on the "
-          f"{SHAPE} phantom: ok, max_abs_err {k2_err:.3e} (rtol 1e-6, atol 1e-7)", flush=True)
+          f"{SHAPE} phantom: ok, max_abs_err {k2_err:.3e} (rtol 1e-6, atol 1e-7; 3 NaN "
+          f"points NaN in both)", flush=True)
     torch.cuda.synchronize()
 
     # -- 4. main path: the service ------------------------------------------
     warm_s = svc.warmup()
     requests = {p: _sources(rng, p) for p in (1, 5, 32)}
-    echo_fused.launches = 0
-    sample_trilinear_fused.launches = 0
+    _counts_reset()
     frames = {p: svc.render(s) for p, s in requests.items()}
     torch.cuda.synchronize()
-    launches = {"echo_scan": echo_fused.launches,
-                "trilinear_sample": sample_trilinear_fused.launches}
+    launches = _counts("main path")
     for p, f in frames.items():
         if tuple(f.shape) != (p, N_RAYS, N_SAMPLES):
             raise AssertionError(f"request of {p}: frame shape {tuple(f.shape)}")
@@ -481,8 +821,6 @@ def main() -> int:
             raise AssertionError(f"request of {p}: non-finite values")
         if not bool((f != 0).any()):
             raise AssertionError(f"request of {p}: all-zero frames")
-    if min(launches.values()) < 1:
-        raise AssertionError(f"a kernel of the main path never launched: {launches}")
     stats = svc.snapshot_stats()
     if stats["requests"] != 3 or stats["frames"] != 38:
         raise AssertionError(f"service counters {stats}")
@@ -517,21 +855,7 @@ def main() -> int:
     print(f"times [{card}]: K1 echo scan {tuple(r.shape)} {k1_ms:.4f} ms vs plain "
           f"{k1_plain:.4f} ms; K2 trilinear {tuple(pts_main.shape[:-1])} {k2_ms:.4f} ms "
           f"vs plain {k2_plain:.4f} ms", flush=True)
-    for tier in TIERS:
-        src_t = _sources(rng, tier)
-        for _ in range(3):
-            svc.render(src_t)
-        torch.cuda.synchronize()
-        lat = []
-        for _ in range(10):
-            t0 = time.perf_counter()
-            svc.render(src_t)
-            torch.cuda.synchronize()
-            lat.append((time.perf_counter() - t0) * 1e3)
-        med = statistics.median(lat)
-        print(f"times [{card}]: request of {tier} poses, median of 10 {med:.3f} ms "
-              f"(min {min(lat):.3f}, max {max(lat):.3f}), {tier * 1e3 / med:.1f} frames/s",
-              flush=True)
+    _tier_latencies(svc, rng, card, "request")
 
     # -- 6. K3 against its plain version, then its path ----------------------
     k3 = _gather_probe_phase(dev)
@@ -541,6 +865,12 @@ def main() -> int:
 
     # -- 8. times of the training step ----------------------------------------
     _training_times(dev, train, card)
+
+    # -- 9. image formation at full width -------------------------------------
+    bmode = _image_formation_phase(dev, vol, rng, card)
+
+    # -- 10. pose recovery at full width --------------------------------------
+    recovery = _recovery_phase(dev, svc, vol, card)
 
     kernels = [
         {"name": "echo_scan", "route": "cuda", "source": "diffus_tpu_torch/csrc/echo_scan.cu",
@@ -561,6 +891,8 @@ def main() -> int:
     ]
     for k in kernels[:2]:
         k["training_launches"] = train["launches"][k["name"]]
+        k["image_formation_launches"] = bmode["launches"][k["name"]]
+        k["recovery_launches"] = recovery["launches"][k["name"]]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

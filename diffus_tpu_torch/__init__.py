@@ -5,13 +5,15 @@ its layout and public names, module for module, and is held against it
 by the ``tests/test_torch_*.py`` parity tests.  It imports ``torch`` and
 numpy, never jax, flax or ``diffus_tpu``.
 
-Layer map (the ported slice):
+Layer map (the ported slices):
   types, phantoms        -> diffus_tpu_torch.types, diffus_tpu_torch.phantoms
-  geometry               -> diffus_tpu_torch.geometry (fan)
-  impedance              -> diffus_tpu_torch.impedance (tissue table)
+  geometry               -> diffus_tpu_torch.geometry (fan, affine, calibration)
+  scene setup            -> diffus_tpu_torch.scene
+  impedance              -> diffus_tpu_torch.impedance
   renderer core          -> diffus_tpu_torch.ops, diffus_tpu_torch.render
   hand-written kernels   -> diffus_tpu_torch.kernels (CUDA C++, sm_90a)
-  image formation        -> diffus_tpu_torch.ops.splat
+  image formation        -> diffus_tpu_torch.ops (filters, bmode, artifacts, splat)
+  training, recovery     -> diffus_tpu_torch.train (impedance_train, pose_recovery)
   serving                -> diffus_tpu_torch.serve
 """
 

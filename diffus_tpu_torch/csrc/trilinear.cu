@@ -15,7 +15,8 @@
 // blend z, then y, then x.  Built with --fmad=false, so each a*b + c rounds
 // twice like the plain path's separate PyTorch ops and the values agree
 // bit for bit.  idx = round-half-even(point) (rintf; roundf rounds half
-// away from zero), clamped per axis.  Flat offsets are 64-bit.  Texture
+// away from zero), clamped per axis.  A NaN component gives a NaN value and
+// index 0 on that axis, like the plain sampler.  Flat offsets are 64-bit.  Texture
 // filtering is not used: its fixed-point fractions are far coarser than f32.
 //
 // What bounds it on the card: random 4-byte loads, 8 per sample, plus 28
@@ -30,17 +31,19 @@
 
 namespace {
 
+// fmaxf/fminf drop a NaN, so a NaN component reads voxel 0 as its corners;
+// its fraction stays NaN, and so does the sample, as in the plain sampler.
 __device__ __forceinline__ void corner_coords(float p, int dim, int& i0, int& i1, float& f) {
   const float c = fminf(fmaxf(p, 0.0f), static_cast<float>(dim - 1));
   const float fl = floorf(c);
-  f = c - fl;
+  f = isnan(p) ? p : c - fl;
   i0 = static_cast<int>(fl);
   i1 = min(i0 + 1, dim - 1);
 }
 
+// Clamped in floats first, as the plain sampler does: NaN gives index 0.
 __device__ __forceinline__ int round_clamp(float p, int dim) {
-  const int i = static_cast<int>(rintf(p));
-  return min(max(i, 0), dim - 1);
+  return static_cast<int>(rintf(fminf(fmaxf(p, 0.0f), static_cast<float>(dim - 1))));
 }
 
 __global__ void trilinear_kernel(const float* __restrict__ vol, const float* __restrict__ pts,

@@ -50,7 +50,8 @@ def canonical_fan(opening_angle: float, n_rays: int, device="cpu") -> torch.Tens
 
 
 def pose_fan_directions(pose: TransducerPose, geometry: BeamGeometry) -> torch.Tensor:
-    """Rotate the canonical fan by the pose (``fan.py:61-77``).
+    """Rotate the canonical fan by the pose (``fan.py:61-77``): a
+    ``(..., 3)`` rotvec gives ``(..., n_rays, 3)`` directions.
 
     The ``(n_rays, 3) x (3, 3)`` product is a broadcast sum, not a matmul,
     so it is full f32 whatever the TF32 setting: TF32 would put ~1e-3
@@ -59,7 +60,7 @@ def pose_fan_directions(pose: TransducerPose, geometry: BeamGeometry) -> torch.T
     """
     fan = canonical_fan(geometry.opening_angle, geometry.n_rays, pose.rotvec.device)
     rot = rotvec_to_matrix(pose.rotvec)
-    return (fan[:, None, :] * rot[None, :, :]).sum(dim=-1)
+    return (fan[:, None, :] * rot[..., None, :, :]).sum(dim=-1)
 
 
 def fan_angles(geometry: BeamGeometry, device="cpu") -> torch.Tensor:

@@ -32,9 +32,14 @@ def _dims(volume: torch.Tensor, dtype) -> torch.Tensor:
 
 
 def _round_idx(volume: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
-    """Round half to even (``torch.round``, like numpy and jnp), clamp per axis."""
-    hi = _dims(volume, torch.int32) - 1
-    return torch.clamp(torch.round(points).to(torch.int32), min=0).minimum(hi)
+    """Round half to even (``torch.round``, like numpy and jnp), clamp per
+    axis.  The clamp comes first, in floats (the bounds are integers, so the
+    order does not change a finite result), and a NaN coordinate gives index
+    0, as XLA converts NaN: an integer cast of NaN or of a huge float would
+    index anywhere."""
+    hi = _dims(volume, points.dtype) - 1.0
+    p = torch.minimum(torch.clamp(torch.nan_to_num(points, nan=0.0), min=0.0), hi)
+    return torch.round(p).to(torch.int32)
 
 
 def sample_nearest(volume: torch.Tensor, points: torch.Tensor):
@@ -58,8 +63,8 @@ def sample_trilinear(volume: torch.Tensor, points: torch.Tensor):
     """
     p = torch.minimum(torch.clamp(points, min=0.0), _dims(volume, points.dtype) - 1.0)
     p0 = torch.floor(p)
-    frac = p - p0
-    i0 = p0.long()
+    frac = p - p0                                  # NaN for a NaN point: its value is NaN,
+    i0 = torch.nan_to_num(p0, nan=0.0).long()      # its corners voxel 0 (K2 does the same)
     i1 = torch.minimum(i0 + 1, _dims(volume, torch.long) - 1)
     fx, fy, fz = frac[..., 0], frac[..., 1], frac[..., 2]
     x0, y0, z0 = i0[..., 0], i0[..., 1], i0[..., 2]

@@ -1,5 +1,6 @@
-"""Differentiable image formation by scatter-add splatting
-(``diffus_tpu/ops/splat.py:23-108``)."""
+"""Image formation on a 2D grid: the differentiable scatter-add splat,
+the apex rotation and the host-side ``griddata`` rasterizer
+(``diffus_tpu/ops/splat.py``)."""
 
 from __future__ import annotations
 
@@ -63,3 +64,44 @@ def splat_frame(coords: tuple, intensities: torch.Tensor, axes: tuple = (0, 2),
         coords[axes[0]].float(), coords[axes[1]].float(), intensities,
         height=image_shape[0], width=image_shape[1], sigma=sigma,
     )
+
+
+def rotate_around_apex(x, z, apex, median, lateral_offset: float = 128.0):
+    """Rotate ``(x, z)`` points about the apex so that the median direction
+    lies along +z (``splat.py:111-129``), with the reference's ``x - 128``
+    lateral shift as ``lateral_offset``.  Returns ``(x_rot, z_rot)``."""
+    x = torch.as_tensor(x, dtype=torch.float32)
+    z = torch.as_tensor(z, dtype=torch.float32, device=x.device)
+    median_vec = torch.as_tensor(median, dtype=torch.float32, device=x.device)
+    median_vec = median_vec / torch.linalg.norm(median_vec)
+    angle = torch.atan2(median_vec[0], median_vec[1])
+    cos_a, sin_a = torch.cos(angle), torch.sin(angle)
+    x_shifted = x - lateral_offset
+    return (cos_a * x_shifted - sin_a * z + apex[0],
+            sin_a * x_shifted + cos_a * z + apex[1])
+
+
+def rasterize_fan_host(x_coords, z_coords, intensities, output_shape=(256, 256),
+                       parity_grid=False) -> np.ndarray:
+    """Host-side scattered-to-grid interpolation, not differentiable
+    (``splat.py:132-167``): scipy ``griddata`` (linear, fill 0) onto an
+    ``output_shape`` grid over the samples' bounding box.
+
+    ``parity_grid=True`` keeps the reference's quirk: the grid is the
+    ``meshgrid`` of the scattered coordinates themselves (N^2 pixels for N
+    samples; ``output_shape`` is ignored).  Returns a numpy array.
+    """
+    from scipy.interpolate import griddata
+
+    def host(a):
+        return np.asarray(a.detach().cpu() if torch.is_tensor(a) else a).ravel()
+
+    x, z, v = host(x_coords), host(z_coords), host(intensities)
+    if parity_grid:
+        grid_x, grid_z = np.meshgrid(x, z)
+    else:
+        h, w = output_shape
+        grid_x, grid_z = np.meshgrid(np.linspace(x.min(), x.max(), w),
+                                     np.linspace(z.min(), z.max(), h))
+    return griddata(points=np.stack((x, z), axis=-1), values=v, xi=(grid_x, grid_z),
+                    method="linear", fill_value=0.0)

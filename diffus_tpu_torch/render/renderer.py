@@ -5,16 +5,18 @@ A function of ``(volume, source, directions)`` plus a static
 
   ray points -> sampler -> reflection coefficients (at least f32)
   -> start skip with the torch-median patch -> echo scan -> depth attenuation
+  -> [pulse] -> [envelope] -> [speckle arcs -> lateral blur -> sharpen]
 
 Every stage takes leading batch dims, so :func:`render_sweep` is one
-batched pass over poses.  ``config.use_pallas`` runs the echo scan
-through the CUDA kernel K1 and ``interp='trilinear_fused'`` samples
-through K2; on CPU tensors both run their plain PyTorch versions.
+batched pass over poses; the envelope's normalisation and the artifacts'
+clip ranges are per frame, and each frame draws its own noise.
+``config.use_pallas`` runs the echo scan through the CUDA kernel K1 and
+``interp='trilinear_fused'`` samples through K2; on CPU tensors both run
+their plain PyTorch versions.  The pulse, envelope and artifact stages are
+plain PyTorch (the JAX package computes them outside Pallas too).
 
 The TPU-only machinery of the JAX renderer (sampler auto-upgrades, tile
 tables, pose chunking, placement warnings, ``:436-566``) is not ported.
-The pulse, envelope and artifact stages come with ROADMAP item A7 and
-raise until then.
 """
 
 from __future__ import annotations
@@ -22,6 +24,13 @@ from __future__ import annotations
 import torch
 
 from diffus_tpu_torch.kernels.propagation_cuda import echo_fused
+from diffus_tpu_torch.ops.artifacts import (
+    add_speckle_arcs,
+    depth_dependent_lateral_blur,
+    sharpen,
+)
+from diffus_tpu_torch.ops.bmode import rf_to_bmode
+from diffus_tpu_torch.ops.filters import convolve_pulse, gaussian_pulse
 from diffus_tpu_torch.ops.propagation import (
     depth_attenuation,
     echo_amplitudes,
@@ -93,17 +102,9 @@ def _apply_start(r: torch.Tensor, start: int) -> torch.Tensor:
     return r
 
 
-def _unsupported(config: RenderConfig) -> None:
-    for name, on in (("pulse_length > 0", config.pulse_length > 0),
-                     ("envelope", config.envelope), ("artifacts", config.artifacts)):
-        if on:
-            raise NotImplementedError(
-                f"RenderConfig {name}: the pulse, envelope and artifact stages are "
-                "not ported yet (ROADMAP item A7)")
-
-
 def render_frame(volume, source, directions, num_samples: int,
-                 config: RenderConfig = _DEFAULT_CONFIG, step: float = 1.0):
+                 config: RenderConfig = _DEFAULT_CONFIG, step: float = 1.0,
+                 generator: torch.Generator | None = None):
     """Render one fan frame of echo intensities (``renderer.py:251-369``).
 
     Args:
@@ -114,10 +115,14 @@ def render_frame(volume, source, directions, num_samples: int,
       num_samples: depth samples per ray.
       config: render configuration.
       step: voxel units per depth sample.
+      generator: the ``torch.Generator`` of the artifacts' noise, on the
+        volume's device; required when ``config.artifacts`` is set (JAX's
+        ``key``).  Each frame draws its own noise.
     Returns:
       ``(x, y, z, intensities)``, each ``(..., n_rays, num_samples - start)``:
-      int32 sample coordinates after the start skip and the attenuated echo.
-      Reflection and the scan run in f32 (f64 for an f64 volume).
+      int32 sample coordinates after the start skip and the attenuated
+      (optionally pulsed, enveloped, artifacted) echo.  Reflection and the
+      scan run in f32 (f64 for an f64 volume).
     """
     if isinstance(volume, Volume):
         volume = volume.data
@@ -125,7 +130,8 @@ def render_frame(volume, source, directions, num_samples: int,
         raise ValueError(
             f"render_frame needs a 3D (D, H, W) volume, got shape "
             f"{tuple(volume.shape)} — squeeze singleton axes first")
-    _unsupported(config)
+    if config.artifacts and generator is None:
+        raise ValueError("config.artifacts=True requires a torch.Generator")
     if config.dtype == "bfloat16":
         # bf16 samples halve the gather bytes; reflection and scan stay f32
         volume = volume.to(torch.bfloat16)
@@ -150,6 +156,18 @@ def render_frame(volume, source, directions, num_samples: int,
         echo = echo_amplitudes(_apply_start(r, start), mode=config.reflection_mode)
         out = depth_attenuation(echo, config.attenuation_coeff)
 
+    if config.pulse_length > 0:
+        # an even-length pulse grows the trace by one sample: crop it back
+        pulse = gaussian_pulse(config.pulse_length, config.pulse_sigma)
+        out = convolve_pulse(out, pulse)[..., :num_samples - start]
+    if config.envelope:
+        out = rf_to_bmode(out)
+    if config.artifacts:
+        out = add_speckle_arcs(out, generator, std_radial=config.std_radial,
+                               std_local=config.std_local)
+        out = depth_dependent_lateral_blur(out, max_sigma=config.max_sigma)
+        out = sharpen(out, alpha=config.sharpen_alpha)
+
     idx = idx[..., start:, :]
     return idx[..., 0], idx[..., 1], idx[..., 2], out
 
@@ -170,21 +188,27 @@ def frame_time_delays(spacing, directions, num_samples: int,
 
 
 def render_bmode(volume, source, directions, num_samples: int,
-                 config: RenderConfig = _DEFAULT_CONFIG, image_shape: tuple = (256, 256),
+                 config: RenderConfig = _DEFAULT_CONFIG,
+                 generator: torch.Generator | None = None, image_shape: tuple = (256, 256),
                  sigma: float = 2.0, axes: tuple = (0, 2)) -> torch.Tensor:
     """Fan frame + differentiable splat to a 2D image (``renderer.py:406-433``)."""
     from diffus_tpu_torch.ops.splat import splat_frame
 
-    x, y, z, intensities = render_frame(volume, source, directions, num_samples, config)
+    x, y, z, intensities = render_frame(volume, source, directions, num_samples, config,
+                                        generator=generator)
     return splat_frame((x, y, z), intensities, axes, image_shape, sigma)
 
 
 def render_sweep(volume, sources, directions, num_samples: int,
-                 config: RenderConfig = _DEFAULT_CONFIG, step: float = 1.0):
+                 config: RenderConfig = _DEFAULT_CONFIG,
+                 generator: torch.Generator | None = None, step: float = 1.0):
     """Multi-pose sweep as one batched render (``renderer.py:456-615``).
 
     Args:
       sources: ``(P, 3)``; directions: ``(P, n_rays, 3)`` or shared ``(n_rays, 3)``.
+      generator: the artifacts' noise (JAX's ``keys``): frame ``p`` draws
+        what the ``p``-th of P single-frame renders from this generator
+        would, so a sweep equals its frames rendered one after another.
     Returns:
       ``(x, y, z, frames)`` with a leading pose axis.
     """
@@ -193,4 +217,5 @@ def render_sweep(volume, sources, directions, num_samples: int,
     directions = _on(vol, directions)
     if directions.dim() == 2:
         directions = directions.expand(sources.shape[0], -1, -1)
-    return render_frame(vol, sources, directions, num_samples, config, step=step)
+    return render_frame(vol, sources, directions, num_samples, config, step=step,
+                        generator=generator)

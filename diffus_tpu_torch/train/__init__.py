@@ -1,6 +1,6 @@
-"""Training: losses, renderer-in-the-loop impedance training, checkpoints
-and metrics (``diffus_tpu/train/__init__.py``).  Pose recovery and the
-multi-case driver are not ported yet (ROADMAP A10, A9)."""
+"""Training: losses, renderer-in-the-loop impedance training, pose
+recovery, checkpoints and metrics (``diffus_tpu/train/__init__.py``).
+The multi-case driver is not ported yet (ROADMAP A9)."""
 
 from diffus_tpu_torch.train.losses import (
     ssim,
@@ -18,6 +18,22 @@ from diffus_tpu_torch.train.impedance_train import (
     train_impedance_scan,
     train_impedance,
     train_impedance_checkpointed,
+)
+from diffus_tpu_torch.train.pose_recovery import (
+    PoseRecoveryConfig,
+    AnnealedPoseConfig,
+    render_pose,
+    gaussian_blur_frame,
+    recover_pose,
+    recover_pose_multistart,
+    sample_init_poses,
+    recover_pose_annealed,
+    recover_pose_multistart_annealed,
+    score_poses,
+    recover_pose_global,
+    pose_recovery_benchmark,
+    pose_recovery_envelope,
+    recover_free,
 )
 from diffus_tpu_torch.train.checkpoint import save_checkpoint, load_checkpoint
 from diffus_tpu_torch.train.metrics import MetricsLogger

@@ -62,8 +62,8 @@ class TransducerPose:
     """6-DoF virtual transducer pose: apex position + axis-angle rotation
     of the canonical fan frame (``diffus_tpu/types.py:58-88``)."""
 
-    position: torch.Tensor  # (3,) apex in voxel coordinates
-    rotvec: torch.Tensor    # (3,) axis-angle rotation of the canonical fan frame
+    position: torch.Tensor  # (..., 3) apex in voxel coordinates
+    rotvec: torch.Tensor    # (..., 3) axis-angle rotation of the canonical fan frame
 
     @classmethod
     def create(cls, position, rotvec=None, device=None) -> "TransducerPose":
@@ -75,36 +75,37 @@ class TransducerPose:
         return cls(position=position, rotvec=rotvec)
 
     def rotation_matrix(self) -> torch.Tensor:
-        """Rodrigues formula, differentiable at the identity."""
+        """Rodrigues formula, differentiable at the identity: ``(..., 3, 3)``."""
         return rotvec_to_matrix(self.rotvec)
 
 
 def rotvec_to_matrix(rotvec: torch.Tensor) -> torch.Tensor:
-    """Axis-angle -> 3x3 rotation matrix (Rodrigues), smooth at 0
-    (``diffus_tpu/types.py:91-119``).
+    """Axis-angle ``(..., 3)`` -> rotation matrices ``(..., 3, 3)``
+    (Rodrigues), smooth at 0 (``diffus_tpu/types.py:91-119``, which takes
+    one ``(3,)`` rotvec and is vmapped over batches).
 
     sin(t)/t and (1-cos t)/t^2 switch to their series below t^2 = 1e-8.
     The double ``where`` keeps the untaken branch away from t = 0: without
     it the gradient there is NaN * 0 = NaN, which breaks pose recovery
     from an identity-rotation start.
     """
-    theta2 = torch.sum(rotvec * rotvec)
+    theta2 = torch.sum(rotvec * rotvec, dim=-1)[..., None, None]
     small = theta2 < 1e-8
     safe2 = torch.where(small, torch.ones_like(theta2), theta2)
     theta = torch.sqrt(safe2)
     sinc = torch.where(small, 1.0 - theta2 / 6.0, torch.sin(theta) / theta)
     cosc = torch.where(small, 0.5 - theta2 / 24.0, (1.0 - torch.cos(theta)) / safe2)
-    wx, wy, wz = rotvec[0], rotvec[1], rotvec[2]
+    wx, wy, wz = rotvec[..., 0], rotvec[..., 1], rotvec[..., 2]
     zero = torch.zeros_like(wx)
     K = torch.stack([
-        torch.stack([zero, -wz, wy]),
-        torch.stack([wz, zero, -wx]),
-        torch.stack([-wy, wx, zero]),
-    ])
+        torch.stack([zero, -wz, wy], dim=-1),
+        torch.stack([wz, zero, -wx], dim=-1),
+        torch.stack([-wy, wx, zero], dim=-1),
+    ], dim=-2)
     eye = torch.eye(3, dtype=rotvec.dtype, device=rotvec.device)
     # K @ K as a broadcast sum, not a matmul: a CUDA matmul may run in TF32
     # when the caller enables it, and this 3x3 product must stay full f32
-    kk = (K[:, :, None] * K[None, :, :]).sum(dim=1)
+    kk = (K[..., :, :, None] * K[..., None, :, :]).sum(dim=-2)
     return eye + sinc * K + cosc * kk
 
 

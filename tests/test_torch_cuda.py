@@ -109,6 +109,24 @@ def test_trilinear_kernel_matches_plain(cuda, shape):
 
 
 @pytest.mark.cuda
+def test_trilinear_kernel_nan_points_match_plain(cuda):
+    """A NaN component gives a NaN value and index 0 on its axis, in the
+    kernel and the plain sampler alike (a diverged pose reads NaN, not a
+    voxel's value); the other components are sampled as usual."""
+    rng = np.random.default_rng(4)
+    vol = torch.from_numpy(rng.uniform(0.5, 2.0, (9, 10, 11)).astype(np.float32)).to(cuda)
+    nan = float("nan")
+    pts = torch.tensor([[nan, 3.2, 4.7], [2.5, nan, 4.7], [2.5, 3.2, nan], [nan, nan, nan],
+                        [2.5, 3.2, 4.7], [float("inf"), -float("inf"), 4.7]], device=cuda)
+    idx_k, val_k = sample_trilinear_fused(vol, pts)
+    idx_p, val_p = sample_trilinear(vol, pts)
+    assert torch.equal(idx_k, idx_p)
+    assert torch.isnan(val_k[:4]).all() and torch.isfinite(val_k[4:]).all()
+    torch.testing.assert_close(val_k, val_p, rtol=1e-6, atol=1e-7, equal_nan=True)
+    assert idx_k[0, 0].item() == 0 and idx_k[1, 1].item() == 0 and idx_k[2, 2].item() == 0
+
+
+@pytest.mark.cuda
 def test_trilinear_kernel_gradients_match_plain(cuda):
     rng = np.random.default_rng(3)
     vol0 = torch.from_numpy(brain_phantom_3d((20, 24, 22)) / 1e6).to(cuda)

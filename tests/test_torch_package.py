@@ -29,6 +29,9 @@ MODULES = [
     "diffus_tpu_torch.ops.morphology", "diffus_tpu_torch.train",
     "diffus_tpu_torch.train.losses", "diffus_tpu_torch.train.impedance_train",
     "diffus_tpu_torch.train.checkpoint", "diffus_tpu_torch.train.metrics",
+    "diffus_tpu_torch.ops.bmode", "diffus_tpu_torch.ops.artifacts",
+    "diffus_tpu_torch.geometry.affine", "diffus_tpu_torch.geometry.calibration",
+    "diffus_tpu_torch.scene", "diffus_tpu_torch.train.pose_recovery",
 ]
 
 

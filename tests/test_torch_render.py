@@ -132,8 +132,18 @@ def test_frame_time_delays_match_jax(spacing):
 @pytest.mark.parametrize("fields", [{"pulse_length": 8}, {"envelope": True},
                                     {"artifacts": True}])
 def test_unported_stages_raise(fields):
-    with pytest.raises(NotImplementedError, match="A7"):
-        tr.render_frame(torch.from_numpy(VOL), SRC, DIRS, N, RenderConfig(**fields))
+    """The three stages once raised NotImplementedError; now each renders,
+    and artifacts without a generator raise as JAX does without a key
+    (parity of the stages: tests/test_torch_bmode.py)."""
+    vol = torch.from_numpy(VOL)
+    if fields.get("artifacts"):
+        with pytest.raises(ValueError, match="Generator"):
+            tr.render_frame(vol, SRC, DIRS, N, RenderConfig(**fields))
+        frame = tr.render_frame(vol, SRC, DIRS, N, RenderConfig(**fields),
+                                generator=torch.Generator().manual_seed(0))[3]
+    else:
+        frame = tr.render_frame(vol, SRC, DIRS, N, RenderConfig(**fields))[3]
+    assert frame.shape == (8, N) and bool(torch.isfinite(frame).all())
 
 
 def test_bad_inputs_raise():

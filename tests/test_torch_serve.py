@@ -50,7 +50,7 @@ def test_service_counts_requests_and_frames():
         svc.render(_sources(p, 10 + p))
     # 9 poses = tiers 4 + 4 + 1; 3 poses pad to 4
     assert svc.snapshot_stats() == {"requests": 4, "frames": 14, "padded_frames": 1,
-                                    "batches": 6}
+                                    "batches": 6, "recoveries": 0}
 
 
 def test_service_update_volume():
