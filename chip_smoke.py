@@ -2,25 +2,40 @@
 """Smoke run of the PyTorch port (``diffus_tpu_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --requests    # phases 1, 2 and the service's request times only
+
+``--requests`` times the serving path alone (latency and device-time split
+per tier) with whatever ``diffus_tpu_torch`` sits beside the script, so a
+copy of the script beside another checkout's package times that package.
 
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. device: needs CUDA (there is no CPU mode); prints the card's name and
    power limit as ``nvidia-smi`` reports them;
 2. build: compiles the CUDA kernels from ``diffus_tpu_torch/csrc`` into
-   ``diffus_tpu_torch/build/`` and prints the time;
+   ``diffus_tpu_torch/build/`` and prints the time and each kernel's
+   registers and spills as ``ptxas`` reports them;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the main path's shapes (K1 echo scan on the reflection coefficients of
    a 32-pose batch, 8192 rays x 511 interfaces, parity and symmetric, with
    a NaN row and d' = 0 rows; K2 trilinear on the 256^3 brain phantom at
    32 x 256 x 512 points, some outside and three with a NaN component);
+   K1 also against ``echo_chunked_plain``, its own evaluation order in
+   plain PyTorch, bit for bit, in every lane count it is built for;
 4. main path: a ``RendererService`` on the 256^3 phantom at 256 rays x 512
    samples, ``interp='trilinear_fused'`` with ``use_pallas=True``, tiers
    (1, 8, 32), answers requests of 1, 5 and 32 poses; both kernels'
    launch counters must rise; one frame is held against the plain path
    in float64 on the CPU, plus a B-mode splat and a nearest frame;
-5. times (CUDA events, after warm-up): each kernel against its plain
-   version, and the request latency of each tier;
+5. times (CUDA events, after warm-up): K1 against its plain version at
+   the 1-, 8- and 32-pose batches (256, 2048, 8192 rays x 511) and its
+   device time per launch from ``torch.profiler`` there and at 8, 16 and
+   32 lanes per ray; K2 against its plain version and against
+   ``F.grid_sample`` (values only; checked against K2); each kernel's
+   bound (bytes over 3.35 TB/s or operations over 67 TFLOP/s, whichever
+   is larger; K2's bytes count the distinct 32-byte volume sectors the
+   corners touch, counted on the card); the request latency of each tier
+   and its device time split (K1, K2, the rest) from ``torch.profiler``;
 6. K3 row-gather probe against its plain version and a float64 sum, at
    the probe's own shapes (M = 131072 rows of 128 floats, 2^20 rows,
    n_buf 8, offsets 0, 5065, -7, M + 3) and one small case; then its entry
@@ -64,11 +79,13 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 TF32 is off for matmuls and cuDNN (``torch.backends``), so no comparison
 depends on those defaults.  The line before the last is a JSON object of
-the kernels; the last line is ``{"ok": true, "device": {...}}``.
+the kernels (time, plain time, bound, library call's time, launches per
+path); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import argparse
 import copy
 import dataclasses
 import json
@@ -85,6 +102,13 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 import numpy as np
 import torch
 
+# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM3 bytes/s, and
+# f32 FLOP/s outside the tensor cores
+HBM_BYTES_PER_S, F32_FLOPS = 3.35e12, 67e12
+# operations per K1 step (k, the 2x2 left-multiply, 4 abs and 4 max, the
+# reciprocal and 4 multiplies, -c/d, nan_to_num, att): ~35; per K2 point
+# (clamp, floor and fraction per axis, 7 lerps, 3 rounded indices): ~45
+K1_OPS_PER_STEP, K2_OPS_PER_POINT = 35, 45
 ATT = 1e-4
 SHAPE = (256, 256, 256)
 N_RAYS, N_SAMPLES = 256, 512
@@ -106,6 +130,83 @@ def _card() -> str:
 def _sources(rng, p: int) -> torch.Tensor:
     off = rng.uniform([-6.0, -2.0, -6.0], [6.0, 2.0, 6.0], size=(p, 3))
     return torch.tensor(APEX + off, dtype=torch.float32)
+
+
+def _bound(n_bytes: float, ops: float) -> dict:
+    """The least time the card could take: bytes over HBM bandwidth or
+    operations over the f32 peak, whichever is larger."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops
+            else "operations", "bound_bytes": n_bytes, "bound_ops": ops}
+
+
+def _k1_bound(b: int, n: int) -> dict:
+    """r read once, the echo written once, the N+1 attenuation factors."""
+    return _bound(4.0 * b * n + 4.0 * b * (n + 1) + 4.0 * (n + 1), K1_OPS_PER_STEP * b * n)
+
+
+def _k2_sectors(vol: torch.Tensor, pts: torch.Tensor) -> int:
+    """Distinct 32-byte sectors of the f32 volume that the 8 corners of the
+    points touch, with the kernel's clamp (no NaN points)."""
+    d, h, w = vol.shape
+    hi = torch.tensor([d - 1, h - 1, w - 1], device=pts.device)
+    p = torch.minimum(torch.clamp(pts.reshape(-1, 3), min=0.0), hi.to(pts.dtype))
+    i0 = torch.floor(p).long()
+    i1 = torch.minimum(i0 + 1, hi)
+    x, y, z = (torch.stack([i0[:, k], i1[:, k]]) for k in range(3))
+    lin = x[:, None, None] * (h * w) + y[None, :, None] * w + z[None, None, :]
+    return int(torch.unique(lin.reshape(-1) // 8).numel())
+
+
+def _grid_sample_grid(pts: torch.Tensor, shape) -> torch.Tensor:
+    """``F.grid_sample``'s grid for voxel points ``(..., 3)`` in (D, H, W)
+    order: components reversed (the first indexes W) and mapped to [-1, 1]
+    as ``align_corners=True`` reads them."""
+    size = torch.tensor(shape[::-1], dtype=pts.dtype, device=pts.device)
+    return (2.0 * pts.flip(-1) / (size - 1.0) - 1.0).reshape(1, *pts.shape[:-1], 3)
+
+
+def _kernel_device_us(fn, name: str, iters: int) -> float:
+    """Mean device time of one launch of the kernels whose name holds
+    ``name`` over ``iters`` calls of ``fn``, from ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    times = [e.device_time_total / e.count for e in prof.key_averages()
+             if name in e.key and e.count > 0 and e.device_time_total > 0]
+    if not times:
+        raise AssertionError(f"torch.profiler saw no device time of {name}")
+    return max(times)
+
+
+def _ptxas_report(log: str) -> list:
+    """``name: registers, spills`` per kernel from ``nvcc -Xptxas -v``'s log;
+    names demangled by ``c++filt`` where the machine has it."""
+    rows, name, spill = [], None, ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "spill stores" in line and name:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line and name:
+            regs = line.split("Used", 1)[1].split(",")[0].strip()
+            rows.append([name, f"{regs}; {spill}"])
+            name, spill = None, ""
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(n for n, _ in rows),
+                               capture_output=True, text=True, timeout=60).stdout.splitlines()
+    except OSError:
+        names = []
+    if len(names) == len(rows):
+        for row, full in zip(rows, names):
+            row[0] = full.replace("(anonymous namespace)::", "").replace("void ", "").split(
+                "(")[0]
+    return [f"{n}: {info}" for n, info in rows]
 
 
 def _event_ms(fn, iters: int) -> float:
@@ -160,9 +261,11 @@ def _gather_probe_phase(dev) -> dict:
     # 1e-6 * sum |x_i|, a bound any summation order meets at these sizes.
     worst = {"kernel": 0.0, "plain": 0.0}
     k3_err = 0.0
+    distinct = 0
     for off in (0, 5065, -7, m + 3):
         rows = np.remainder(off + 97 * np.arange(n_rows, dtype=np.int64), m)
         counts = np.bincount(rows, minlength=m).astype(np.float64)
+        distinct = max(distinct, int(np.count_nonzero(counts)))
         want, bound = counts @ t64, 1e-6 * (counts @ a64)
         got = probe.gather_probe(off, table, n_rows, 8)
         plain = probe.take_probe(off, table, n_rows)
@@ -190,17 +293,28 @@ def _gather_probe_phase(dev) -> dict:
           f"{worst['kernel']:.3e}, plain {worst['plain']:.3e}; max_abs_err {k3_err:.3e}; "
           f"small (64, 128) x 48 rows ok", flush=True)
 
+    # the library's way, index_select + sum over precomputed row ids
+    idx = torch.remainder(97 * torch.arange(n_rows, device=dev), m)
+    library_ms = _event_ms(lambda: torch.index_select(table, 0, idx).sum(dim=0), 5)
+
     probe.gather_probe.launches = 0
     record = probe.main()
     launches = probe.gather_probe.launches
     if launches < 1:
         raise AssertionError("K3's entry point never launched the kernel")
     per_call = n_rows * 1e-6
+    # each distinct row read once (all M rows: 97 and M are coprime), one row out
+    bound = _bound(512.0 * (distinct + 1), float(n_rows) * 128)
+    print(f"K3 bound: {distinct} distinct rows of 512 B read once -> {bound['bound_ms']:.6f} ms "
+          f"({bound['bound_by']}); the probe's own measure, every gathered row from HBM, is "
+          f"{512 / HBM_BYTES_PER_S * 1e9:.4f} ns/row; index_select + sum {library_ms:.4f} ms",
+          flush=True)
     return {"launches": launches, "max_abs_err": k3_err,
             "ns_per_row": record["cuda_gather_ns_per_row"],
             "plain_ns_per_row": record["torch_take_ns_per_row"],
             "ms": record["cuda_gather_ns_per_row"] * per_call,
-            "plain_ms": record["torch_take_ns_per_row"] * per_call}
+            "plain_ms": record["torch_take_ns_per_row"] * per_call,
+            "library_ms": library_ms, **bound}
 
 
 def _param_grads(model, *args) -> dict:
@@ -407,6 +521,40 @@ def _tier_latencies(svc, rng, card: str, label: str) -> None:
               flush=True)
 
 
+def _request_profiles(svc, rng, card: str, label: str) -> dict:
+    """Device time per request at each batch tier from ``torch.profiler``
+    over 5 requests, with K1's and K2's part, and the idle share of the
+    profiled wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for tier in TIERS:
+        src_t = _sources(rng, tier)
+        for _ in range(3):
+            svc.render(src_t)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(5):
+                svc.render(src_t)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        device = [e for e in prof.events() if e.device_type != torch.autograd.DeviceType.CPU
+                  and not getattr(e, "is_user_annotation", False)]
+        total = sum(e.device_time_total for e in device)
+        k1_us = sum(e.device_time_total for e in device if "echo_scan_kernel" in e.name)
+        k2_us = sum(e.device_time_total for e in device if "trilinear_kernel" in e.name)
+        if total <= 0:
+            raise AssertionError(f"torch.profiler saw no device time in a {label}")
+        out[tier] = {"device_ms": total / 5e3, "k1_ms": k1_us / 5e3, "k2_ms": k2_us / 5e3,
+                     "idle": 1 - total / wall_us}
+        print(f"times [{card}]: {label} of {tier} poses, device time per request {total / 5e3:.4f} "
+              f"ms (profiler, 5 requests; K1 {k1_us / 5e3:.4f} ms, K2 {k2_us / 5e3:.4f} ms; "
+              f"{len(device) / 5:.0f} device activities a request; device idle "
+              f"{1 - total / wall_us:.1%} of {wall_us / 5e3:.4f} ms profiled wall)", flush=True)
+    return out
+
+
 def _counts_reset() -> None:
     from diffus_tpu_torch.kernels.propagation_cuda import echo_fused
     from diffus_tpu_torch.kernels.trilinear_cuda import sample_trilinear_fused
@@ -573,11 +721,19 @@ def _recovery_frame_check(dev, svc, init, fit: dict, first, label: str) -> str:
     Near a resonance of the echo scan f32 is off from f64 in any evaluation
     order (at 256 x 512, ~1e-3 of a frame's max), so, as phase 3 holds K1,
     each kernel frame may be at most max(1e-4, 2x) the plain f32 path's
-    distance from f64 (frame-max-relative); so may the starts' exact-frame
-    losses ``first`` (relative), which ``_recover`` took through the kernels."""
+    distance from f64 (frame-max-relative).  The starts' exact-frame losses
+    ``first``, which ``_recover`` took through the kernels, are held
+    (relative) to max(1e-4, 2x) the larger of two distances from f64: the
+    plain f32 path's, and that of an exact (float64) scan of the kernel
+    path's own f32 reflections.  At a start whose rays cross near-resonant
+    echoes, rounding the reflections to f32 alone moves the loss by more
+    than 1e-4, whatever the scan does.  The loss errors of K1's orders on
+    those reflections (its twin at 1 lane, the Pallas kernel's sequential
+    order, and at 8, 16, 32 lanes) are printed beside them."""
     from diffus_tpu_torch.geometry.fan import pose_fan_directions
+    from diffus_tpu_torch.kernels.propagation_cuda import LANES, echo_chunked_plain, echo_plain
     from diffus_tpu_torch.phantoms import brain_phantom_3d
-    from diffus_tpu_torch.render.renderer import render_frame
+    from diffus_tpu_torch.render.renderer import render_frame, simulate_rays
     from diffus_tpu_torch.types import TransducerPose
 
     base = svc._recovery_config().as_base()
@@ -594,6 +750,18 @@ def _recovery_frame_check(dev, svc, init, fit: dict, first, label: str) -> str:
         plain32 = render_frame(svc.volume, position, dirs, n, plain)[3].double().cpu()
         vol64 = torch.from_numpy(brain_phantom_3d(tuple(svc.volume.shape))).double()
         ref = render_frame(vol64, position.cpu(), dirs.cpu(), n, plain)[3]
+        # the kernel path's frame is its echo trace (no start skip, pulse or
+        # envelope in this config), so each order's frames are its twin's output
+        if base.render.start_index(n) or base.render.pulse_length or base.render.envelope:
+            raise AssertionError("the recovery config is no longer a raw echo frame")
+        r = simulate_rays(svc.volume, position, dirs, n, base.render.interp)[1]
+        mode, att = base.render.reflection_mode, base.render.attenuation_coeff
+        orders = {lanes: echo_chunked_plain(r, mode, att, lanes).double().cpu()
+                  for lanes in (1, 8, 16, 32)}
+        exact = echo_plain(r.double(), mode, att).cpu()
+    if not torch.equal(orders[LANES], kernel):
+        raise AssertionError(f"recovery frames ({label}): the kernel path differs from K1's "
+                             f"twin at {LANES} lanes on the same reflections")
     peak = ref.abs().amax(dim=(1, 2))
     e_k = ((kernel - ref).abs().amax(dim=(1, 2)) / peak).numpy()
     e_p = ((plain32 - ref).abs().amax(dim=(1, 2)) / peak).numpy()
@@ -609,13 +777,20 @@ def _recovery_frame_check(dev, svc, init, fit: dict, first, label: str) -> str:
     loss64 = start_losses(ref)
     l_k = np.abs(np.asarray(first, np.float64) - loss64) / loss64
     l_p = np.abs(start_losses(plain32) - loss64) / loss64
-    if not np.all(l_k <= np.maximum(1e-4, 2.0 * l_p)):
-        raise AssertionError(f"starts' losses ({label}) vs float64 CPU: kernel {l_k.tolist()}, "
-                             f"plain f32 {l_p.tolist()}")
+    l_exact = np.abs(start_losses(exact) - loss64) / loss64
+    l_order = {lanes: np.abs(start_losses(f) - loss64) / loss64 for lanes, f in orders.items()}
+    detail = (f"f64 losses {np.round(loss64, 6).tolist()}; kernel {l_k.tolist()}, plain f32 "
+              f"{l_p.tolist()}, exact scan of the f32 reflections {l_exact.tolist()}; K1's "
+              f"orders through their twin: " + "; ".join(
+                  f"{'sequential' if lanes == 1 else f'{lanes} lanes'} {v.tolist()}"
+                  for lanes, v in l_order.items()))
+    if not np.all(l_k <= np.maximum(1e-4, 2.0 * np.maximum(l_p, l_exact))):
+        raise AssertionError(f"starts' losses ({label}) vs float64 CPU (relative): {detail}")
     return (f"recovery frames ({label}) vs float64 CPU (frame-max-relative, worst of target, "
             f"{STARTS} starts, {STARTS} ends; kernel/plain f32): {e_k.max():.3e}/"
             f"{e_p.max():.3e}, target {e_k[0]:.3e}/{e_p[0]:.3e}; starts' exact-frame losses "
-            f"(relative): {l_k.max():.3e}/{l_p.max():.3e}")
+            f"(relative) kernel/plain f32/exact scan of the f32 reflections: {l_k.max():.3e}/"
+            f"{l_p.max():.3e}/{l_exact.max():.3e}; {detail}")
 
 
 def _recovery_grad_check(dev, svc, run: dict, label: str) -> None:
@@ -696,20 +871,35 @@ def _subtree(event):
         yield from _subtree(child)
 
 
-def main() -> int:
+def _requests_only(dev, card: str) -> int:
+    """``--requests``: the phase-4 service's request latency and device-time
+    split at each tier, nothing else."""
+    from diffus_tpu_torch.phantoms import brain_phantom_3d
+    from diffus_tpu_torch.serve import RendererService
+    from diffus_tpu_torch.types import BeamGeometry, RenderConfig
+
+    vol = torch.from_numpy(brain_phantom_3d(SHAPE)).to(dev)
+    cfg = RenderConfig(attenuation_coeff=ATT, interp="trilinear_fused", use_pallas=True)
+    svc = RendererService(vol, BeamGeometry(N_RAYS, N_SAMPLES), cfg, batch_tiers=TIERS,
+                          device=dev)
+    svc.warmup()
+    rng = np.random.default_rng(0)
+    _tier_latencies(svc, rng, card, "request")
+    _request_profiles(svc, rng, card, "request")
+    return 0
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--requests", action="store_true",
+                        help="time only the service's requests at each tier")
+    args = parser.parse_args(argv)
     # -- 1. device ---------------------------------------------------------
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs an "
               "NVIDIA GPU", file=sys.stderr)
         return 2
     from diffus_tpu_torch.kernels import _build
-    from diffus_tpu_torch.kernels.propagation_cuda import echo_fused, echo_plain
-    from diffus_tpu_torch.kernels.trilinear_cuda import sample_trilinear_fused
-    from diffus_tpu_torch.ops.sampling import ray_points, sample_trilinear
-    from diffus_tpu_torch.phantoms import brain_phantom_3d
-    from diffus_tpu_torch.render.renderer import render_bmode, render_frame, simulate_rays
-    from diffus_tpu_torch.serve import RendererService
-    from diffus_tpu_torch.types import BeamGeometry, RenderConfig
 
     # full float32 in every matmul and convolution, whatever the defaults
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -723,9 +913,26 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.library()
     build_s = time.perf_counter() - t0
-    regs = [ln.strip() for ln in _build.LOG_PATH.read_text().splitlines() if "registers" in ln]
+    regs = _ptxas_report(_build.LOG_PATH.read_text())
     print(f"build: {build_s:.2f} s ({'compiled' if stale else 'up to date'}); "
           + " | ".join(regs), flush=True)
+    if args.requests:
+        return _requests_only(dev, card)
+
+    import torch.nn.functional as F
+
+    from diffus_tpu_torch.kernels import propagation_cuda as k1
+    from diffus_tpu_torch.kernels.propagation_cuda import (
+        echo_chunked_plain,
+        echo_fused,
+        echo_plain,
+    )
+    from diffus_tpu_torch.kernels.trilinear_cuda import sample_trilinear_fused
+    from diffus_tpu_torch.ops.sampling import ray_points, sample_trilinear
+    from diffus_tpu_torch.phantoms import brain_phantom_3d
+    from diffus_tpu_torch.render.renderer import render_bmode, render_frame, simulate_rays
+    from diffus_tpu_torch.serve import RendererService
+    from diffus_tpu_torch.types import BeamGeometry, RenderConfig
 
     # -- 3. kernels against their plain versions ---------------------------
     rng = np.random.default_rng(0)
@@ -785,6 +992,26 @@ def main() -> int:
     print(f"K1 echo scan vs plain at {tuple(r.shape)}, nearest reflections: parity + "
           f"symmetric ok, max_abs_err {k1_err:.3e} (rtol 1e-4, atol 1e-6); trilinear "
           f"reflections, worst error vs f64 in tolerances: " + ", ".join(k1_tri), flush=True)
+    # (c) the kernel's own evaluation order in plain PyTorch: the same IEEE f32
+    #     operations in the same order (--fmad=false), so equal bit for bit;
+    #     the shipped lane count on both inputs, every built one on (a)
+    for mode in ("parity", "symmetric"):
+        for x, what in ((r, "nearest"), (r_tri, "trilinear")):
+            got, want = echo_fused(x, mode, ATT), echo_chunked_plain(x, mode, ATT)
+            if not torch.equal(got, want):
+                raise AssertionError(f"K1 {mode} on {what} reflections differs from "
+                                     f"echo_chunked_plain: max abs "
+                                     f"{float((got - want).abs().max()):.3e}")
+        for lanes in (8, 16, 32):
+            got, want = k1._launch(r, mode, ATT, lanes), echo_chunked_plain(r, mode, ATT, lanes)
+            if not torch.equal(got, want):
+                raise AssertionError(f"K1 {mode}, {lanes} lanes, differs from "
+                                     f"echo_chunked_plain: max abs "
+                                     f"{float((got - want).abs().max()):.3e}")
+    torch.cuda.synchronize()
+    print(f"K1 vs echo_chunked_plain (its order in plain PyTorch) at {tuple(r.shape)}: equal "
+          f"bit for bit, parity + symmetric, shipped {k1.LANES} lanes on nearest and "
+          f"trilinear reflections, 8/16/32 lanes on nearest", flush=True)
 
     pts = ray_points(src32, dirs.expand(32, -1, -1), N_SAMPLES).contiguous()
     pts[:, ::16] = torch.from_numpy(
@@ -847,15 +1074,67 @@ def main() -> int:
           f"{err_tri:.3e}, nearest {err_near:.3e}; bmode (256, 256) finite", flush=True)
 
     # -- 5. times ------------------------------------------------------------
-    k1_ms, k1_plain = _paired_ms(lambda: echo_fused(r, "parity", ATT),
-                                 lambda: echo_plain(r, "parity", ATT), 20)
+    # K1 at the 1-, 8- and 32-pose batches of the main path, wrapper included
+    n_if = r.shape[1]
+    k1_by_rays = {}
+    for rays in (N_RAYS, 8 * N_RAYS, 32 * N_RAYS):
+        x = r[:rays]
+        k_ms, p_ms = _paired_ms(lambda: echo_fused(x, "parity", ATT),
+                                lambda: echo_plain(x, "parity", ATT), 20)
+        dev_us = _kernel_device_us(lambda: echo_fused(x, "parity", ATT), "echo_scan_kernel", 20)
+        # the wrapper's host time per call: 50 calls queued without a synchronize
+        t0 = time.perf_counter()
+        for _ in range(50):
+            echo_fused(x, "parity", ATT)
+        host_us = (time.perf_counter() - t0) / 50 * 1e6
+        torch.cuda.synchronize()
+        k1_by_rays[rays] = {"ms": k_ms, "plain_ms": p_ms, "device_us": dev_us,
+                            "host_us": host_us, **_k1_bound(rays, n_if)}
+        bound_ms = k1_by_rays[rays]["bound_ms"]
+        print(f"times [{card}]: K1 echo scan ({rays}, {n_if}) {k_ms:.4f} ms (CUDA events, "
+              f"wrapper included) vs plain {p_ms:.4f} ms; kernel alone {dev_us:.2f} us "
+              f"(profiler), the wrapper's host time {host_us:.2f} us a call; bound "
+              f"{bound_ms:.4f} ms ({k1_by_rays[rays]['bound_by']}): {bound_ms / k_ms:.1%} of it "
+              f"with the wrapper, {bound_ms * 1e3 / dev_us:.1%} alone", flush=True)
+    k1_variants = {f"{lanes} lanes": _kernel_device_us(lambda: k1._launch(r, "parity", ATT, lanes),
+                                                       "echo_scan_kernel", 20) / 1e3
+                   for lanes in (8, 16, 32)}
+    print(f"times [{card}]: K1 variants at {tuple(r.shape)} (device time per launch, profiler): "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in k1_variants.items()), flush=True)
+    k1_main = k1_by_rays[32 * N_RAYS]
+
     pts_main = ray_points(src32, dirs.expand(32, -1, -1), N_SAMPLES)
     k2_ms, k2_plain = _paired_ms(lambda: sample_trilinear_fused(vol, pts_main),
                                  lambda: sample_trilinear(vol, pts_main), 20)
-    print(f"times [{card}]: K1 echo scan {tuple(r.shape)} {k1_ms:.4f} ms vs plain "
-          f"{k1_plain:.4f} ms; K2 trilinear {tuple(pts_main.shape[:-1])} {k2_ms:.4f} ms "
-          f"vs plain {k2_plain:.4f} ms", flush=True)
+    # the library's values-only yardstick; it writes no idx
+    grid = _grid_sample_grid(pts_main, tuple(vol.shape))
+    vol5 = vol[None, None]
+
+    def grid_sample():
+        return F.grid_sample(vol5, grid, mode="bilinear", padding_mode="border",
+                             align_corners=True)
+
+    gs_ms = _event_ms(grid_sample, 20)
+    # grid_sample unnormalises ((g + 1) / 2) (size - 1) and weights the corners
+    # as products of fractions: its points move by a few ulps of 255, ~3e-5
+    # voxel, so its values may differ from K2's by 1e-4 voxel times the largest
+    # step between neighbouring voxels, on each axis, plus f32 rounding
+    steps = sum(float(vol.diff(dim=k).abs().max()) for k in range(3))
+    gs_err = float((grid_sample()[0, 0] - sample_trilinear_fused(vol, pts_main)[1]).abs().max())
+    gs_tol = 1e-4 * steps + 1e-6 * float(vol.abs().max())
+    if not gs_err <= gs_tol:
+        raise AssertionError(f"grid_sample vs K2: max abs {gs_err:.4e} > {gs_tol:.4e}")
+    n_pts = pts_main[..., 0].numel()
+    sectors = _k2_sectors(vol, pts_main)
+    k2_bound = _bound(28.0 * n_pts + 32.0 * sectors, K2_OPS_PER_POINT * n_pts)
+    print(f"times [{card}]: K2 trilinear {tuple(pts_main.shape[:-1])} {k2_ms:.4f} ms vs plain "
+          f"{k2_plain:.4f} ms vs F.grid_sample (values only) {gs_ms:.4f} ms, which is "
+          f"{gs_err:.3e} from K2 (limit {gs_tol:.3e}); bound: 28 B x {n_pts} points + "
+          f"{sectors} distinct 32-byte volume sectors = {k2_bound['bound_bytes'] / 1e6:.2f} MB "
+          f"-> {k2_bound['bound_ms']:.4f} ms ({k2_bound['bound_by']}), "
+          f"{k2_bound['bound_ms'] / k2_ms:.1%} of it", flush=True)
     _tier_latencies(svc, rng, card, "request")
+    _request_profiles(svc, rng, card, "request")
 
     # -- 6. K3 against its plain version, then its path ----------------------
     k3 = _gather_probe_phase(dev)
@@ -876,17 +1155,23 @@ def main() -> int:
         {"name": "echo_scan", "route": "cuda", "source": "diffus_tpu_torch/csrc/echo_scan.cu",
          "replaces": "diffus_tpu/kernels/propagation_pallas.py:45",
          "launches": launches["echo_scan"], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain},
+         "ms": k1_main["ms"], "plain_ms": k1_main["plain_ms"],
+         "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"], "library_ms": None,
+         "lanes": k1.LANES, "device_us": k1_main["device_us"],
+         "by_rays": k1_by_rays, "variants_ms": k1_variants},
         {"name": "trilinear_sample", "route": "cuda",
          "source": "diffus_tpu_torch/csrc/trilinear.cu",
          "replaces": "diffus_tpu/kernels/tile_select_pallas.py:46",
          "launches": launches["trilinear_sample"], "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain},
+         "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound["bound_ms"],
+         "bound_by": k2_bound["bound_by"], "library_ms": gs_ms, "grid_sample_ms": gs_ms,
+         "bound_bytes": k2_bound["bound_bytes"], "volume_sectors": sectors},
         {"name": "gather_probe", "route": "cuda",
          "source": "diffus_tpu_torch/csrc/gather_probe.cu",
          "replaces": "diffus_tpu/kernels/gather_dma_probe.py:43",
          "launches": k3["launches"], "max_abs_err": k3["max_abs_err"],
-         "ms": k3["ms"], "plain_ms": k3["plain_ms"],
+         "ms": k3["ms"], "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
+         "bound_by": k3["bound_by"], "library_ms": k3["library_ms"],
          "ns_per_row": k3["ns_per_row"], "plain_ns_per_row": k3["plain_ns_per_row"]},
     ]
     for k in kernels[:2]:

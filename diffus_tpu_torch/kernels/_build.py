@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-All ``diffus_tpu_torch/csrc/*.cu`` compile with ``nvcc`` into one shared
-library with a plain C interface, ``diffus_tpu_torch/build/libdiffus_kernels.so``,
+Each ``diffus_tpu_torch/csrc/*.cu`` compiles with its own ``nvcc``, all
+started together, and the objects link into one shared library with a
+plain C interface, ``diffus_tpu_torch/build/libdiffus_kernels.so``,
 loaded with ``ctypes``.  No PyTorch header is included, so a build takes
 seconds.  The build runs at first use and again whenever the sources or
 the flags change (their SHA-256 is kept beside the library).  Importing
@@ -30,7 +31,7 @@ LIB_PATH = BUILD_DIR / "libdiffus_kernels.so"
 LOG_PATH = BUILD_DIR / "nvcc.log"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "--fmad=false",
-    "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v", "-Xcompiler", "-fPIC",
 )
 
 _lock = threading.Lock()
@@ -38,9 +39,9 @@ _lib = None
 
 _c = ctypes.c_void_p
 _SIGNATURES = {
-    # r, out, n, b, mode, decay, stream
-    "diffus_echo_scan": (_c, _c, ctypes.c_int, ctypes.c_int64, ctypes.c_int,
-                         ctypes.c_float, _c),
+    # r, att, out, n, b, mode, lanes, stream
+    "diffus_echo_scan": (_c, _c, _c, ctypes.c_int, ctypes.c_int64, ctypes.c_int,
+                         ctypes.c_int, _c),
     # vol, pts, out, idx, n, d, h, w, stream
     "diffus_trilinear_sample": (_c, _c, _c, _c, ctypes.c_int64, ctypes.c_int,
                                 ctypes.c_int, ctypes.c_int, _c),
@@ -72,18 +73,34 @@ def _nvcc() -> str:
 
 
 def build() -> Path:
-    """Compile the sources into :data:`LIB_PATH` (atomically replaced) and
-    write the compiler's report (registers, spills) to :data:`LOG_PATH`."""
+    """Compile the sources, one ``nvcc`` each and all at once, link them into
+    :data:`LIB_PATH` (atomically replaced) and write the compiler's report
+    (registers, spills) to :data:`LOG_PATH`."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    LOG_PATH.write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
-    os.replace(tmp, LIB_PATH)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        jobs = []
+        for src in _sources():
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(Path(tmp) / f"{src.stem}.o"), str(src)]
+            jobs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                               stderr=subprocess.STDOUT, text=True)))
+        lib = Path(tmp) / LIB_PATH.name
+        link = [nvcc, "-shared", "-o", str(lib), *(cmd[cmd.index("-o") + 1] for cmd, _ in jobs)]
+        log, failed = [], []
+        for cmd, proc in jobs:
+            out = proc.communicate()[0]
+            log.append(" ".join(cmd) + "\n" + out)
+            if proc.returncode != 0:
+                failed.append(f"{cmd[-1]} ({proc.returncode}):\n{out[-4000:]}")
+        if not failed:
+            proc = subprocess.run(link, capture_output=True, text=True)
+            log.append(" ".join(link) + "\n" + proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                failed.append(f"link ({proc.returncode}):\n{proc.stderr[-4000:]}")
+        LOG_PATH.write_text("".join(log))
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        os.replace(lib, LIB_PATH)
     (BUILD_DIR / "libdiffus_kernels.sha256").write_text(_digest())
     return LIB_PATH
 

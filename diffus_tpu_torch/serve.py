@@ -37,14 +37,17 @@ class RendererService:
     Example::
 
         svc = RendererService(z_volume, BeamGeometry(256, 512),
-                              RenderConfig(attenuation_coeff=1e-4), device="cuda:0")
+                              RenderConfig(attenuation_coeff=1e-4))   # on the card
         svc.warmup()                       # build kernels, touch every tier
         frames = svc.render(sources)       # (P, 3) -> (P, rays, depth)
         fit = svc.recover_pose(frame, init_position=[128.0, 4.0, 128.0])
 
-    ``render`` returns a device tensor; on CUDA it returns once the work is
-    queued, so a caller that times it synchronizes first.  The lock guards
-    the counters and the volume reference only, never a render.
+    ``device`` defaults to the card (``"cuda"``), as the JAX service uses
+    the default device; where there is none the service raises rather than
+    serve on the CPU, which takes ``device="cpu"``.  ``render`` returns a
+    device tensor; on CUDA it returns once the work is queued, so a caller
+    that times it synchronizes first.  The lock guards the counters and the
+    volume reference only, never a render.
     """
 
     def __init__(
@@ -54,7 +57,7 @@ class RendererService:
         config: RenderConfig = RenderConfig(attenuation_coeff=1e-4),
         median_direction=(0.0, 1.0),
         batch_tiers: Sequence[int] = (1, 8, 32),
-        device="cpu",
+        device="cuda",
     ):
         self.geometry = geometry
         self.config = config
@@ -62,6 +65,10 @@ class RendererService:
         if not self.batch_tiers:
             raise ValueError("need at least one batch tier")
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"RendererService on device {str(device)!r}, but torch.cuda.is_available() is "
+                f"False here; pass device='cpu' to serve on the CPU")
         self.directions = fan_directions_2d(
             median_direction, geometry.opening_angle, geometry.n_rays, device=self.device)
         self.stats = {"requests": 0, "frames": 0, "padded_frames": 0, "batches": 0,

@@ -12,7 +12,13 @@ import torch
 
 from diffus_tpu_torch.geometry import fan_directions_2d
 from diffus_tpu_torch.kernels.gather_probe import gather_probe, take_probe
-from diffus_tpu_torch.kernels.propagation_cuda import echo_fused, echo_plain
+from diffus_tpu_torch.kernels.propagation_cuda import (
+    _att_table,
+    _launch,
+    echo_chunked_plain,
+    echo_fused,
+    echo_plain,
+)
 from diffus_tpu_torch.kernels.trilinear_cuda import sample_trilinear_fused
 from diffus_tpu_torch.ops.sampling import sample_trilinear
 from diffus_tpu_torch.phantoms import brain_phantom_3d
@@ -63,6 +69,62 @@ def test_echo_kernel_nan_and_singular_rows(cuda):
         torch.testing.assert_close(got, want, rtol=1e-6, atol=0.0)
         assert got[row, 2].item() == -torch.finfo(torch.float32).max
         assert torch.all(got[0, 2:] == 0)
+
+
+def _k1_rows(rng, b, n, amp=0.8):
+    """U(-amp, amp) rows with, where there is room, a NaN interface mid-row
+    and d' = 0 at depth 2 (parity row 1, symmetric row 2) before zeros."""
+    r = rng.uniform(-amp, amp, (b, n)).astype(np.float32)
+    if n >= 3 and b >= 3:
+        r[0, n // 2] = np.nan
+        r[1:3, 2:] = 0.0
+        r[1, :2] = [2.0, 0.5]
+        r[2, :2] = [2.0, -0.5]
+    return r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [8, 16, 32])
+def test_echo_kernel_matches_its_chunked_twin_bit_for_bit(cuda, lanes):
+    """The kernel and ``echo_chunked_plain`` run the same IEEE f32 operations
+    in the same order (``--fmad=false``): equal bit for bit, at depths below,
+    at and above the lane count and at rays that leave a block part-empty."""
+    rng = np.random.default_rng(5)
+    for n in (0, 1, 3, 17, 31, 33, 40, 128, 401, 511):
+        for b in (1, 5, 37):
+            r = torch.from_numpy(_k1_rows(rng, b, n)).to(cuda)
+            for mode in ("parity", "symmetric"):
+                got = _launch(r, mode, 1e-3, lanes)
+                want = echo_chunked_plain(r, mode, 1e-3, lanes)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), (n, b, mode)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [8, 16, 32])
+def test_echo_kernel_nan_and_singular_rows_across_chunks(cuda, lanes):
+    """A NaN interface zeroes every deeper echo, in later chunks too; d' = 0
+    gives exactly -FLT_MAX through the all-zero chunks after it.  (At
+    amplitude 0.8 a 200-interface row can sit near a resonance, where no
+    two f32 orders agree to 1e-4; 0.3 keeps this a test of the rows.)"""
+    r = torch.from_numpy(_k1_rows(np.random.default_rng(6), 4, 200, 0.3)).to(cuda)
+    for mode, row in (("parity", 1), ("symmetric", 2)):
+        got = _launch(r, mode, 1e-3, lanes)
+        assert torch.all(got[0, 101:] == 0) and bool(torch.isfinite(got[0]).all())
+        assert torch.all(got[row, 2:] == -torch.finfo(torch.float32).max
+                         * _att_table(200, 1e-3, r.device)[2:])
+        torch.testing.assert_close(got, echo_plain(r, mode, 1e-3), rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_echo_kernel_strided_input_matches_contiguous(cuda):
+    """The kernel reads (B, N) rows: a non-contiguous input is made
+    contiguous once by the wrapper, with the same result."""
+    r = torch.from_numpy(np.random.default_rng(7).uniform(-0.5, 0.5, (3, 40, 64))
+                         .astype(np.float32)).to(cuda)
+    strided = r.transpose(0, 1)
+    torch.testing.assert_close(echo_fused(strided, "parity", 0.1),
+                               echo_fused(r, "parity", 0.1).transpose(0, 1), rtol=0, atol=0)
 
 
 @pytest.mark.cuda

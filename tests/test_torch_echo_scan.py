@@ -1,0 +1,164 @@
+"""Kernel K1's evaluation order, ``echo_chunked_plain``, against ``diffus_tpu``.
+
+``csrc/echo_scan.cu`` cuts each ray's depth into ``lanes`` chunks, scans
+the chunks' products across the lanes and replays each chunk from its
+carry.  ``echo_chunked_plain`` is that order in plain PyTorch; here it is
+held, on the CPU, against JAX's ``echo_pallas`` (the Pallas kernel in
+interpret mode), against the plain scan's distance from float64, and
+against the sequential scan (one lane) on its first two chunks.
+"""
+
+import functools
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from diffus_tpu.kernels.propagation_pallas import echo_pallas
+from diffus_tpu_torch.geometry import fan_directions_2d
+from diffus_tpu_torch.kernels.propagation_cuda import (
+    _att_table,
+    _launch,
+    echo_chunked_plain,
+    echo_plain,
+)
+from diffus_tpu_torch.ops.propagation import reflection_coeff
+from diffus_tpu_torch.phantoms import brain_phantom_3d
+from diffus_tpu_torch.render.renderer import trace_rays
+from torch_parity import seeded
+
+FLT_MAX = float(np.finfo(np.float32).max)
+LANES = [8, 16, 32]
+DEPTHS = [1, 17, 31, 33, 128, 511]
+MODES = ["parity", "symmetric"]
+ATT = 1e-3
+
+
+@functools.lru_cache(maxsize=None)
+def _phantom_reflections(n: int) -> np.ndarray:
+    """``(16, n)`` f32 reflection coefficients of 2 fans x 8 rays through a
+    48^3 brain phantom, sampled trilinearly at ``n + 1`` points spread over
+    the volume's depth (so every interface lies inside it)."""
+    vol = torch.from_numpy(brain_phantom_3d((48, 48, 48)))
+    dirs = fan_directions_2d([0.0, 1.0], np.radians(40.0), 8)
+    src = torch.tensor([[24.3, 1.4, 23.6], [22.1, 2.2, 25.3]])
+    _, z = trace_rays(vol, src, dirs.expand(2, -1, -1), n + 1, "trilinear",
+                      step=44.0 / (n + 1))
+    return reflection_coeff(z[..., :-1], z[..., 1:]).reshape(-1, n).float().numpy()
+
+
+@functools.lru_cache(maxsize=None)
+def _pallas(n: int, mode: str) -> np.ndarray:
+    return np.asarray(echo_pallas(jnp.asarray(_phantom_reflections(n)), mode, ATT))
+
+
+def _chunked(r: np.ndarray, mode: str, att: float, lanes: int) -> np.ndarray:
+    return echo_chunked_plain(torch.from_numpy(r.copy()), mode, att, lanes).numpy()
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("n", DEPTHS)
+@pytest.mark.parametrize("lanes", LANES)
+def test_chunked_matches_pallas_on_phantom_reflections(lanes, n, mode):
+    """rtol 1e-4, atol 1e-6: the Pallas kernel's own tolerance against the
+    XLA scan (tests/test_pallas_kernel.py)."""
+    got = _chunked(_phantom_reflections(n), mode, ATT, lanes)
+    want = _pallas(n, mode)
+    assert got.shape == want.shape == (16, n + 1)
+    assert np.all(got[:, 0] == 0.0)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("n", [3, 40])
+@pytest.mark.parametrize("lanes", LANES)
+def test_chunked_nan_and_singular_rows_match_pallas(lanes, n):
+    """A NaN interface zeroes every deeper echo, in its own chunk and in
+    every later one; d' = 0 at depth 2 gives exactly -FLT_MAX from there on,
+    through the identity products of the all-zero chunks after it."""
+    rows = seeded(30).uniform(-0.5, 0.5, (3, n)).astype(np.float32)
+    rows[0, 1] = np.nan
+    rows[1:, 2:] = 0.0
+    rows[1, :2] = [2.0, 0.5]
+    rows[2, :2] = [2.0, -0.5]
+    for mode, row in (("parity", 1), ("symmetric", 2)):
+        got = _chunked(rows, mode, 0.0, lanes)
+        want = np.asarray(echo_pallas(jnp.asarray(rows), mode, 0.0))
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=0)
+        assert np.all(got[0, 2:] == 0.0) and np.all(want[0, 2:] == 0.0)
+        assert np.all(got[row, 2:] == -FLT_MAX) and np.all(want[row, 2:] == -FLT_MAX)
+
+
+def _tol_units(x: torch.Tensor, ref: torch.Tensor) -> float:
+    """Worst distance from ``ref`` in units of rtol 1e-4, atol 1e-6."""
+    return float(((x.double() - ref).abs() / (1e-4 * ref.abs() + 1e-6)).max())
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("n", [128, 511])
+@pytest.mark.parametrize("lanes", LANES)
+def test_chunked_no_further_from_f64_than_twice_the_plain_scan(lanes, n, mode):
+    """The chunked order at most 2x as far from the plain scan in float64 as
+    the plain f32 scan is (in units of rtol 1e-4, atol 1e-6; the rule
+    chip_smoke.py holds the kernel to), on phantom reflections.  Not on
+    U(-0.8, 0.8) rows: at 64 x 511 some echoes sit near a resonance (d ~ 0)
+    where every f32 order is chaotic (test_random_rows_sit_near_resonances)."""
+    r = torch.from_numpy(_phantom_reflections(n).copy())
+    ref = echo_plain(r.double(), mode, ATT)
+    u_chunked = _tol_units(echo_chunked_plain(r, mode, ATT, lanes), ref)
+    u_plain = _tol_units(echo_plain(r, mode, ATT), ref)
+    assert u_chunked <= 2.0 * max(1.0, u_plain), (u_chunked, u_plain)
+
+
+def test_random_rows_sit_near_resonances():
+    """Why the rule above is held on rendered reflections: on U(-0.8, 0.8)
+    rows at 64 x 511 the sequential order (the Pallas kernel's, one lane)
+    is hundreds of tolerance units from f64 where the plain scan is ~1."""
+    r = torch.from_numpy(seeded(31).uniform(-0.8, 0.8, (64, 511)).astype(np.float32))
+    ref = echo_plain(r.double(), "parity", ATT)
+    u_plain = _tol_units(echo_plain(r, "parity", ATT), ref)
+    u_sequential = _tol_units(echo_chunked_plain(r, "parity", ATT, 1), ref)
+    assert u_plain < 2.0 and u_sequential > 100.0 * u_plain, (u_plain, u_sequential)
+
+
+@pytest.mark.parametrize("n", [31, 33, 511])
+@pytest.mark.parametrize("lanes", LANES)
+def test_first_two_chunks_are_the_sequential_scan(lanes, n):
+    """Chunk 0 replays from the identity and chunk 1 from chunk 0's
+    product, so their echoes equal the one-lane (sequential) order bit for
+    bit; later chunks round in another order."""
+    r = seeded(32).uniform(-0.8, 0.8, (8, n)).astype(np.float32)
+    c = -(-n // lanes)
+    got = _chunked(r, "parity", ATT, lanes)
+    seq = _chunked(r, "parity", ATT, 1)
+    np.testing.assert_array_equal(got[:, :min(2 * c, n) + 1], seq[:, :min(2 * c, n) + 1])
+
+
+def test_att_table_is_f32_repeated_multiplication():
+    table = _att_table(40, 0.37, torch.device("cpu")).numpy()
+    decay, want = np.float32(np.exp(-0.37)), [np.float32(1.0)]
+    for _ in range(40):
+        want.append(np.float32(want[-1] * decay))
+    assert table.dtype == np.float32
+    np.testing.assert_array_equal(table, np.array(want, np.float32))
+
+
+def test_chunked_shapes_and_empty_depth():
+    r = torch.from_numpy(seeded(33).uniform(-0.5, 0.5, (2, 3, 20)).astype(np.float32))
+    out = echo_chunked_plain(r, "symmetric", 0.1, 8)
+    assert out.shape == (2, 3, 21)
+    torch.testing.assert_close(out.reshape(6, 21),
+                               echo_chunked_plain(r.reshape(6, 20), "symmetric", 0.1, 8),
+                               rtol=0, atol=0)
+    assert torch.equal(echo_chunked_plain(torch.zeros((4, 0)), "parity", 0.1),
+                       torch.zeros((4, 1)))
+    with pytest.raises(ValueError, match="unsupported"):
+        echo_chunked_plain(r, "physical", 0.1)
+
+
+def test_launch_rejects_before_touching_the_card():
+    """The wrapper's checks come before the library is loaded or built."""
+    with pytest.raises(TypeError, match="float32"):
+        _launch(torch.zeros((2, 8), dtype=torch.float64), "parity", 0.1)
+    with pytest.raises(ValueError, match="8, 16 or 32"):
+        _launch(torch.zeros((2, 8)), "parity", 0.1, lanes=4)

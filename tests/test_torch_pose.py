@@ -326,7 +326,7 @@ SVC_GEO = tt.BeamGeometry(n_rays=8, num_samples=16, opening_angle=float(np.radia
 
 def _service(volume=VOL24, **fields):
     return RendererService(volume, SVC_GEO, tt.RenderConfig(**dict(
-        {"attenuation_coeff": 1e-4}, **fields)), batch_tiers=(1, 4))
+        {"attenuation_coeff": 1e-4}, **fields)), batch_tiers=(1, 4), device="cpu")
 
 
 def test_service_recover_pose():

@@ -1,5 +1,7 @@
 """The port's ``RendererService`` against ``diffus_tpu``'s ``render_sweep``."""
 
+import inspect
+
 import numpy as np
 import pytest
 import torch
@@ -24,7 +26,7 @@ def _sources(p, seed):
 
 @pytest.mark.parametrize("fields", FIELDS, ids=["nearest", "trilinear_fused"])
 def test_service_matches_render_sweep(fields):
-    svc = RendererService(VOL, GEO, RenderConfig(**fields), batch_tiers=(4, 1))
+    svc = RendererService(VOL, GEO, RenderConfig(**fields), batch_tiers=(4, 1), device="cpu")
     assert svc.batch_tiers == (1, 4)
     assert svc.warmup() >= 0.0
     dirs = svc.directions.numpy()
@@ -42,7 +44,7 @@ def test_service_matches_render_sweep(fields):
 
 def test_service_counts_requests_and_frames():
     svc = RendererService(VOL, GEO, RenderConfig(attenuation_coeff=1e-4, start=2),
-                          batch_tiers=(1, 4))
+                          batch_tiers=(1, 4), device="cpu")
     empty = svc.render(np.zeros((0, 3), np.float32))
     assert empty.shape == (0, 6, 18)
     assert svc.render([12.0, 1.5, 12.0]).shape == (1, 6, 18)
@@ -54,7 +56,8 @@ def test_service_counts_requests_and_frames():
 
 
 def test_service_update_volume():
-    svc = RendererService(VOL, GEO, RenderConfig(attenuation_coeff=1e-4), batch_tiers=(1,))
+    svc = RendererService(VOL, GEO, RenderConfig(attenuation_coeff=1e-4), batch_tiers=(1,),
+                          device="cpu")
     src = _sources(1, 20)
     before = svc.render(src)
     new = VOL.copy()
@@ -63,9 +66,22 @@ def test_service_update_volume():
     after = svc.render(src)
     assert not torch.equal(before, after)
     want = RendererService(new, GEO, RenderConfig(attenuation_coeff=1e-4),
-                           batch_tiers=(1,)).render(src)
+                           batch_tiers=(1,), device="cpu").render(src)
     torch.testing.assert_close(after, want, rtol=0, atol=0)
     with pytest.raises(ValueError, match="shape"):
         svc.update_volume(VOL[:20])
     with pytest.raises(ValueError, match="tier"):
-        RendererService(VOL, GEO, batch_tiers=())
+        RendererService(VOL, GEO, batch_tiers=(), device="cpu")
+
+
+def test_service_defaults_to_the_card():
+    """No ``device`` means the card; where there is none the service raises
+    instead of serving on the CPU."""
+    assert inspect.signature(RendererService).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        svc = RendererService(VOL, GEO, RenderConfig(attenuation_coeff=1e-4), batch_tiers=(1,))
+        assert svc.device.type == "cuda" and svc.volume.device.type == "cuda"
+        assert svc.render(_sources(1, 30)).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            RendererService(VOL, GEO, RenderConfig(attenuation_coeff=1e-4))
