@@ -5,8 +5,9 @@
     python3 chip_smoke.py --requests    # phases 1, 2 and the service's request times only
 
 ``--requests`` times the serving path alone (latency and device-time split
-per tier) with whatever ``diffus_tpu_torch`` sits beside the script, so a
-copy of the script beside another checkout's package times that package.
+per tier: K1, K2, ``ray_points`` and the rest) with whatever
+``diffus_tpu_torch`` sits beside the script, so a copy of the script
+beside another checkout's package times that package.
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -18,24 +19,34 @@ Phases, in order; any failure raises and the script exits non-zero:
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the main path's shapes (K1 echo scan on the reflection coefficients of
    a 32-pose batch, 8192 rays x 511 interfaces, parity and symmetric, with
-   a NaN row and d' = 0 rows; K2 trilinear on the 256^3 brain phantom at
-   32 x 256 x 512 points, some outside and three with a NaN component);
+   a NaN row and d' = 0 rows; K2's points form on the 256^3 brain phantom
+   at 32 x 256 x 512 points, some outside and three with a NaN component);
    K1 also against ``echo_chunked_plain``, its own evaluation order in
-   plain PyTorch, bit for bit, in every lane count it is built for;
+   plain PyTorch, bit for bit, in every lane count it is built for; K2's
+   ray form (the renderer's) against ``march_trilinear`` bit for bit at
+   32 poses x 256 rays x 512 samples of the service's fan, with and
+   without idx, with a NaN source and poses outside the volume, in every
+   block tile it is built for with and without paired z loads, and
+   against the points form fed ``ray_points``;
 4. main path: a ``RendererService`` on the 256^3 phantom at 256 rays x 512
    samples, ``interp='trilinear_fused'`` with ``use_pallas=True``, tiers
-   (1, 8, 32), answers requests of 1, 5 and 32 poses; both kernels'
-   launch counters must rise; one frame is held against the plain path
-   in float64 on the CPU, plus a B-mode splat and a nearest frame;
+   (1, 8, 32), answers requests of 1, 5 and 32 poses; K1's and K2's ray
+   form's launch counters must rise, and K2 must write no idx; one frame
+   is held against the plain path in float64 on the CPU, plus a B-mode
+   splat and a nearest frame;
 5. times (CUDA events, after warm-up): K1 against its plain version at
    the 1-, 8- and 32-pose batches (256, 2048, 8192 rays x 511) and its
    device time per launch from ``torch.profiler`` there and at 8, 16 and
-   32 lanes per ray; K2 against its plain version and against
+   32 lanes per ray; K2's ray form, values only and with idx, against
+   its plain version, every block tile with and without paired z loads
+   (device time per launch), the points form alone and fed
+   ``ray_points`` (the renderer's way before the ray form), and
    ``F.grid_sample`` (values only; checked against K2); each kernel's
    bound (bytes over 3.35 TB/s or operations over 67 TFLOP/s, whichever
    is larger; K2's bytes count the distinct 32-byte volume sectors the
    corners touch, counted on the card); the request latency of each tier
-   and its device time split (K1, K2, the rest) from ``torch.profiler``;
+   and its device time split (K1, K2, ``ray_points``, the rest) from
+   ``torch.profiler``;
 6. K3 row-gather probe against its plain version and a float64 sum, at
    the probe's own shapes (M = 131072 rows of 128 floats, 2^20 rows,
    n_buf 8, offsets 0, 5065, -7, M + 3) and one small case; then its entry
@@ -46,7 +57,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    SSIM, 256 x 256 image, start 110) with
    ``RenderConfig(interp='trilinear_fused', use_pallas=True)`` on the 256^3
    T1 phantom, 256 rays from apex [128, 4, 128], against the splatted frame
-   of the 256^3 impedance phantom; K1's and K2's launches must rise, the
+   of the 256^3 impedance phantom; K1's and K2's launches must rise (K2
+   with idx, which the splat reads), the
    losses be finite and the last below the first; one step's parameter
    gradients through the kernels are held against the plain path in
    float64 on the CPU, no further from it than max(1e-3, 2x) the plain
@@ -65,7 +77,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 10. pose recovery: ``svc.recover_pose`` on the phase-4 service (the
    annealed schedule's default 600 steps, 8 starts drawn like JAX's
    acceptance test, radius 1.5 and rot 0.03, around a ``render_pose``
-   target at apex [128, 4, 128]); K1's and K2's launches must rise, every
+   target at apex [128, 4, 128]); K1's and K2's launches must rise (K2
+   without idx), every
    final loss be finite and the best start's exact-frame loss fall; the
    frames of the target, the starts and the ends through the kernels, and
    the starts' losses, are held against the float64 CPU plain path like
@@ -107,8 +120,10 @@ import torch
 HBM_BYTES_PER_S, F32_FLOPS = 3.35e12, 67e12
 # operations per K1 step (k, the 2x2 left-multiply, 4 abs and 4 max, the
 # reciprocal and 4 multiplies, -c/d, nan_to_num, att): ~35; per K2 point
-# (clamp, floor and fraction per axis, 7 lerps, 3 rounded indices): ~45
-K1_OPS_PER_STEP, K2_OPS_PER_POINT = 35, 45
+# (clamp, floor and fraction per axis, 7 lerps, 3 rounded indices): ~45,
+# of which the indices 3; K2's ray form adds the point (k * step, 3
+# multiplies, 3 adds): 7
+K1_OPS_PER_STEP, K2_OPS_PER_POINT, K2_IDX_OPS, K2_POINT_OPS = 35, 45, 3, 7
 ATT = 1e-4
 SHAPE = (256, 256, 256)
 N_RAYS, N_SAMPLES = 256, 512
@@ -156,6 +171,22 @@ def _k2_sectors(vol: torch.Tensor, pts: torch.Tensor) -> int:
     x, y, z = (torch.stack([i0[:, k], i1[:, k]]) for k in range(3))
     lin = x[:, None, None] * (h * w) + y[None, :, None] * w + z[None, None, :]
     return int(torch.unique(lin.reshape(-1) // 8).numel())
+
+
+def _k2_march_bound(n_pts: int, sectors: int, p: int, n_rays: int, with_idx: bool) -> dict:
+    """K2's ray form: the values out (and the idx), the distinct volume
+    sectors, each pose's source and the shared fan's directions in."""
+    per_point = 16.0 if with_idx else 4.0
+    ops = K2_OPS_PER_POINT + K2_POINT_OPS - (0 if with_idx else K2_IDX_OPS)
+    return _bound(per_point * n_pts + 32.0 * sectors + 12.0 * (p + n_rays), ops * n_pts)
+
+
+def _same(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """Equal bit for bit, NaN where NaN (a NaN's payload aside)."""
+    nan = torch.isnan(want)
+    return (got.dtype == want.dtype and got.shape == want.shape
+            and torch.equal(torch.isnan(got), nan)
+            and torch.equal(torch.where(nan, 0, got), torch.where(nan, 0, want)))
 
 
 def _grid_sample_grid(pts: torch.Tensor, shape) -> torch.Tensor:
@@ -361,7 +392,7 @@ def _training_phase(dev, vol) -> dict:
         train_s = time.perf_counter() - t0
     finally:
         torch.use_deterministic_algorithms(False)
-    launches = _counts("training path")
+    launches = _counts("training path", idx=True)
     losses = losses.cpu()
     if tuple(losses.shape) != (cfg.epochs,) or not bool(torch.isfinite(losses).all()):
         raise AssertionError(f"training losses: shape {tuple(losses.shape)}, {losses}")
@@ -459,7 +490,7 @@ def _step_times(card: str, label: str, prefix: str, step, forward=None) -> dict:
     total = sum(e.device_time_total for e in device)
     if total <= 0:
         raise AssertionError(f"torch.profiler saw no device time in the {label}s")
-    keys = {"K1": "echo_scan_kernel", "K2": "trilinear_kernel"}
+    keys = {"K1": "echo_scan_kernel", "K2": "trilinear_"}
     kernel_total = {k: sum(e.device_time_total for e in device if v in e.name)
                     for k, v in keys.items()}
     phase = {}
@@ -523,9 +554,20 @@ def _tier_latencies(svc, rng, card: str, label: str) -> None:
 
 def _request_profiles(svc, rng, card: str, label: str) -> dict:
     """Device time per request at each batch tier from ``torch.profiler``
-    over 5 requests, with K1's and K2's part, and the idle share of the
-    profiled wall time."""
+    over 5 requests, with K1's, K2's (either form) and ``ray_points``' part,
+    and the idle share of the profiled wall time.  ``ray_points`` is timed
+    as the kernels launched inside a profiler range around the renderer's
+    calls of it (none where K2's ray form computes the points)."""
+    from torch.autograd.profiler import record_function
     from torch.profiler import ProfilerActivity, profile
+
+    import diffus_tpu_torch.render.renderer as renderer
+
+    plain_ray_points = renderer.ray_points
+
+    def ray_points(*args, **kwargs):
+        with record_function("ray_points"):
+            return plain_ray_points(*args, **kwargs)
 
     out = {}
     for tier in TIERS:
@@ -533,23 +575,34 @@ def _request_profiles(svc, rng, card: str, label: str) -> dict:
         for _ in range(3):
             svc.render(src_t)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(5):
-                svc.render(src_t)
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-        device = [e for e in prof.events() if e.device_type != torch.autograd.DeviceType.CPU
+        renderer.ray_points = ray_points
+        try:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(5):
+                    svc.render(src_t)
+                torch.cuda.synchronize()
+                wall_us = (time.perf_counter() - t0) * 1e6
+        finally:
+            renderer.ray_points = plain_ray_points
+        events = prof.events()
+        device = [e for e in events if e.device_type != torch.autograd.DeviceType.CPU
                   and not getattr(e, "is_user_annotation", False)]
         total = sum(e.device_time_total for e in device)
         k1_us = sum(e.device_time_total for e in device if "echo_scan_kernel" in e.name)
-        k2_us = sum(e.device_time_total for e in device if "trilinear_kernel" in e.name)
+        k2_us = sum(e.device_time_total for e in device if "trilinear_" in e.name)
+        rp_us = sum(kern.duration for r in events if r.name == "ray_points"
+                    and r.device_type == torch.autograd.DeviceType.CPU
+                    for e in _subtree(r) for kern in e.kernels)
         if total <= 0:
             raise AssertionError(f"torch.profiler saw no device time in a {label}")
+        rest_us = total - k1_us - k2_us - rp_us
         out[tier] = {"device_ms": total / 5e3, "k1_ms": k1_us / 5e3, "k2_ms": k2_us / 5e3,
+                     "ray_points_ms": rp_us / 5e3, "rest_ms": rest_us / 5e3,
                      "idle": 1 - total / wall_us}
         print(f"times [{card}]: {label} of {tier} poses, device time per request {total / 5e3:.4f} "
-              f"ms (profiler, 5 requests; K1 {k1_us / 5e3:.4f} ms, K2 {k2_us / 5e3:.4f} ms; "
+              f"ms (profiler, 5 requests; K1 {k1_us / 5e3:.4f} ms, K2 {k2_us / 5e3:.4f} ms, "
+              f"ray_points {rp_us / 5e3:.4f} ms, the rest {rest_us / 5e3:.4f} ms; "
               f"{len(device) / 5:.0f} device activities a request; device idle "
               f"{1 - total / wall_us:.1%} of {wall_us / 5e3:.4f} ms profiled wall)", flush=True)
     return out
@@ -557,21 +610,33 @@ def _request_profiles(svc, rng, card: str, label: str) -> dict:
 
 def _counts_reset() -> None:
     from diffus_tpu_torch.kernels.propagation_cuda import echo_fused
-    from diffus_tpu_torch.kernels.trilinear_cuda import sample_trilinear_fused
+    from diffus_tpu_torch.kernels.trilinear_cuda import march_trilinear_fused, sample_trilinear_fused
 
     echo_fused.launches = 0
+    march_trilinear_fused.launches = 0
+    march_trilinear_fused.idx_launches = 0
     sample_trilinear_fused.launches = 0
 
 
-def _counts(what: str) -> dict:
-    """K1's and K2's launches since :func:`_counts_reset`; raises if either is 0."""
+def _counts(what: str, idx: bool | None = None) -> dict:
+    """K1's and K2's launches since :func:`_counts_reset`: K2's ray form
+    (``trilinear_sample``), those of its launches that wrote an idx, and
+    its points form.  Raises if K1 or K2's ray form never launched, and,
+    for ``idx`` False or True, unless no launch or every launch of the ray
+    form wrote an idx."""
     from diffus_tpu_torch.kernels.propagation_cuda import echo_fused
-    from diffus_tpu_torch.kernels.trilinear_cuda import sample_trilinear_fused
+    from diffus_tpu_torch.kernels.trilinear_cuda import march_trilinear_fused, sample_trilinear_fused
 
     launches = {"echo_scan": echo_fused.launches,
-                "trilinear_sample": sample_trilinear_fused.launches}
-    if min(launches.values()) < 1:
+                "trilinear_sample": march_trilinear_fused.launches,
+                "trilinear_idx": march_trilinear_fused.idx_launches,
+                "trilinear_points": sample_trilinear_fused.launches}
+    if min(launches["echo_scan"], launches["trilinear_sample"]) < 1:
         raise AssertionError(f"a kernel of the {what} never launched: {launches}")
+    if idx is not None and launches["trilinear_idx"] != (launches["trilinear_sample"] if idx
+                                                         else 0):
+        raise AssertionError(f"the {what} should launch K2 {'with' if idx else 'without'} "
+                             f"idx: {launches}")
     return launches
 
 
@@ -679,7 +744,7 @@ def _recover(dev, svc, label: str) -> dict:
                            seed=RECOVERY_SEED)
     torch.cuda.synchronize()
     rec_s = time.perf_counter() - t0
-    launches = _counts(f"recovery path ({label})")
+    launches = _counts(f"recovery path ({label})", idx=False)
 
     # the starts the service drew, and their exact-frame loss before any step
     init = sample_init_poses(torch.Generator(device=dev).manual_seed(RECOVERY_SEED), APEX,
@@ -927,8 +992,11 @@ def main(argv=None) -> int:
         echo_fused,
         echo_plain,
     )
-    from diffus_tpu_torch.kernels.trilinear_cuda import sample_trilinear_fused
-    from diffus_tpu_torch.ops.sampling import ray_points, sample_trilinear
+    from diffus_tpu_torch.kernels.trilinear_cuda import (
+        march_trilinear_fused,
+        sample_trilinear_fused,
+    )
+    from diffus_tpu_torch.ops.sampling import march_trilinear, ray_points, sample_trilinear
     from diffus_tpu_torch.phantoms import brain_phantom_3d
     from diffus_tpu_torch.render.renderer import render_bmode, render_frame, simulate_rays
     from diffus_tpu_torch.serve import RendererService
@@ -1029,10 +1097,36 @@ def main(argv=None) -> int:
     if n_nan != 3 or not bool(torch.isnan(val_k[0, 0, 7:10]).all()):
         raise AssertionError(f"K2: {n_nan} NaN values, expected the 3 NaN points")
     k2_err = float((val_k - val_p).nan_to_num(0.0).abs().max())
-    print(f"K2 trilinear vs plain at {tuple(pts.shape[:-1])} points on the "
+    print(f"K2 points form vs plain at {tuple(pts.shape[:-1])} points on the "
           f"{SHAPE} phantom: ok, max_abs_err {k2_err:.3e} (rtol 1e-6, atol 1e-7; 3 NaN "
           f"points NaN in both)", flush=True)
-    torch.cuda.synchronize()
+
+    # K2's ray form, the renderer's: the service's fan, shared by every pose
+    # (stride 0), from 32 sources, one with a NaN component and two outside
+    # the volume, beyond every face between them
+    src_m = src32.clone()
+    src_m[0, 1] = float("nan")
+    src_m[1] = torch.tensor([-40.0, -30.0, 300.0])
+    src_m[2] = torch.tensor([300.0, 290.0, -20.0])
+    dirs32 = dirs.expand(32, -1, -1)
+    idx_p, val_p = march_trilinear(vol, src_m, dirs32, N_SAMPLES)
+    pts_m = ray_points(src_m, dirs32, N_SAMPLES)
+    idx_q, val_q = sample_trilinear_fused(vol, pts_m)
+    if not (_same(val_q, val_p) and torch.equal(idx_q, idx_p)):
+        raise AssertionError("K2's points form fed ray_points differs from march_trilinear")
+    for with_idx in (True, False):
+        idx_k, val_k = march_trilinear_fused(vol, src_m, dirs32, N_SAMPLES, with_idx=with_idx)
+        torch.cuda.synchronize()
+        if not _same(val_k, val_p):
+            raise AssertionError(f"K2's ray form (idx {with_idx}) differs from march_trilinear: "
+                                 f"max abs {float((val_k - val_p).nan_to_num(0).abs().max()):.3e}")
+        if with_idx and not torch.equal(idx_k, idx_p) or not with_idx and idx_k is not None:
+            raise AssertionError(f"K2's ray form idx (with_idx {with_idx}) differs")
+    if not (bool(torch.isnan(val_p[0]).all()) and bool(torch.isfinite(val_p[1:]).all())):
+        raise AssertionError("K2's ray form: the NaN source must give NaN values, the rest none")
+    print(f"K2 ray form vs march_trilinear at {tuple(val_p.shape)} (a NaN source, 2 poses "
+          f"outside the volume): equal bit for bit, values and idx, with and without idx; "
+          f"the points form fed ray_points equal too", flush=True)
 
     # -- 4. main path: the service ------------------------------------------
     warm_s = svc.warmup()
@@ -1040,7 +1134,7 @@ def main(argv=None) -> int:
     _counts_reset()
     frames = {p: svc.render(s) for p, s in requests.items()}
     torch.cuda.synchronize()
-    launches = _counts("main path")
+    launches = _counts("main path", idx=False)
     for p, f in frames.items():
         if tuple(f.shape) != (p, N_RAYS, N_SAMPLES):
             raise AssertionError(f"request of {p}: frame shape {tuple(f.shape)}")
@@ -1103,9 +1197,34 @@ def main(argv=None) -> int:
           + ", ".join(f"{k} {v:.4f} ms" for k, v in k1_variants.items()), flush=True)
     k1_main = k1_by_rays[32 * N_RAYS]
 
-    pts_main = ray_points(src32, dirs.expand(32, -1, -1), N_SAMPLES)
-    k2_ms, k2_plain = _paired_ms(lambda: sample_trilinear_fused(vol, pts_main),
-                                 lambda: sample_trilinear(vol, pts_main), 20)
+    # K2 at the 32-pose request's shapes: the ray form (values only, as the
+    # service and recovery run it; with idx, as training does) and the points
+    # form, alone and behind ray_points
+    pts_main = ray_points(src32, dirs32, N_SAMPLES)
+
+    def march(with_idx=False):
+        return march_trilinear_fused(vol, src32, dirs32, N_SAMPLES, with_idx=with_idx)
+
+    k2_ms, k2_plain = _paired_ms(march, lambda: march_trilinear(vol, src32, dirs32, N_SAMPLES,
+                                                                with_idx=False), 20)
+    k2_idx_ms = _event_ms(lambda: march(True), 20)
+    k2_us = _kernel_device_us(march, "trilinear_march_kernel", 20)
+    k2_idx_us = _kernel_device_us(lambda: march(True), "trilinear_march_kernel", 20)
+    points_ms = _event_ms(lambda: sample_trilinear_fused(vol, pts_main), 20)
+    points_us = _kernel_device_us(lambda: sample_trilinear_fused(vol, pts_main),
+                                  "trilinear_points_kernel", 20)
+    # the ray form wrapper's host time per call: 50 calls queued without a synchronize
+    t0 = time.perf_counter()
+    for _ in range(50):
+        march()
+    k2_host_us = (time.perf_counter() - t0) / 50 * 1e6
+    torch.cuda.synchronize()
+    rp_ms = _event_ms(lambda: ray_points(src32, dirs32, N_SAMPLES), 20)
+    old_way_ms = _event_ms(lambda: sample_trilinear_fused(
+        vol, ray_points(src32, dirs32, N_SAMPLES)), 20)
+    # the shipped forms side by side, device time per launch (profiler)
+    k2_variants = {"ray values only": k2_us / 1e3, "ray with idx": k2_idx_us / 1e3,
+                   "points": points_us / 1e3}
     # the library's values-only yardstick; it writes no idx
     grid = _grid_sample_grid(pts_main, tuple(vol.shape))
     vol5 = vol[None, None]
@@ -1120,19 +1239,34 @@ def main(argv=None) -> int:
     # voxel, so its values may differ from K2's by 1e-4 voxel times the largest
     # step between neighbouring voxels, on each axis, plus f32 rounding
     steps = sum(float(vol.diff(dim=k).abs().max()) for k in range(3))
-    gs_err = float((grid_sample()[0, 0] - sample_trilinear_fused(vol, pts_main)[1]).abs().max())
+    gs_err = float((grid_sample()[0, 0] - march()[1]).abs().max())
     gs_tol = 1e-4 * steps + 1e-6 * float(vol.abs().max())
     if not gs_err <= gs_tol:
         raise AssertionError(f"grid_sample vs K2: max abs {gs_err:.4e} > {gs_tol:.4e}")
     n_pts = pts_main[..., 0].numel()
     sectors = _k2_sectors(vol, pts_main)
-    k2_bound = _bound(28.0 * n_pts + 32.0 * sectors, K2_OPS_PER_POINT * n_pts)
-    print(f"times [{card}]: K2 trilinear {tuple(pts_main.shape[:-1])} {k2_ms:.4f} ms vs plain "
+    k2_bound = _k2_march_bound(n_pts, sectors, 32, N_RAYS, False)
+    k2_idx_bound = _k2_march_bound(n_pts, sectors, 32, N_RAYS, True)
+    points_bound = _bound(28.0 * n_pts + 32.0 * sectors, K2_OPS_PER_POINT * n_pts)
+    print(f"times [{card}]: K2 ray form {tuple(pts_main.shape[:-1])}, values only {k2_ms:.4f} ms "
+          f"(CUDA events, wrapper included; {k2_us:.2f} us alone, profiler; the wrapper's host "
+          f"time {k2_host_us:.2f} us a call) vs plain "
           f"{k2_plain:.4f} ms vs F.grid_sample (values only) {gs_ms:.4f} ms, which is "
-          f"{gs_err:.3e} from K2 (limit {gs_tol:.3e}); bound: 28 B x {n_pts} points + "
-          f"{sectors} distinct 32-byte volume sectors = {k2_bound['bound_bytes'] / 1e6:.2f} MB "
-          f"-> {k2_bound['bound_ms']:.4f} ms ({k2_bound['bound_by']}), "
-          f"{k2_bound['bound_ms'] / k2_ms:.1%} of it", flush=True)
+          f"{gs_err:.3e} from K2 (limit {gs_tol:.3e}); bound: 4 B x {n_pts} points + "
+          f"{sectors} distinct 32-byte volume sectors + sources and fan = "
+          f"{k2_bound['bound_bytes'] / 1e6:.2f} MB -> {k2_bound['bound_ms']:.4f} ms "
+          f"({k2_bound['bound_by']}): {k2_bound['bound_ms'] / k2_ms:.1%} of it with the wrapper, "
+          f"{k2_bound['bound_ms'] * 1e3 / k2_us:.1%} alone", flush=True)
+    print(f"times [{card}]: K2 ray form with idx {k2_idx_ms:.4f} ms ({k2_idx_us:.2f} us alone); "
+          f"bound 16 B a point = {k2_idx_bound['bound_bytes'] / 1e6:.2f} MB -> "
+          f"{k2_idx_bound['bound_ms']:.4f} ms: {k2_idx_bound['bound_ms'] / k2_idx_ms:.1%} with "
+          f"the wrapper, {k2_idx_bound['bound_ms'] * 1e3 / k2_idx_us:.1%} alone", flush=True)
+    print(f"times [{card}]: K2 points form {points_ms:.4f} ms ({points_us:.2f} us alone; bound "
+          f"28 B a point = {points_bound['bound_bytes'] / 1e6:.2f} MB -> "
+          f"{points_bound['bound_ms']:.4f} ms, {points_bound['bound_ms'] * 1e3 / points_us:.1%} "
+          f"alone); ray_points alone {rp_ms:.4f} ms; ray_points + points form (the renderer's "
+          f"way before the ray form) {old_way_ms:.4f} ms vs the ray form's {k2_ms:.4f} ms",
+          flush=True)
     _tier_latencies(svc, rng, card, "request")
     _request_profiles(svc, rng, card, "request")
 
@@ -1165,7 +1299,15 @@ def main(argv=None) -> int:
          "launches": launches["trilinear_sample"], "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound["bound_ms"],
          "bound_by": k2_bound["bound_by"], "library_ms": gs_ms, "grid_sample_ms": gs_ms,
-         "bound_bytes": k2_bound["bound_bytes"], "volume_sectors": sectors},
+         "device_us": k2_us, "host_us": k2_host_us, "bound_bytes": k2_bound["bound_bytes"],
+         "volume_sectors": sectors,
+         "form": "ray (values only)",
+         "variants_ms": k2_variants,
+         "with_idx": {"ms": k2_idx_ms, "device_us": k2_idx_us, **k2_idx_bound},
+         "points_form": {"ms": points_ms, "device_us": points_us, **points_bound,
+                         "with_ray_points_ms": old_way_ms},
+         "ray_points_ms": rp_ms, "idx_launches": launches["trilinear_idx"],
+         "points_launches": launches["trilinear_points"]},
         {"name": "gather_probe", "route": "cuda",
          "source": "diffus_tpu_torch/csrc/gather_probe.cu",
          "replaces": "diffus_tpu/kernels/gather_dma_probe.py:43",
@@ -1178,6 +1320,8 @@ def main(argv=None) -> int:
         k["training_launches"] = train["launches"][k["name"]]
         k["image_formation_launches"] = bmode["launches"][k["name"]]
         k["recovery_launches"] = recovery["launches"][k["name"]]
+    for path, run in (("training", train), ("image_formation", bmode), ("recovery", recovery)):
+        kernels[1][f"{path}_idx_launches"] = run["launches"]["trilinear_idx"]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -45,6 +45,10 @@ _SIGNATURES = {
     # vol, pts, out, idx, n, d, h, w, stream
     "diffus_trilinear_sample": (_c, _c, _c, _c, ctypes.c_int64, ctypes.c_int,
                                 ctypes.c_int, ctypes.c_int, _c),
+    # vol, src, dirs, dir_pose_stride, out, idx, p, n_rays, n, step, d, h, w, stream
+    "diffus_trilinear_march": (_c, _c, _c, ctypes.c_int64, _c, _c, ctypes.c_int64,
+                               ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                               ctypes.c_int, ctypes.c_int, _c),
     # table, partial, out, off, n_rows, m, n_buf, grid, stream
     "diffus_gather_probe": (_c, _c, _c, ctypes.c_int, ctypes.c_int64, ctypes.c_int,
                             ctypes.c_int, ctypes.c_int, _c),

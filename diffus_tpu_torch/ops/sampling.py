@@ -80,6 +80,19 @@ def sample_trilinear(volume: torch.Tensor, points: torch.Tensor):
     return _round_idx(volume, points), values
 
 
+def march_trilinear(volume: torch.Tensor, source: torch.Tensor, directions: torch.Tensor,
+                    num_samples: int, step: float = 1.0, with_idx: bool = True):
+    """:func:`sample_trilinear` at :func:`ray_points`: the plain version of
+    K2's ray form (:func:`~diffus_tpu_torch.kernels.trilinear_cuda.march_trilinear_fused`),
+    which computes the points itself.
+
+    Returns ``(idx, values)`` of shapes ``(..., n_rays, num_samples, 3)`` and
+    ``(..., n_rays, num_samples)``; ``idx`` is None without ``with_idx``.
+    """
+    idx, values = sample_trilinear(volume, ray_points(source, directions, num_samples, step))
+    return (idx if with_idx else None), values
+
+
 def sample_trilinear_bf16(volume: torch.Tensor, points: torch.Tensor):
     """bf16 corner values, f32 weights: the ``trilinear_bf16`` serving mode
     (the JAX package's one-gather ``trilinear_tile3d_bf16``).  Not exact:

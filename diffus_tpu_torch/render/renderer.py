@@ -11,8 +11,12 @@ Every stage takes leading batch dims, so :func:`render_sweep` is one
 batched pass over poses; the envelope's normalisation and the artifacts'
 clip ranges are per frame, and each frame draws its own noise.
 ``config.use_pallas`` runs the echo scan through the CUDA kernel K1 and
-``interp='trilinear_fused'`` samples through K2; on CPU tensors both run
-their plain PyTorch versions.  The pulse, envelope and artifact stages are
+``interp='trilinear_fused'`` marches the rays through K2's ray form, which
+computes the sample points itself; on CPU tensors both run their plain
+PyTorch versions.  :func:`_render` can leave the sample coordinates out,
+for callers that read the intensities alone (the service, pose recovery):
+XLA drops that unread output of JAX's jitted renders, and K2 then writes
+no idx.  The pulse, envelope and artifact stages are
 plain PyTorch (the JAX package computes them outside Pallas too).
 
 The TPU-only machinery of the JAX renderer (sampler auto-upgrades, tile
@@ -24,6 +28,7 @@ from __future__ import annotations
 import torch
 
 from diffus_tpu_torch.kernels.propagation_cuda import echo_fused
+from diffus_tpu_torch.kernels.trilinear_cuda import march_trilinear_fused
 from diffus_tpu_torch.ops.artifacts import (
     add_speckle_arcs,
     depth_dependent_lateral_blur,
@@ -37,10 +42,12 @@ from diffus_tpu_torch.ops.propagation import (
     impedance_weighted_rho,
     reflection_coeff,
 )
-from diffus_tpu_torch.ops.sampling import SAMPLERS, ray_points
+from diffus_tpu_torch.ops.sampling import SAMPLERS, ray_points, sample_trilinear_tile_fused
 from diffus_tpu_torch.types import RenderConfig, Volume
 
 _DEFAULT_CONFIG = RenderConfig()
+# the interps that march through K2's ray form: SAMPLERS' fused ones
+_MARCHED = frozenset(k for k, f in SAMPLERS.items() if f is sample_trilinear_tile_fused)
 
 
 def _on(volume: torch.Tensor, x) -> torch.Tensor:
@@ -50,14 +57,19 @@ def _on(volume: torch.Tensor, x) -> torch.Tensor:
 
 
 def trace_rays(volume, source, directions, num_samples: int, interp: str = "nearest",
-               step: float = 1.0):
+               step: float = 1.0, *, _with_idx: bool = True):
     """March rays and sample the volume (``renderer.py:131-150``).
 
     Returns ``(idx, values)``: int32 coords ``(..., n_rays, num_samples, 3)``
-    and values ``(..., n_rays, num_samples)``.
+    and values ``(..., n_rays, num_samples)``.  The fused interps go
+    through K2's ray form, which takes ``source`` and ``directions`` as
+    they are; with ``_with_idx=False`` it computes no coords and ``idx``
+    is None (the other samplers return theirs regardless).
     """
-    points = ray_points(_on(volume, source), _on(volume, directions), num_samples, step)
-    return SAMPLERS[interp](volume, points)
+    source, directions = _on(volume, source), _on(volume, directions)
+    if interp in _MARCHED:
+        return march_trilinear_fused(volume, source, directions, num_samples, step, _with_idx)
+    return SAMPLERS[interp](volume, ray_points(source, directions, num_samples, step))
 
 
 def simulate_rays(volume, source, directions, num_samples: int, interp: str = "nearest"):
@@ -71,7 +83,7 @@ def simulate_rays(volume, source, directions, num_samples: int, interp: str = "n
 def mri_projection(volume, source, directions, num_samples: int, interp: str = "nearest"):
     """Raw sampled values along the fan, ``(..., n_rays, num_samples - 1)``
     (``renderer.py:193-204``)."""
-    _, z = trace_rays(volume, source, directions, num_samples, interp)
+    _, z = trace_rays(volume, source, directions, num_samples, interp, _with_idx=False)
     return z[..., :-1]
 
 
@@ -124,6 +136,17 @@ def render_frame(volume, source, directions, num_samples: int,
       (optionally pulsed, enveloped, artifacted) echo.  Reflection and the
       scan run in f32 (f64 for an f64 volume).
     """
+    idx, out = _render(volume, source, directions, num_samples, config, step, generator)
+    return idx[..., 0], idx[..., 1], idx[..., 2], out
+
+
+def _render(volume, source, directions, num_samples: int,
+            config: RenderConfig = _DEFAULT_CONFIG, step: float = 1.0,
+            generator: torch.Generator | None = None, with_idx: bool = True):
+    """:func:`render_frame`'s body.  Returns ``(idx, intensities)`` with
+    ``idx`` the ``(..., n_rays, num_samples - start, 3)`` int32 sample
+    coordinates, or None without ``with_idx``: then ``intensities`` is
+    ``render_frame(...)[3]`` and K2 writes no coordinates."""
     if isinstance(volume, Volume):
         volume = volume.data
     if volume.dim() != 3:
@@ -140,7 +163,8 @@ def render_frame(volume, source, directions, num_samples: int,
         raise ValueError(
             f"start={config.start!r} skips all {num_samples} samples "
             f"(resolved start index {start})")
-    idx, z = trace_rays(volume, source, directions, num_samples, config.interp, step)
+    idx, z = trace_rays(volume, source, directions, num_samples, config.interp, step,
+                        _with_idx=with_idx)
     # reflection in at least f32: in bf16 (z2 - z1) cancels catastrophically
     z = z.to(torch.promote_types(z.dtype, torch.float32))
     r = reflection_coeff(z[..., :-1], z[..., 1:])
@@ -168,8 +192,7 @@ def render_frame(volume, source, directions, num_samples: int,
         out = depth_dependent_lateral_blur(out, max_sigma=config.max_sigma)
         out = sharpen(out, alpha=config.sharpen_alpha)
 
-    idx = idx[..., start:, :]
-    return idx[..., 0], idx[..., 1], idx[..., 2], out
+    return (idx[..., start:, :] if with_idx else None), out
 
 
 def frame_time_delays(spacing, directions, num_samples: int,

@@ -3,7 +3,9 @@
 PyTorch counterpart of ``RendererService`` (``diffus_tpu/serve.py:65-201``,
 ``:645-754``), single-scene: the impedance volume stays resident on the
 device, requests of any size are padded up to a fixed set of batch
-tiers and rendered by :func:`~diffus_tpu_torch.render.renderer.render_sweep`.
+tiers and rendered as one batched sweep, intensities only (the frames
+of ``render_sweep``, without the sample coordinates that the JAX
+service's jitted ``render_sweep(...)[3]`` drops too).
 :meth:`RendererService.recover_pose` (the JAX service's ``/recover``)
 runs the annealed multistart pose recovery against the resident volume.
 Coalescing, multi-scene, crop and the HTTP surface are ROADMAP item A12.
@@ -20,7 +22,7 @@ import numpy as np
 import torch
 
 from diffus_tpu_torch.geometry.fan import fan_directions_2d
-from diffus_tpu_torch.render.renderer import render_sweep
+from diffus_tpu_torch.render.renderer import _render
 from diffus_tpu_torch.train.pose_recovery import (
     AnnealedPoseConfig,
     recover_pose_multistart_annealed,
@@ -92,8 +94,10 @@ class RendererService:
         return self.batch_tiers[-1]
 
     def _frames(self, volume, sources) -> torch.Tensor:
-        return render_sweep(volume, sources, self.directions, self.geometry.num_samples,
-                            self.config, step=float(self.geometry.step))[3]
+        """``render_sweep(volume, sources, self.directions, ...)[3]``: one fan
+        for every pose, no sample coordinates."""
+        return _render(volume, sources, self.directions, self.geometry.num_samples,
+                       self.config, step=float(self.geometry.step), with_idx=False)[1]
 
     def warmup(self) -> float:
         """Render every batch tier once (builds the kernels on first use);

@@ -35,7 +35,7 @@ import torch
 from torch.profiler import record_function
 
 from diffus_tpu_torch.geometry.fan import pose_fan_directions
-from diffus_tpu_torch.render.renderer import render_frame
+from diffus_tpu_torch.render.renderer import _render
 from diffus_tpu_torch.types import BeamGeometry, RenderConfig, TransducerPose, Volume, _f32
 
 
@@ -95,8 +95,8 @@ def render_pose(volume, pose: TransducerPose, cfg: PoseRecoveryConfig) -> torch.
     """Differentiable frame ``(..., n_rays, depth)`` of a pose with
     ``(..., 3)`` leaves (``pose_recovery.py:44-50``)."""
     directions = pose_fan_directions(pose, cfg.geometry)
-    return render_frame(volume, pose.position, directions, cfg.geometry.num_samples,
-                        cfg.render)[3]
+    return _render(volume, pose.position, directions, cfg.geometry.num_samples, cfg.render,
+                   with_idx=False)[1]
 
 
 def _edge_correlate(x: torch.Tensor, k: torch.Tensor, axis: int) -> torch.Tensor:
@@ -358,7 +358,7 @@ def recover_free(volume, target_frame, source0, directions0, num_samples: int,
     losses = []
     for _ in range(steps):
         optimizer.zero_grad(set_to_none=True)
-        frame = render_frame(volume, source, directions, num_samples, render)[3]
+        frame = _render(volume, source, directions, num_samples, render, with_idx=False)[1]
         loss = torch.mean((frame - target) ** 2)
         loss.backward()
         optimizer.step()

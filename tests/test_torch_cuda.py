@@ -19,8 +19,9 @@ from diffus_tpu_torch.kernels.propagation_cuda import (
     echo_fused,
     echo_plain,
 )
-from diffus_tpu_torch.kernels.trilinear_cuda import sample_trilinear_fused
-from diffus_tpu_torch.ops.sampling import sample_trilinear
+from diffus_tpu_torch.kernels import trilinear_cuda as k2
+from diffus_tpu_torch.kernels.trilinear_cuda import march_trilinear_fused, sample_trilinear_fused
+from diffus_tpu_torch.ops.sampling import march_trilinear, ray_points, sample_trilinear
 from diffus_tpu_torch.phantoms import brain_phantom_3d
 from diffus_tpu_torch.render.renderer import simulate_rays
 
@@ -210,6 +211,122 @@ def test_trilinear_kernel_rejects_bf16(cuda):
         sample_trilinear_fused(vol, torch.zeros((2, 3), device=cuda))
 
 
+def _same(got, want):
+    """Equal bit for bit, NaN where NaN."""
+    nan = torch.isnan(want)
+    return (got.shape == want.shape and torch.equal(torch.isnan(got), nan)
+            and torch.equal(torch.where(nan, 0, got), torch.where(nan, 0, want)))
+
+
+def _march_case(rng, cuda, p, r, per_pose, w):
+    """A (9, 10, w) volume, p sources (one with a NaN component, one beyond
+    every face) and r rays, shared (stride 0) or one fan per pose."""
+    vol = torch.from_numpy(rng.uniform(0.5, 2.0, (9, 10, w)).astype(np.float32)).to(cuda)
+    src = rng.uniform(-4.0, 14.0, (p, 3)).astype(np.float32)
+    src[0] = [-20.0, 30.0, -15.0]
+    if p > 1:
+        src[1, 2] = np.nan
+    dirs = rng.normal(size=(p if per_pose else 1, r, 3)).astype(np.float32)
+    dirs = torch.from_numpy(dirs).to(cuda).expand(p, r, 3)
+    return vol, torch.from_numpy(src).to(cuda), dirs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [12, 11])
+@pytest.mark.parametrize("per_pose", [False, True])
+def test_march_kernel_matches_plain_bit_for_bit(cuda, per_pose, w):
+    """K2's ray form equals ray_points + sample_trilinear bit for bit, values
+    and idx, with and without the idx, at P, R and N off every tile, step
+    0.5, a NaN source and a pose outside the volume.  Rows of 12 floats are
+    16-byte aligned, so the paired z loads run (z0 % 4 == 3 and the border
+    take the scalar loads); rows of 11 take the scalar loads throughout."""
+    rng = np.random.default_rng(8)
+    for p, r, n in ((1, 1, 1), (3, 37, 13), (5, 9, 130), (2, 33, 515)):
+        vol, src, dirs = _march_case(rng, cuda, p, r, per_pose, w)
+        want_idx, want = march_trilinear(vol, src, dirs, n, 0.5)
+        for with_idx in (True, False):
+            idx, got = k2._launch_march(vol, src, dirs, n, 0.5, with_idx)
+            torch.cuda.synchronize()
+            assert _same(got, want), (p, r, n, with_idx)
+            assert (torch.equal(idx, want_idx) if with_idx else idx is None)
+
+
+@pytest.mark.cuda
+def test_march_kernel_matches_points_form_and_counts(cuda):
+    vol = torch.from_numpy(brain_phantom_3d((64, 48, 40))).to(cuda)
+    dirs = fan_directions_2d([0.0, 1.0], np.radians(45.0), 45, device=cuda)
+    src = torch.tensor([[32.0, 2.0, 18.0], [31.3, 1.7, 19.0], [33.1, 2.2, 20.3]], device=cuda)
+    before = (march_trilinear_fused.launches, march_trilinear_fused.idx_launches,
+              sample_trilinear_fused.launches)
+    idx, got = march_trilinear_fused(vol, src, dirs, 70)
+    none, got2 = march_trilinear_fused(vol, src, dirs.expand(3, -1, -1), 70, with_idx=False)
+    idx_p, want = sample_trilinear_fused(vol, ray_points(src, dirs, 70))
+    assert (march_trilinear_fused.launches, march_trilinear_fused.idx_launches,
+            sample_trilinear_fused.launches) == (before[0] + 2, before[1] + 1, before[2] + 1)
+    assert none is None and got.shape == (3, 45, 70) and idx.shape == (3, 45, 70, 3)
+    assert _same(got, want) and _same(got2, want) and torch.equal(idx, idx_p)
+
+
+@pytest.mark.cuda
+def test_march_kernel_gradients_match_plain(cuda):
+    """The ray form's Function gives the volume's, the sources' and the
+    directions' gradients of plain autograd (the backward recomputes it)."""
+    rng = np.random.default_rng(9)
+    vol0 = torch.from_numpy(brain_phantom_3d((20, 24, 22)) / 1e6).to(cuda)
+    src0 = torch.from_numpy(rng.uniform(2.0, 18.0, (2, 3)).astype(np.float32)).to(cuda)
+    dirs0 = torch.from_numpy(rng.normal(size=(2, 6, 3)).astype(np.float32)).to(cuda)
+    grads = []
+    for fn in (march_trilinear_fused, march_trilinear):
+        leaves = [t.clone().requires_grad_(True) for t in (vol0, src0, dirs0)]
+        (fn(*leaves, 30, 0.7)[1] ** 2).sum().backward()
+        grads.append([t.grad for t in leaves])
+    for g, w in zip(*grads):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-6)
+    # one input needing a gradient at a time
+    src = src0.clone().requires_grad_(True)
+    march_trilinear_fused(vol0, src, dirs0, 30, 0.7, with_idx=False)[1].sum().backward()
+    assert src.grad is not None and bool(torch.isfinite(src.grad).all())
+
+
+@pytest.mark.cuda
+def test_march_kernel_rejects(cuda):
+    vol = torch.ones((4, 4, 4), device=cuda)
+    src, dirs = torch.zeros((2, 3), device=cuda), torch.ones((2, 5, 3), device=cuda)
+    with pytest.raises(TypeError, match="float32"):
+        march_trilinear_fused(vol.to(torch.bfloat16), src, dirs, 8)
+    with pytest.raises(TypeError, match="float32"):
+        march_trilinear_fused(vol.double(), src.double(), dirs.double(), 8)
+    with pytest.raises(ValueError, match="cpu"):
+        march_trilinear_fused(vol, src.cpu(), dirs, 8)
+    with pytest.raises(ValueError, match="directions"):
+        march_trilinear_fused(vol, src, dirs[..., :2], 8)
+
+
+@pytest.mark.cuda
+def test_service_and_recovery_render_without_idx(cuda):
+    """The service and render_pose read the intensities alone: K2's ray form
+    launches and writes no idx; render_frame (training's) writes it."""
+    from diffus_tpu_torch.render.renderer import render_frame
+    from diffus_tpu_torch.serve import RendererService
+    from diffus_tpu_torch.train.pose_recovery import PoseRecoveryConfig, render_pose
+    from diffus_tpu_torch.types import BeamGeometry, RenderConfig, TransducerPose
+
+    vol = torch.from_numpy(brain_phantom_3d((48, 48, 48))).to(cuda)
+    cfg = RenderConfig(attenuation_coeff=1e-4, interp="trilinear_fused", use_pallas=True)
+    svc = RendererService(vol, BeamGeometry(16, 40), cfg, batch_tiers=(1, 4), device=cuda)
+    base = PoseRecoveryConfig(BeamGeometry(16, 40), cfg)
+    for run, writes_idx in ((lambda: svc.render(torch.tensor([[24.0, 2.0, 24.0]] * 3)), False),
+                            (lambda: render_pose(vol, TransducerPose.create([24.0, 2.0, 24.0],
+                                                                            device=cuda), base),
+                             False),
+                            (lambda: render_frame(vol, torch.tensor([24.0, 2.0, 24.0]),
+                                                  svc.directions, 40, cfg), True)):
+        before = (march_trilinear_fused.launches, march_trilinear_fused.idx_launches)
+        run()
+        assert march_trilinear_fused.launches == before[0] + 1
+        assert march_trilinear_fused.idx_launches == before[1] + int(writes_idx)
+
+
 def _f64_bound_ratio(x, table_np, off, n_rows):
     """max |x - f64 sum| / (1e-6 * sum |x_i|) per lane: <= 1 in any
     summation order at these sizes."""
@@ -303,10 +420,10 @@ def test_train_step_on_the_card(cuda, loss):
     out = {}
     for name, c in (("kernel", cfg), ("plain", plain)):
         model = copy.deepcopy(model0)
-        before = (echo_fused.launches, sample_trilinear_fused.launches)
+        before = (echo_fused.launches, march_trilinear_fused.launches)
         loss_value = train_step(model, make_optimizer(model, c), t1, target, mask, src, dirs, c)
         torch.cuda.synchronize()
-        launched = (echo_fused.launches - before[0], sample_trilinear_fused.launches - before[1])
+        launched = (echo_fused.launches - before[0], march_trilinear_fused.launches - before[1])
         assert launched == ((1, 1) if name == "kernel" else (0, 0)), (name, launched)
         out[name] = (loss_value, {n: p.grad for n, p in model.named_parameters()}, model)
     torch.testing.assert_close(out["kernel"][0], out["plain"][0], rtol=1e-4, atol=1e-6)

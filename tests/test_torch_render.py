@@ -70,6 +70,34 @@ def test_nearest_matches_dense_oracle(start):
     assert frame_rel_err(frame.numpy(), ref) < 1e-5
 
 
+@pytest.mark.parametrize("fields,tol", CASES, ids=[str(c[0]) for c in CASES])
+def test_values_only_render_matches_render_frame_and_jax(fields, tol):
+    """The intensities alone (what the service and pose recovery read) equal
+    render_frame(...)[3] exactly and JAX's frame at the frame tolerances;
+    the fused interp's ray form then returns no coords."""
+    fields = dict({"attenuation_coeff": 1e-4}, **fields)
+    vol, dirs = torch.from_numpy(VOL), torch.from_numpy(DIRS)
+    idx, frame = tr._render(vol, SRC, dirs, N, RenderConfig(**fields), with_idx=False)
+    assert idx is None
+    torch.testing.assert_close(
+        frame, tr.render_frame(vol, SRC, dirs, N, RenderConfig(**fields))[3], rtol=0, atol=0)
+    want = jr.render_frame(jnp.asarray(VOL), jnp.asarray(SRC), jnp.asarray(DIRS), N,
+                           JConfig(**fields))[3]
+    assert frame_rel_err(frame.numpy(), np.asarray(want)) < tol
+
+
+def test_values_only_sweep_of_a_shared_fan_matches_render_sweep():
+    """The service's call: (P, 3) sources against one (R, 3) fan, unexpanded,
+    equals render_sweep's frames."""
+    cfg = RenderConfig(attenuation_coeff=1e-4, interp="trilinear_fused", use_pallas=True,
+                       start=2)
+    srcs = torch.from_numpy(SRC + np.array([[0.0, 0.0, 0.0], [0.73, 0.21, -1.21]], np.float32))
+    frames = tr._render(torch.from_numpy(VOL), srcs, torch.from_numpy(DIRS), N, cfg,
+                        with_idx=False)[1]
+    torch.testing.assert_close(
+        frames, tr.render_sweep(torch.from_numpy(VOL), srcs, DIRS, N, cfg)[3], rtol=0, atol=0)
+
+
 def test_render_frame_takes_volume_objects():
     cfg = RenderConfig(attenuation_coeff=1e-4)
     a = tr.render_frame(Volume.from_array(VOL), SRC, DIRS, N, cfg)[3]

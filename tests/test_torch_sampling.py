@@ -13,8 +13,10 @@ import diffus_tpu.ops.sampling as js
 from diffus_tpu.geometry.fan import fan_directions_2d
 from diffus_tpu.phantoms import brain_phantom_3d
 from diffus_tpu.types import RenderConfig
+from diffus_tpu.render.renderer import trace_rays as jax_trace_rays
 import diffus_tpu_torch.ops.sampling as ts
-from diffus_tpu_torch.kernels.trilinear_cuda import sample_trilinear_fused
+from diffus_tpu_torch.kernels.trilinear_cuda import march_trilinear_fused, sample_trilinear_fused
+from diffus_tpu_torch.render.renderer import trace_rays
 from torch_parity import assert_parity, seeded
 
 BORDER = np.array(
@@ -124,3 +126,88 @@ def test_every_interp_name_resolves(name):
         want = ts.sample_trilinear(vol_t, pts_t)[1]
     torch.testing.assert_close(values, want, rtol=0, atol=0)
     torch.testing.assert_close(idx, ts.sample_nearest(vol_t, pts_t)[0], rtol=0, atol=0)
+
+
+# --- K2's ray form: march_trilinear (its plain version) and its CPU path ---
+
+
+def _march_inputs(per_pose: bool, p=3, r=7, nan_source=True):
+    """A unit-scale phantom, p sources (one beyond every face, one with a NaN
+    component) and a shared (r, 3) fan or one fan per pose."""
+    rng = seeded(34)
+    vol = (brain_phantom_3d((20, 24, 22)) / 1e6).astype(np.float32)
+    src = rng.uniform(2.0, 18.0, (p, 3)).astype(np.float32)
+    src[0] = [-9.0, 30.0, -4.0]
+    if nan_source:
+        src[1, 1] = np.nan
+    fan = np.array(fan_directions_2d([0.15, 1.0], np.radians(60.0), r), np.float32)
+    dirs = (fan[None] + rng.normal(0.0, 0.1, (p, r, 3)).astype(np.float32)) if per_pose else fan
+    return torch.from_numpy(vol), torch.from_numpy(src), torch.from_numpy(dirs)
+
+
+def _same(got, want):
+    nan = torch.isnan(want)
+    return (got.shape == want.shape and torch.equal(torch.isnan(got), nan)
+            and torch.equal(torch.where(nan, 0, got), torch.where(nan, 0, want)))
+
+
+@pytest.mark.parametrize("per_pose", [False, True], ids=["shared_fan", "per_pose_fan"])
+@pytest.mark.parametrize("step", [1.0, 0.5, 1.3])
+def test_march_trilinear_equals_sampling_each_pose_bit_for_bit(per_pose, step):
+    """(P, 3) sources against a shared (R, 3) or per-pose (P, R, 3) fan:
+    every pose equals sample_trilinear at its own ray_points, values (NaN
+    where the source is NaN) and idx, with the idx optional."""
+    vol, src, dirs = _march_inputs(per_pose)
+    idx, values = ts.march_trilinear(vol, src, dirs, 40, step)
+    assert idx.shape == (3, 7, 40, 3) and values.shape == (3, 7, 40)
+    for p in range(3):
+        want_idx, want = ts.sample_trilinear(vol, ts.ray_points(src[p], dirs[p] if per_pose
+                                                                else dirs, 40, step))
+        assert _same(values[p], want) and torch.equal(idx[p], want_idx)
+    assert torch.isnan(values[1]).all() and torch.isfinite(values[[0, 2]]).all()
+    none, values2 = ts.march_trilinear(vol, src, dirs, 40, step, with_idx=False)
+    assert none is None and _same(values2, values)
+
+
+@pytest.mark.parametrize("step", [1.0, 0.5])
+@pytest.mark.parametrize("source", [[10.3, 1.2, 11.7], [-3.2, 25.4, 7.1], [19.9, 12.5, 21.5]])
+def test_march_trilinear_matches_jax_trace_rays(source, step):
+    """Against JAX's trace_rays through the Pallas tile_select (interpret
+    mode on the CPU), from inside and outside the volume; the port's
+    trace_rays and the ray form's CPU path are the same and launch nothing."""
+    vol, _, dirs = _march_inputs(False, nan_source=False)
+    src = np.array(source, np.float32)
+    want_idx, want = jax_trace_rays(jnp.asarray(vol.numpy()), jnp.asarray(src),
+                                    jnp.asarray(dirs.numpy()), 30, "trilinear_fused", step)
+    before = (march_trilinear_fused.launches, march_trilinear_fused.idx_launches,
+              sample_trilinear_fused.launches)
+    idx, values = ts.march_trilinear(vol, torch.from_numpy(src), dirs, 30, step)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(want_idx))
+    np.testing.assert_allclose(values.numpy(), np.asarray(want), rtol=1e-6, atol=1e-7)
+    for fn in (lambda: march_trilinear_fused(vol, torch.from_numpy(src), dirs, 30, step),
+               lambda: trace_rays(vol, src, dirs, 30, "trilinear_fused", step)):
+        got_idx, got = fn()
+        assert torch.equal(got_idx, idx) and torch.equal(got, values)
+    assert trace_rays(vol, src, dirs, 30, "trilinear_fused", step, _with_idx=False)[0] is None
+    assert (march_trilinear_fused.launches, march_trilinear_fused.idx_launches,
+            sample_trilinear_fused.launches) == before  # CPU tensors run the plain version
+
+
+def test_march_gradients_match_jax():
+    """Gradients of the ray form's CPU path with respect to the volume, the
+    source and the directions against JAX's trace_rays with the Pallas
+    kernel's custom VJP, at test_fused_gradients_match_pallas's tolerances."""
+    vol0, _, dirs0 = _march_inputs(False, nan_source=False)
+    vol0, dirs0 = vol0.numpy(), dirs0.numpy()
+    src0 = np.array([10.3, 1.2, 11.7], np.float32)
+
+    def jloss(v, s, d):
+        return jnp.sum(jax_trace_rays(v, s, d, 30, "trilinear_fused", 0.8)[1] ** 2)
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(jnp.asarray(vol0), jnp.asarray(src0),
+                                              jnp.asarray(dirs0))
+    leaves = [torch.from_numpy(a.copy()).requires_grad_(True) for a in (vol0, src0, dirs0)]
+    (march_trilinear_fused(*leaves, 30, 0.8)[1] ** 2).sum().backward()
+    np.testing.assert_allclose(leaves[0].grad.numpy(), np.asarray(want[0]), rtol=1e-4, atol=1e-6)
+    for got, w in zip(leaves[1:], want[1:]):
+        np.testing.assert_allclose(got.grad.numpy(), np.asarray(w), rtol=1e-4, atol=1e-5)
