@@ -30,7 +30,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    against the points form fed ``ray_points``;
 4. main path: a ``RendererService`` on the 256^3 phantom at 256 rays x 512
    samples, ``interp='trilinear_fused'`` with ``use_pallas=True``, tiers
-   (1, 8, 32), answers requests of 1, 5 and 32 poses; K1's and K2's ray
+   (1, 8, 32), each request rendered as it comes (``coalesce=False``), answers requests of 1, 5 and 32 poses; K1's and K2's ray
    form's launch counters must rise, and K2 must write no idx; one frame
    is held against the plain path in float64 on the CPU, plus a B-mode
    splat and a nearest frame;
@@ -88,7 +88,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    float64 CPU plain path like phase 7's;
    the step's times and profiler split as in phase 8; then the same entry
    point on a service of the JAX tests' 64 x 128 geometry over the same
-   volume must bring the best start and half the starts within 1 voxel.
+   volume must bring the best start and half the starts within 1 voxel;
+11. serving surface: the 256^3 phantom written with the port's
+   ``io.save_nifti`` (uncompressed, 64 MiB) and read back with
+   ``load_volume`` (equal to what was written); a ``VolumePrefetcher`` stages
+   four such files to the card, each equal to its file; a
+   ``RendererService`` on the loaded volume (phase 4's config) with two more
+   scenes, the phantom padded with air, uncropped and ``crop=True``, served
+   by ``make_http_server`` on port 0.  ``/render`` of 1, 5 and 32 poses on
+   each scene: K1's and K2's launches must rise, K2 without idx; a frame
+   against the plain path in float64 on the CPU (limit 1e-4); the cropped
+   scene's frames against the uncropped (see ``_crop_check``).  Bursts of 8
+   and 32 concurrent 1-pose ``/render``s at coalescing windows of 0, 3 ms
+   and adaptive: the rise of ``batches`` and ``/stats``' latency
+   percentiles; at 3 ms, 32 requests must take fewer batches.
+   ``/update_volume`` and ``/add_scene`` with 256^3 bodies, ``/remove_scene``,
+   and ``/recover`` on a 64 x 128 service (finite losses); then the CLI's
+   ``render --pallas`` (its ``.npy`` equal to an in-process ``render_frame``),
+   ``sweep --pallas --poses 32`` and ``selftest``, each in a subprocess.
 
 TF32 is off for matmuls and cuDNN (``torch.backends``), so no comparison
 depends on those defaults.  The line before the last is a JSON object of
@@ -132,6 +149,7 @@ APEX = np.array([128.0, 4.0, 128.0])
 TRAIN_SEED = 1
 PULSE = 16                          # even: the pulse's N + 1 output is cropped
 STARTS, RADIUS, ROT_SCALE, RECOVERY_SEED = 8, 1.5, 0.03, 0   # JAX's acceptance distribution
+ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
 def _card() -> str:
@@ -657,7 +675,7 @@ def _image_formation_phase(dev, vol, rng, card: str) -> dict:
                        pulse_length=PULSE, envelope=True)
     art = dataclasses.replace(cfg, artifacts=True, std_radial=0.05, std_local=0.2)
     svc = RendererService(vol, BeamGeometry(N_RAYS, N_SAMPLES), cfg, batch_tiers=TIERS,
-                          device=dev)
+                          device=dev, coalesce=False)
     warm_s = svc.warmup()
     requests = {p: _sources(rng, p) for p in (5, 32)}
     src8 = _sources(rng, 8).to(dev)
@@ -936,6 +954,345 @@ def _subtree(event):
         yield from _subtree(child)
 
 
+class _Http:
+    """A ``make_http_server`` on port 0 run on a thread, and JSON calls to it."""
+
+    def __init__(self, svc):
+        import threading
+
+        from diffus_tpu_torch.serve import make_http_server
+
+        self.server = make_http_server(svc, port=0)
+        self.url = f"http://127.0.0.1:{self.server.server_address[1]}"
+        self.thread = threading.Thread(target=self.server.serve_forever, daemon=True)
+        self.thread.start()
+
+    def call(self, path: str, payload=None) -> dict:
+        import urllib.request
+
+        data = None if payload is None else json.dumps(payload).encode()
+        req = urllib.request.Request(self.url + path, data=data,
+                                     method="GET" if data is None else "POST")
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return json.load(r)
+
+    def close(self) -> None:
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join(timeout=60)
+
+
+def _npy_b64(arr: np.ndarray) -> str:
+    import base64
+    import io
+
+    buf = io.BytesIO()
+    np.save(buf, arr)
+    return base64.b64encode(buf.getvalue()).decode()
+
+
+def _from_b64(payload: dict) -> torch.Tensor:
+    import base64
+    import io
+
+    return torch.from_numpy(np.load(io.BytesIO(base64.b64decode(payload["npy_b64"]))))
+
+
+def _crop_check(frames: dict, srcs: dict, padded: np.ndarray, crop_box, dirs_cpu,
+                cfg) -> str:
+    """The cropped scene's frames against the uncropped padded scene's, at the
+    same client sources.  The crop shifts each source by its offset, f32 then
+    rounds some sample points of the two scenes differently by an ulp (where a
+    coordinate and its shifted value lie in different binades), and near a
+    resonance the echo scan amplifies that far beyond 1e-4; the JAX service
+    does the same (PERF.md).  So a frame further than 1e-4 (frame-max-relative)
+    from the uncropped one is held to the crop's exactness in float64 with
+    float64 points on the CPU: the cropped volume at ``source - offset``
+    against the padded volume at ``source``, within 1e-9.  Whether the CPU
+    tests' tolerance, ``allclose(rtol 1e-5, atol 1e-7)``, held is printed."""
+    from diffus_tpu_torch.render.renderer import render_frame
+
+    worst, close, beyond = 0.0, True, []
+    vols = None
+    dirs64 = dirs_cpu.double()
+    for p, (a, b) in frames.items():
+        close &= bool(torch.allclose(b, a, rtol=1e-5, atol=1e-7))
+        e = ((b - a).double().abs().amax(dim=(1, 2)) / a.double().abs().amax(dim=(1, 2))).numpy()
+        worst = max(worst, float(e.max()))
+        for i in np.nonzero(e > 1e-4)[0]:
+            if vols is None:
+                lo = [sl.start for sl in crop_box]
+                vols = (torch.from_numpy(padded).double(),
+                        torch.from_numpy(padded[crop_box]).double(),
+                        torch.tensor(lo, dtype=torch.float64))
+            src = srcs[p][i].double()
+            ref_a = render_frame(vols[0], src, dirs64, N_SAMPLES, cfg)[3]
+            ref_b = render_frame(vols[1], src - vols[2], dirs64, N_SAMPLES, cfg)[3]
+            e64 = _frame_rel_err(ref_b, ref_a)
+            if not e64 < 1e-9:
+                raise AssertionError(f"cropped scene, request of {p}, frame {i}: the crop moves "
+                                     f"the float64 frame by {e64:.3e}")
+            beyond.append(f"{e[i]:.2e} (f32 on the card: cropped {_frame_rel_err(b[i], ref_a):.2e},"
+                          f" uncropped {_frame_rel_err(a[i], ref_a):.2e} from f64; f64 cropped "
+                          f"vs uncropped {e64:.1e})")
+    return (f"cropped vs uncropped scene: worst frame-max-relative {worst:.3e}; "
+            f"allclose(rtol 1e-5, atol 1e-7) {close}; {len(beyond)} frames beyond 1e-4, the crop "
+            f"exact in float64 for each: {beyond}")
+
+
+def _bursts(svc, label: str, card: str, rng, sizes=(8, 32)) -> dict:
+    """Bursts of concurrent 1-pose ``/render`` requests on a fresh server over
+    ``svc``: the rise of ``batches`` per burst and ``/stats``' latencies."""
+    import threading
+
+    lone = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        svc.render(_sources(rng, 1))
+        torch.cuda.synchronize()
+        lone.append((time.perf_counter() - t0) * 1e3)
+    print(f"times [{card}]: coalescing ({label}): a lone 1-pose request, in process, median of "
+          f"10 {statistics.median(lone):.3f} ms (min {min(lone):.3f}, max {max(lone):.3f})",
+          flush=True)
+    http = _Http(svc)
+    out = {"lone_ms": statistics.median(lone)}
+    try:
+        for n in sizes:
+            srcs = _sources(rng, n).numpy()
+            barrier = threading.Barrier(n)
+            errors = []
+
+            def one(i):
+                barrier.wait(timeout=60)
+                try:
+                    frame = _from_b64(http.call("/render", {"sources": srcs[i:i + 1].tolist()}))
+                    if tuple(frame.shape) != (1, N_RAYS, N_SAMPLES):
+                        errors.append(f"shape {tuple(frame.shape)}")
+                except Exception as e:  # reported below, after the burst
+                    errors.append(repr(e))
+
+            before = http.call("/stats")["batches"]
+            threads = [threading.Thread(target=one, args=(i,)) for i in range(n)]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            if errors or any(t.is_alive() for t in threads):
+                raise AssertionError(f"burst of {n} ({label}): {errors[:3]}")
+            stats = http.call("/stats")
+            out[n] = {"batches": stats["batches"] - before, "wall_ms": wall_ms,
+                      "window_ms": stats["window_ms"]}
+            print(f"times [{card}]: coalescing ({label}): {n} concurrent 1-pose /render -> "
+                  f"{out[n]['batches']} batches, burst wall {wall_ms:.2f} ms, window now "
+                  f"{stats['window_ms']} ms", flush=True)
+        lat = {k: v for k, v in stats.items() if k.startswith("latency_")}
+        print(f"times [{card}]: coalescing ({label}): /stats latencies over both bursts "
+              f"{json.dumps(lat)}", flush=True)
+        out["latency"] = lat
+    finally:
+        http.close()
+    return out
+
+
+def _run_cli(args: list, label: str, card: str) -> str:
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "diffus_tpu_torch.cli", *args], cwd=ROOT,
+                          env=env, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"CLI {label} exited {proc.returncode}: {proc.stderr[-3000:]}")
+    print(f"times [{card}]: CLI {label}: exit 0 in {wall:.2f} s (a new process, kernel library "
+          f"loaded from build/); {proc.stdout.strip().splitlines()[-1]}", flush=True)
+    return proc.stdout
+
+
+def _serving_surface_phase(dev, card: str) -> dict:
+    """Phase 11: the port's I/O, the multi-scene service over HTTP, coalescing,
+    the other routes and the CLI, at full width."""
+    import shutil
+
+    from diffus_tpu_torch.geometry import fan_directions_2d
+    from diffus_tpu_torch.io import (
+        VolumePrefetcher,
+        batched,
+        load_volume,
+        native_available,
+        save_nifti,
+    )
+    from diffus_tpu_torch.phantoms import brain_phantom_3d
+    from diffus_tpu_torch.render.renderer import render_frame
+    from diffus_tpu_torch.serve import RendererService
+    from diffus_tpu_torch.train.pose_recovery import render_pose
+    from diffus_tpu_torch.types import BeamGeometry, RenderConfig, TransducerPose
+
+    rng = np.random.default_rng(11)
+    work = os.path.join(ROOT, ".scratch", f"smoke_{os.getpid()}")
+    os.makedirs(work, exist_ok=True)
+    try:
+        # -- the port's I/O ------------------------------------------------
+        host = brain_phantom_3d(SHAPE)
+        path = os.path.join(work, "phantom.nii")
+        t0 = time.perf_counter()
+        save_nifti(path, host)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = load_volume(path)
+        read_s = time.perf_counter() - t0
+        if not torch.equal(loaded.data, torch.from_numpy(host)):
+            raise AssertionError("load_volume differs from the volume save_nifti wrote")
+        paths = []
+        for i in range(4):
+            paths.append(os.path.join(work, f"case{i}.nii"))
+            save_nifti(paths[-1], host * np.float32(1 + i))
+        t0 = time.perf_counter()
+        with VolumePrefetcher(batched(paths, 2), device=dev) as pf:
+            stacks = [stack for stack, _, _ in pf]
+        torch.cuda.synchronize()
+        stage_s = time.perf_counter() - t0
+        staged = torch.cat(stacks)
+        if staged.device.type != dev.type or tuple(staged.shape) != (4, *SHAPE):
+            raise AssertionError(f"prefetched stack {tuple(staged.shape)} on {staged.device}")
+        for i in range(4):
+            if not torch.equal(staged[i].cpu(), torch.from_numpy(host * np.float32(1 + i))):
+                raise AssertionError(f"prefetched volume {i} differs from its file")
+        del stacks, staged
+        print(f"I/O: native reader {native_available()}; save_nifti {SHAPE} "
+              f"({os.path.getsize(path) / 2**20:.1f} MiB) {write_s:.3f} s, load_volume "
+              f"{read_s:.3f} s, equal; VolumePrefetcher (2 batches of 2, pinned copies on a "
+              f"side stream) {stage_s:.3f} s [{card}], each volume equal to its file",
+              flush=True)
+
+        # -- stage and serve ------------------------------------------------
+        vol = loaded.data.to(dev)
+        pad = 48
+        padded = np.full(tuple(s + 2 * pad for s in SHAPE), host.min(), np.float32)
+        padded[pad:-pad, pad:-pad, pad:-pad] = host
+        cfg = RenderConfig(attenuation_coeff=ATT, interp="trilinear_fused", use_pallas=True)
+        svc = RendererService(vol, BeamGeometry(N_RAYS, N_SAMPLES), cfg, batch_tiers=TIERS,
+                              device=dev)
+        svc.add_scene("padded", padded)
+        svc.add_scene("cropped", padded, crop=True)
+        warm_s = svc.warmup()
+        http = _Http(svc)
+        try:
+            inventory = http.call("/scenes")
+            if not inventory["cropped"]["cropped"] or inventory["cropped"]["shape"] >= \
+                    inventory["padded"]["shape"]:
+                raise AssertionError(f"scenes {inventory}")
+            requests = {p: _sources(rng, p) for p in (1, 5, 32)}
+            _counts_reset()
+            frames, lat = {}, []
+            for scene, shift in (("default", 0.0), ("padded", pad), ("cropped", pad)):
+                for p, s in requests.items():
+                    t0 = time.perf_counter()
+                    out = http.call("/render", {"sources": (s + shift).tolist(),
+                                                "scene": scene})
+                    lat.append((time.perf_counter() - t0) * 1e3)
+                    f = _from_b64(out)
+                    if tuple(f.shape) != (p, N_RAYS, N_SAMPLES) or not bool(
+                            torch.isfinite(f).all()) or not bool((f != 0).any()):
+                        raise AssertionError(f"/render {scene} of {p}: {tuple(f.shape)}")
+                    frames[scene, p] = f
+            vol64 = torch.from_numpy(host).double()
+            dirs_cpu = svc.directions.cpu()
+            err = _frame_rel_err(frames["default", 5][1],
+                                 render_frame(vol64, requests[5][1], dirs_cpu, N_SAMPLES, cfg)[3])
+            if not err < 1e-4:
+                raise AssertionError(f"/render frame vs float64 CPU: {err:.3e}")
+            crop = _crop_check({p: (frames["padded", p], frames["cropped", p]) for p in requests},
+                               {p: s + pad for p, s in requests.items()}, padded,
+                               svc._get_scene("cropped").crop_slices, dirs_cpu, cfg)
+            print(f"serving surface: warmup {warm_s:.2f} s; scenes {inventory}; /render of 1, 5, "
+                  f"32 poses on each: ok; frame vs f64 CPU {err:.3e}; {crop}", flush=True)
+            print(f"times [{card}]: /render over HTTP (JSON + base64 .npy, 9 requests), "
+                  f"latency ms by request {np.round(lat, 3).tolist()}", flush=True)
+
+            # -- the other routes ------------------------------------------
+            t0 = time.perf_counter()
+            body = _npy_b64(host * np.float32(1.1))
+            r = http.call("/update_volume", {"npy_b64": body})
+            upd_s = time.perf_counter() - t0
+            again = _from_b64(http.call("/render", {"sources": requests[5].tolist()}))
+            r2 = http.call("/add_scene", {"name": "c", "npy_b64": body})
+            on_c = _from_b64(http.call("/render", {"sources": requests[1].tolist(),
+                                                   "scene": "c"}))
+            r3 = http.call("/remove_scene", {"name": "c"})
+            if not (r["ok"] and r2["ok"] and r3["ok"]) or "c" in http.call("/scenes") or not (
+                    bool(torch.isfinite(again).all()) and bool(torch.isfinite(on_c).all())):
+                raise AssertionError(f"update/add/remove: {r} {r2} {r3}")
+            print(f"routes: /update_volume and /add_scene with a {SHAPE} body "
+                  f"({len(body) / 1e6:.1f} MB of base64), /remove_scene: ok; update "
+                  f"{upd_s:.2f} s [{card}]", flush=True)
+        finally:
+            http.close()
+
+        small = RendererService(vol, BeamGeometry(64, 128), cfg, batch_tiers=(1,), device=dev)
+        with torch.no_grad():
+            target = render_pose(vol, TransducerPose.create(APEX, device=dev),
+                                 small._recovery_config().as_base())
+        http = _Http(small)
+        try:
+            t0 = time.perf_counter()
+            fit = http.call("/recover", {
+                "target_npy_b64": _npy_b64(target.cpu().numpy()),
+                "init_position": (APEX + [0.7, -0.4, 0.5]).tolist(), "count": 4,
+                "radius": 0.8, "rot_scale": 0.0,
+                "phases": [[1.0, 0.15, 0.01, 40], [0.0, 0.1, 0.005, 40]], "seed": 0})
+            rec_s = time.perf_counter() - t0
+        finally:
+            http.close()
+        torch.cuda.synchronize()
+        launches = _counts("serving surface", idx=False)
+        if not np.all(np.isfinite(fit["final_losses"])):
+            raise AssertionError(f"/recover losses {fit['final_losses']}")
+        print(f"/recover at 64 x 128 (4 starts, 80 steps): {rec_s:.2f} s [{card}]; final losses "
+              f"{fit['final_losses']}; best position error "
+              f"{float(np.linalg.norm(np.asarray(fit['position']) - APEX)):.4f} voxels; "
+              f"launches of the phase {launches}", flush=True)
+
+        # -- coalescing ----------------------------------------------------
+        coalescing = {}
+        for label, kwargs in (("window 0", {"coalesce_window_s": 0.0}),
+                              ("window 3 ms", {}), ("adaptive", {"adaptive_window": True})):
+            s = RendererService(vol, BeamGeometry(N_RAYS, N_SAMPLES), cfg, batch_tiers=TIERS,
+                                device=dev, **kwargs)
+            s.warmup()
+            coalescing[label] = _bursts(s, label, card, rng)
+        if not coalescing["window 3 ms"][32]["batches"] < 32:
+            raise AssertionError(f"32 concurrent requests at 3 ms took "
+                                 f"{coalescing['window 3 ms'][32]['batches']} batches")
+
+        # -- the CLI -------------------------------------------------------
+        out = os.path.join(work, "frame.npy")
+        common = ["--volume", path, "--impedance", "none", "--pallas", "--rays", str(N_RAYS),
+                  "--samples", str(N_SAMPLES), "--source", *(str(float(v)) for v in APEX)]
+        _run_cli(["render", *common, "--out", out], "render --pallas", card)
+        want = render_frame(vol, torch.tensor(APEX, dtype=torch.float32, device=dev),
+                            fan_directions_2d([0.0, 1.0], np.radians(45.0), N_RAYS, device=dev),
+                            N_SAMPLES, RenderConfig(attenuation_coeff=ATT, start=0.0,
+                                                    use_pallas=True))[3].cpu()
+        got = torch.from_numpy(np.load(out))
+        if not torch.equal(got, want):
+            raise AssertionError(f"CLI render differs from render_frame in process: max abs "
+                                 f"{float((got - want).abs().max()):.3e}")
+        sweep = os.path.join(work, "sweep.npy")
+        _run_cli(["sweep", *common, "--poses", "32", "--out", sweep], "sweep --pallas", card)
+        frames32 = np.load(sweep)
+        if frames32.shape != (32, N_RAYS, N_SAMPLES) or not np.all(np.isfinite(frames32)):
+            raise AssertionError(f"CLI sweep: {frames32.shape}")
+        selftest = json.loads(_run_cli(["selftest"], "selftest", card).strip().splitlines()[-1])
+        if not selftest["ok"]:
+            raise AssertionError(f"CLI selftest {selftest}")
+        print("CLI: render --pallas equal to render_frame in process, bit for bit; sweep "
+              "--pallas --poses 32 finite; selftest ok", flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return {"launches": launches, "coalescing": coalescing}
+
+
 def _requests_only(dev, card: str) -> int:
     """``--requests``: the phase-4 service's request latency and device-time
     split at each tier, nothing else."""
@@ -946,7 +1303,7 @@ def _requests_only(dev, card: str) -> int:
     vol = torch.from_numpy(brain_phantom_3d(SHAPE)).to(dev)
     cfg = RenderConfig(attenuation_coeff=ATT, interp="trilinear_fused", use_pallas=True)
     svc = RendererService(vol, BeamGeometry(N_RAYS, N_SAMPLES), cfg, batch_tiers=TIERS,
-                          device=dev)
+                          device=dev, coalesce=False)
     svc.warmup()
     rng = np.random.default_rng(0)
     _tier_latencies(svc, rng, card, "request")
@@ -1006,8 +1363,10 @@ def main(argv=None) -> int:
     rng = np.random.default_rng(0)
     vol = torch.from_numpy(brain_phantom_3d(SHAPE)).to(dev)
     cfg = RenderConfig(attenuation_coeff=ATT, interp="trilinear_fused", use_pallas=True)
+    # coalesce=False: phases 4-5 time a request's render path at each tier, as
+    # before the service coalesced; phase 11 times the coalescing window
     svc = RendererService(vol, BeamGeometry(N_RAYS, N_SAMPLES), cfg, batch_tiers=TIERS,
-                          device=dev)
+                          device=dev, coalesce=False)
     dirs = svc.directions
     src32 = _sources(rng, 32).to(dev)
     # K1's inputs: the reflection coefficients of a 32-pose batch of the main
@@ -1285,6 +1644,9 @@ def main(argv=None) -> int:
     # -- 10. pose recovery at full width --------------------------------------
     recovery = _recovery_phase(dev, svc, vol, card)
 
+    # -- 11. the serving surface: I/O, HTTP, scenes, coalescing, the CLI -------
+    surface = _serving_surface_phase(dev, card)
+
     kernels = [
         {"name": "echo_scan", "route": "cuda", "source": "diffus_tpu_torch/csrc/echo_scan.cu",
          "replaces": "diffus_tpu/kernels/propagation_pallas.py:45",
@@ -1320,7 +1682,9 @@ def main(argv=None) -> int:
         k["training_launches"] = train["launches"][k["name"]]
         k["image_formation_launches"] = bmode["launches"][k["name"]]
         k["recovery_launches"] = recovery["launches"][k["name"]]
-    for path, run in (("training", train), ("image_formation", bmode), ("recovery", recovery)):
+        k["serving_surface_launches"] = surface["launches"][k["name"]]
+    for path, run in (("training", train), ("image_formation", bmode), ("recovery", recovery),
+                      ("serving_surface", surface)):
         kernels[1][f"{path}_idx_launches"] = run["launches"]["trilinear_idx"]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -14,7 +14,9 @@ Layer map (the ported slices):
   hand-written kernels   -> diffus_tpu_torch.kernels (CUDA C++, sm_90a)
   image formation        -> diffus_tpu_torch.ops (filters, bmode, artifacts, splat)
   training, recovery     -> diffus_tpu_torch.train (impedance_train, pose_recovery)
-  serving                -> diffus_tpu_torch.serve
+  serving, HTTP          -> diffus_tpu_torch.serve
+  I/O, utilities, plots  -> diffus_tpu_torch.io, diffus_tpu_torch.utils, diffus_tpu_torch.viz
+  command line           -> diffus_tpu_torch.cli (``python -m diffus_tpu_torch.cli``)
 """
 
 from diffus_tpu_torch.types import Volume, TransducerPose, BeamGeometry, RenderConfig

@@ -432,3 +432,18 @@ def test_train_step_on_the_card(cuda, loss):
         assert err <= 2e-3, (n, err)
     for p, p0 in zip(out["kernel"][2].parameters(), model0.parameters()):
         assert bool(torch.isfinite(p).all()) and not torch.equal(p, p0)
+
+
+@pytest.mark.cuda
+def test_service_bf16_trilinear_fused_raises(cuda):
+    """``RenderConfig(dtype="bfloat16", interp="trilinear_fused")`` through the
+    service: K2 takes float32 only, so the card raises ``TypeError`` rather
+    than fall back quietly to the plain sampler (which the CPU runs)."""
+    from diffus_tpu_torch.serve import RendererService
+    from diffus_tpu_torch.types import BeamGeometry, RenderConfig
+
+    svc = RendererService(brain_phantom_3d((24, 24, 24)), BeamGeometry(6, 20),
+                          RenderConfig(attenuation_coeff=1e-4, dtype="bfloat16",
+                                       interp="trilinear_fused"), device=cuda)
+    with pytest.raises(TypeError, match="float32"):
+        svc.render([[12.0, 1.5, 12.0]])

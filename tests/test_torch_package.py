@@ -3,6 +3,7 @@ kernels built from the repository's sources.  Imports no jax itself, so it
 also runs on a machine without it (``--noconftest``, see the README)."""
 
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -32,22 +33,38 @@ MODULES = [
     "diffus_tpu_torch.ops.bmode", "diffus_tpu_torch.ops.artifacts",
     "diffus_tpu_torch.geometry.affine", "diffus_tpu_torch.geometry.calibration",
     "diffus_tpu_torch.scene", "diffus_tpu_torch.train.pose_recovery",
+    "diffus_tpu_torch.io", "diffus_tpu_torch.io.nifti", "diffus_tpu_torch.io.native",
+    "diffus_tpu_torch.io.datasets", "diffus_tpu_torch.io.pipeline", "diffus_tpu_torch.utils",
+    "diffus_tpu_torch.utils.debug", "diffus_tpu_torch.utils.profiling",
+    "diffus_tpu_torch.utils.timing", "diffus_tpu_torch.viz", "diffus_tpu_torch.viz.plots",
+    "diffus_tpu_torch.viz.video", "diffus_tpu_torch.viz.isosurface", "diffus_tpu_torch.cli",
 ]
+# an import statement of the JAX package, in the port's sources or chip_smoke.py
+JAX_PACKAGE_IMPORT = re.compile(r"^\s*(from|import)\s+diffus_tpu(\.|\s|$)", re.MULTILINE)
 
 
 def test_import_pulls_in_no_jax():
+    """Nor matplotlib, which only ``render --image``, ``sweep --gif`` and the
+    plots import when called: the card's machine has none."""
     code = (
         "import importlib, sys\n"
         f"for m in {MODULES!r}: importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'orbax',\n"
-        "                                    'diffus_tpu'))\n"
+        "                                    'diffus_tpu', 'matplotlib'))\n"
         "print(bad)\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          env=env, cwd=ROOT, timeout=120, check=True)
     assert out.stdout.strip() == "[]", out.stdout + out.stderr
+
+
+def test_sources_import_nothing_of_the_jax_package():
+    sources = sorted((ROOT / "diffus_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(sources) > 40
+    bad = [str(p.relative_to(ROOT)) for p in sources if JAX_PACKAGE_IMPORT.search(p.read_text())]
+    assert bad == []
 
 
 def test_public_names():
