@@ -105,7 +105,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``/update_volume`` and ``/add_scene`` with 256^3 bodies, ``/remove_scene``,
    and ``/recover`` on a 64 x 128 service (finite losses); then the CLI's
    ``render --pallas`` (its ``.npy`` equal to an in-process ``render_frame``),
-   ``sweep --pallas --poses 32`` and ``selftest``, each in a subprocess.
+   ``sweep --pallas --poses 32`` and ``selftest``, each in a subprocess;
+12. the mesh (``diffus_tpu_torch.parallel``): a (1, 1) mesh of the card and a
+   logical (2, 4) mesh of ``cuda:0`` eight times.  ``sharded_render_sweep``
+   at phase 4's configuration, 32 and 29 (padded) poses on both meshes,
+   equal to ``render_sweep`` bit for bit, and at ``start = 110`` (rtol
+   1e-5, atol 1e-6); a meshed ``RendererService`` answers 1, 8, 32 poses,
+   equal to phase 4's service, K2 without idx; ``train_impedance_cases``
+   at ``ImpedanceTrainConfig()``'s defaults on 4 NIfTI cases of the 256^3
+   T1 phantom streamed by the loader, batch 2 on a (2, 1) mesh, 2 epochs
+   under deterministic algorithms, equal to the unsharded loop (rtol 1e-6),
+   and a checkpoint at epoch 1 resumed to epoch 2 equal to the whole run;
+   one ``masked_mse_edge`` step on (1, 4) against the unsharded loss (rtol
+   1e-5) and gradients (rtol 1e-4, atol 1e-6); sharded multistart recovery
+   (8 starts, (2, 4), 64 x 128) against the unsharded descent (rtol 1e-4);
+   the depth-sharded scan at 8192 rendered rays x 512 on (1, 8), held to
+   f64 like phase 3's K1; the TP table fit at hidden (1024, 1024) on (1, 4)
+   against ``train_on_table`` (rtol 1e-5); the CLI's ``train-cases`` and
+   ``serve --mesh-pose 1 --mesh-ray 1`` in subprocesses.  The kernels'
+   launches on the meshed paths go on the ``kernels`` line
+   (``mesh_launches``, K2's ``mesh_idx_launches``).
 
 TF32 is off for matmuls and cuDNN (``torch.backends``), so no comparison
 depends on those defaults.  The line before the last is a JSON object of
@@ -627,9 +646,11 @@ def _request_profiles(svc, rng, card: str, label: str) -> dict:
 
 
 def _counts_reset() -> None:
+    from diffus_tpu_torch.kernels import gather_probe as probe
     from diffus_tpu_torch.kernels.propagation_cuda import echo_fused
     from diffus_tpu_torch.kernels.trilinear_cuda import march_trilinear_fused, sample_trilinear_fused
 
+    probe.gather_probe.launches = 0
     echo_fused.launches = 0
     march_trilinear_fused.launches = 0
     march_trilinear_fused.idx_launches = 0
@@ -637,18 +658,20 @@ def _counts_reset() -> None:
 
 
 def _counts(what: str, idx: bool | None = None) -> dict:
-    """K1's and K2's launches since :func:`_counts_reset`: K2's ray form
-    (``trilinear_sample``), those of its launches that wrote an idx, and
-    its points form.  Raises if K1 or K2's ray form never launched, and,
+    """K1's, K2's and K3's launches since :func:`_counts_reset`: K2's ray
+    form (``trilinear_sample``), those of its launches that wrote an idx,
+    and its points form.  Raises if K1 or K2's ray form never launched, and,
     for ``idx`` False or True, unless no launch or every launch of the ray
     form wrote an idx."""
+    from diffus_tpu_torch.kernels import gather_probe as probe
     from diffus_tpu_torch.kernels.propagation_cuda import echo_fused
     from diffus_tpu_torch.kernels.trilinear_cuda import march_trilinear_fused, sample_trilinear_fused
 
     launches = {"echo_scan": echo_fused.launches,
                 "trilinear_sample": march_trilinear_fused.launches,
                 "trilinear_idx": march_trilinear_fused.idx_launches,
-                "trilinear_points": sample_trilinear_fused.launches}
+                "trilinear_points": sample_trilinear_fused.launches,
+                "gather_probe": probe.gather_probe.launches}
     if min(launches["echo_scan"], launches["trilinear_sample"]) < 1:
         raise AssertionError(f"a kernel of the {what} never launched: {launches}")
     if idx is not None and launches["trilinear_idx"] != (launches["trilinear_sample"] if idx
@@ -1293,6 +1316,384 @@ def _serving_surface_phase(dev, card: str) -> dict:
     return {"launches": launches, "coalescing": coalescing}
 
 
+def _median_ms(fn, n: int = 10) -> float:
+    """Median of ``n`` calls of ``fn``, host clock to a synchronize, after one."""
+    fn()
+    torch.cuda.synchronize()
+    lat = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(lat)
+
+
+def _meshed(totals: dict, what: str, idx, fn):
+    """Run ``fn`` (a meshed path) with the launch counts at 0, check them as
+    :func:`_counts` does, add them to ``totals`` and return ``fn``'s result."""
+    _counts_reset()
+    out = fn()
+    torch.cuda.synchronize()
+    for k, v in _counts(what, idx).items():
+        totals[k] = totals.get(k, 0) + v
+    return out
+
+
+def _serve_cli(path: str, dev, vol, card: str, work: str) -> str:
+    """``cli serve --mesh-pose 1 --mesh-ray 1`` in a subprocess on the volume
+    file ``path`` (``vol`` on the card): the CLI builds no mesh at 1 x 1, as
+    JAX's builds one only above; one /render, its frame equal to the (1, 1)
+    meshed service's in process.  The server is stopped before returning
+    (killed after 300 s if it never listens).  Then a mesh of one more pose
+    row than there are cards must stop ``serve`` with ``make_mesh``'s
+    message."""
+    import threading
+    import urllib.request
+
+    from diffus_tpu_torch.parallel import make_mesh
+    from diffus_tpu_torch.serve import RendererService
+    from diffus_tpu_torch.types import BeamGeometry, RenderConfig
+
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    err = open(os.path.join(work, "serve.err"), "w+")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "diffus_tpu_torch.cli", "serve", "--volume", path, "--impedance",
+         "none", "--rays", str(N_RAYS), "--samples", str(N_SAMPLES), "--tiers", "1", "--port",
+         "0", "--mesh-pose", "1", "--mesh-ray", "1"], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=err, text=True)
+    watchdog = threading.Timer(300, proc.kill)
+    watchdog.start()
+    try:
+        line = proc.stdout.readline()   # the status line, once it listens
+        if not line:
+            err.seek(0)
+            raise AssertionError(f"CLI serve exited {proc.wait(60)}: {err.read()[-3000:]}")
+        status = json.loads(line)
+        src = (APEX + [1.5, 0.5, -2.0]).tolist()
+        req = urllib.request.Request(f"{status['listening']}/render", method="POST",
+                                     data=json.dumps({"sources": [src]}).encode())
+        with urllib.request.urlopen(req, timeout=300) as r:
+            got = _from_b64(json.load(r))
+        wall = time.perf_counter() - t0
+    finally:
+        watchdog.cancel()
+        proc.kill()
+        proc.communicate(timeout=60)
+        err.close()
+    svc = RendererService(vol, BeamGeometry(N_RAYS, N_SAMPLES), RenderConfig(attenuation_coeff=ATT),
+                          batch_tiers=(1,), device=dev, mesh=make_mesh(1, 1, [dev]))
+    want = svc.render([src]).cpu()
+    if not torch.equal(got, want):
+        raise AssertionError(f"CLI serve's /render differs from the meshed service in process: "
+                             f"max abs {float((got - want).abs().max()):.3e}")
+    n = torch.cuda.device_count() + 1
+    refused = subprocess.run(
+        [sys.executable, "-m", "diffus_tpu_torch.cli", "serve", "--volume", path, "--mesh-pose",
+         str(n)], cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    if refused.returncode == 0 or f"need {n} devices, have {n - 1}" not in refused.stderr:
+        raise AssertionError(f"CLI serve --mesh-pose {n} with {n - 1} card(s) should stop with "
+                             f"make_mesh's message: exit {refused.returncode}, "
+                             f"{refused.stderr[-2000:]}")
+    return (f"CLI serve --mesh-pose 1 --mesh-ray 1 [{card}]: no mesh at 1 x 1, listening after "
+            f"warmup, one /render {tuple(got.shape)} equal to the (1, 1) meshed service in "
+            f"process; {wall:.2f} s to the answer (a new process); status {status}; "
+            f"--mesh-pose {n} stops: {refused.stderr.strip().splitlines()[-1]}")
+
+
+def _mesh_phase(dev, vol, svc, card: str) -> dict:
+    """Phase 12: the (pose, ray) mesh, the meshed service, the multi-case
+    driver, sharded recovery, the depth-sharded scan, tensor parallelism and
+    the CLI's train-cases and mesh flags, at full width on the one card."""
+    import shutil
+
+    from diffus_tpu_torch.geometry import fan_directions_2d
+    from diffus_tpu_torch.impedance.mlp import init_params, train_on_table
+    from diffus_tpu_torch.impedance.table import table_arrays
+    from diffus_tpu_torch.io import save_nifti
+    from diffus_tpu_torch.kernels.propagation_cuda import echo_fused
+    from diffus_tpu_torch.ops.propagation import echo_amplitudes
+    from diffus_tpu_torch.ops.splat import differentiable_splat
+    from diffus_tpu_torch.parallel import (
+        make_mesh,
+        make_sharded_train_step,
+        shard_batch,
+        sharded_recover_pose_multistart,
+        sharded_render_sweep,
+        tp_train_on_table,
+    )
+    from diffus_tpu_torch.parallel.depth_scan import echo_amplitudes_depth_sharded
+    from diffus_tpu_torch.phantoms import t1_phantom_3d
+    from diffus_tpu_torch.render.renderer import render_frame, render_sweep, simulate_rays
+    from diffus_tpu_torch.serve import RendererService
+    from diffus_tpu_torch.train import CaseSpec, ImpedanceTrainConfig, synth_loss
+    from diffus_tpu_torch.train.driver import train_impedance_cases
+    from diffus_tpu_torch.train.impedance_train import impedance_volume
+    from diffus_tpu_torch.train.losses import masked_mse_edge_loss
+    from diffus_tpu_torch.train.pose_recovery import (
+        PoseRecoveryConfig,
+        recover_pose_multistart,
+        render_pose,
+        sample_init_poses,
+    )
+    from diffus_tpu_torch.types import BeamGeometry, RenderConfig, TransducerPose
+
+    rng = np.random.default_rng(12)
+    totals, walls = {}, {}
+    one, logical = make_mesh(1, 1, [dev]), make_mesh(2, 4, [dev] * 8)
+    for name, m in (("(1, 1)", one), ("(2, 4)", logical)):
+        print(f"mesh {name}: shape {m.shape}, devices {[str(d) for d in m.devices.flat]}",
+              flush=True)
+    cfg = RenderConfig(attenuation_coeff=ATT, interp="trilinear_fused", use_pallas=True)
+    dirs = svc.directions
+
+    # -- the sweep: 32 poses and 29 (padded), start 0 and 110 --------------------
+    t0 = time.perf_counter()
+    report = []
+    for fields, poses in (({}, 32), ({}, 29), ({"start": 110}, 32)):
+        c = dataclasses.replace(cfg, **fields)
+        src = _sources(rng, poses).to(dev)
+        want = render_sweep(vol, src, dirs, N_SAMPLES, c)
+        for label, m in (("(1, 1)", one), ("(2, 4)", logical)):
+            got = _meshed(totals, f"sharded sweep {label}", True,
+                          lambda: sharded_render_sweep(m, vol, src, dirs, N_SAMPLES, c))
+            for g, w in zip(got[:3], want[:3]):
+                if not torch.equal(g, w):
+                    raise AssertionError(f"sharded sweep {label}: sample coordinates differ")
+            if not fields:   # no sum crosses a shard: bit for bit
+                if not torch.equal(got[3], want[3]):
+                    raise AssertionError(f"sharded sweep {label}, {poses} poses: frames differ "
+                                         f"by {float((got[3] - want[3]).abs().max()):.3e}")
+            else:
+                _assert_close(got[3], want[3], 1e-5, 1e-6, f"sharded sweep {label} {fields}")
+            report.append(f"{label} {poses} poses {fields or 'start 0'}: "
+                          f"{'equal' if torch.equal(got[3], want[3]) else 'within rtol 1e-5'}")
+    walls["sweeps"] = time.perf_counter() - t0
+    print("sharded_render_sweep at 256^3, 256 x 512, trilinear_fused + K1 vs render_sweep: "
+          + "; ".join(report), flush=True)
+    src = _sources(rng, 32).to(dev)
+    sweep_ms = {"render_sweep": _median_ms(lambda: render_sweep(vol, src, dirs, N_SAMPLES, cfg))}
+    for label, m in (("(1, 1)", one), ("(2, 4)", logical)):
+        sweep_ms[label] = _median_ms(lambda: sharded_render_sweep(m, vol, src, dirs, N_SAMPLES, cfg))
+    print(f"times [{card}]: 32-pose sweep, median of 10 (host clock to a synchronize): "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in sweep_ms.items()), flush=True)
+    block_us = {k: _kernel_device_us(
+        lambda: sharded_render_sweep(logical, vol, src, dirs, N_SAMPLES, cfg), kernel, 5)
+        for k, kernel in (("K1", "echo_scan_kernel"), ("K2", "trilinear_march_kernel"))}
+    print(f"times [{card}]: the (2, 4) 32-pose sweep's blocks (4 poses x 64 rays), device time "
+          f"per launch (profiler, 8 launches of each a sweep): K1 {block_us['K1']:.2f} us, K2 "
+          f"{block_us['K2']:.2f} us", flush=True)
+
+    # -- the meshed service (phase 4's config) against phase 4's service --------
+    t0 = time.perf_counter()
+    meshed = RendererService(vol, BeamGeometry(N_RAYS, N_SAMPLES), cfg, batch_tiers=TIERS,
+                             device=dev, mesh=logical, coalesce=False)
+    meshed.warmup()
+    requests = {p: _sources(rng, p) for p in (1, 8, 32)}
+    frames = _meshed(totals, "meshed service", False,
+                     lambda: {p: meshed.render(s) for p, s in requests.items()})
+    for p, f in frames.items():
+        if not torch.equal(f, svc.render(requests[p])):
+            raise AssertionError(f"meshed service, {p} poses: frames differ from phase 4's")
+    walls["service"] = time.perf_counter() - t0
+    print(f"meshed service on the (2, 4) mesh: requests of 1, 8, 32 poses equal to phase 4's "
+          f"service bit for bit, K2 without idx; {walls['service']:.2f} s with warmup", flush=True)
+    _tier_latencies(svc, rng, card, "unmeshed request (phase 4's service)")
+    _tier_latencies(meshed, rng, card, "meshed (2, 4) request")
+
+    # -- train_impedance_cases: 4 NIfTI cases, batch 2 on (2, 1), 2 epochs, SSIM -
+    work = os.path.join(ROOT, ".scratch", f"mesh_{os.getpid()}")
+    os.makedirs(work, exist_ok=True)
+    try:
+        t0 = time.perf_counter()
+        tcfg = ImpedanceTrainConfig(render=dataclasses.replace(cfg, start=110))
+        t1_host = t1_phantom_3d(SHAPE)
+        offsets = ([0.0, 0.0, 0.0], [3.0, 0.0, -2.0], [-3.0, 1.0, 2.0], [2.0, -1.0, 3.0])
+        cases, paths = [], []
+        for i, off in enumerate(offsets):
+            paths.append(os.path.join(work, f"t1_{i}.nii"))
+            save_nifti(paths[-1], t1_host)
+            src = torch.tensor(APEX + off, dtype=torch.float32, device=dev)
+            x, y, _, frame = render_frame(vol, src, dirs, tcfg.num_samples, tcfg.render)
+            img = differentiable_splat(x.float(), y.float(), frame, *tcfg.image_shape,
+                                       tcfg.splat_sigma)
+            img = (img - img.min()) / (img.max() - img.min() + 1e-8)
+            cases.append(CaseSpec(t1=paths[-1], target=img.cpu().numpy(),
+                                  mask=np.ones(tcfg.image_shape, bool),
+                                  source=src.cpu().numpy(), directions=dirs.cpu().numpy()))
+        walls["driver setup"] = time.perf_counter() - t0
+        pose2 = make_mesh(2, 1, [dev] * 2)
+        ckpt = os.path.join(work, "ckpt")
+
+        def drive(epochs, **kw):
+            return train_impedance_cases(torch.Generator().manual_seed(TRAIN_SEED), cases, tcfg,
+                                         epochs=epochs, batch_size=2, mesh=pose2,
+                                         loader_threads=2, **kw)
+
+        torch.use_deterministic_algorithms(True)
+        try:
+            t0 = time.perf_counter()
+            _, whole = _meshed(totals, "driver", True, lambda: drive(2))
+            walls["driver, 2 epochs"] = time.perf_counter() - t0
+            _, first = _meshed(totals, "driver to epoch 1", True,
+                               lambda: drive(1, checkpoint_dir=ckpt))
+            _, rest = _meshed(totals, "driver resumed", True,
+                              lambda: drive(2, checkpoint_dir=ckpt, resume=True))
+            # the same batches through the port's unsharded forward, one Adam
+            model = init_params(torch.Generator().manual_seed(TRAIN_SEED), tcfg.hidden, dev)
+            opt = torch.optim.Adam(model.parameters(), lr=tcfg.lr)
+            t1_dev = torch.from_numpy(t1_host).to(dev)
+
+            def unsharded_step(group):
+                opt.zero_grad(set_to_none=True)
+                loss = torch.stack([synth_loss(
+                    model, t1_dev, torch.from_numpy(c.target).to(dev),
+                    torch.from_numpy(c.mask).to(dev), torch.from_numpy(c.source).to(dev),
+                    dirs, tcfg) for c in group]).mean()
+                loss.backward()
+                opt.step()
+                return loss.detach()
+
+            want = [float(unsharded_step(cases[k:k + 2])) for _ in range(2) for k in (0, 2)]
+
+            # one masked_mse_edge step on (1, 4) against the unsharded loss and gradients
+            mcfg = dataclasses.replace(tcfg, loss="masked_mse_edge")
+            frame_t = render_frame(vol, cases[0].source, dirs, N_SAMPLES, mcfg.render)[3]
+            target = (frame_t - frame_t.min()) / (frame_t.max() - frame_t.min() + 1e-8)
+            mask = torch.ones_like(target, dtype=torch.bool)
+            batch = (t1_dev[None], target[None], mask[None],
+                     torch.from_numpy(cases[0].source)[None].to(dev), dirs[None])
+            m_sh = init_params(torch.Generator().manual_seed(TRAIN_SEED), mcfg.hidden, dev)
+            m_ref = copy.deepcopy(m_sh)
+            ray4 = make_mesh(1, 4, [dev] * 4)
+            step_fn, init_opt = make_sharded_train_step(ray4, mcfg, lr=mcfg.lr)
+            l_sh = _meshed(totals, "masked_mse_edge step (1, 4)", False,
+                           lambda: step_fn(m_sh, init_opt(m_sh), shard_batch(ray4, batch)))
+            ref_frame = render_frame(impedance_volume(m_ref, t1_dev, mcfg), batch[3][0], dirs,
+                                     N_SAMPLES, mcfg.render)[3]
+            l_ref = masked_mse_edge_loss(ref_frame, target, mask, mcfg.edge_weight)
+            l_ref.backward()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        if not (len(whole) == 4 and first + rest == whole and np.all(np.isfinite(whole))):
+            raise AssertionError(f"driver: whole {whole}, epoch 1 {first} + resumed {rest}")
+        np.testing.assert_allclose(whole, want, rtol=1e-6, atol=0,
+                                   err_msg="driver vs the unsharded loop")
+        _assert_close(l_sh[None], l_ref.detach()[None], 1e-5, 0.0, "masked_mse_edge loss")
+        for (name, p), q in zip(m_sh.named_parameters(), m_ref.parameters()):
+            _assert_close(p.grad, q.grad, 1e-4, 1e-6, f"masked_mse_edge gradient {name}")
+        # a step's time, the sharded step on (2, 1) beside the unsharded one (batch 2)
+        step_fn2, init2 = make_sharded_train_step(pose2, tcfg, lr=tcfg.lr)
+        m2 = init_params(torch.Generator().manual_seed(TRAIN_SEED), tcfg.hidden, dev)
+        opt2 = init2(m2)
+        b2 = shard_batch(pose2, (torch.stack([t1_dev, t1_dev]),
+                                 torch.from_numpy(np.stack([c.target for c in cases[:2]])),
+                                 torch.ones((2, *tcfg.image_shape), dtype=torch.bool),
+                                 torch.from_numpy(np.stack([c.source for c in cases[:2]])),
+                                 dirs.expand(2, -1, -1)), shard_rays=False)
+        step_ms = {"sharded (2, 1)": _median_ms(lambda: step_fn2(m2, opt2, b2), 5),
+                   "unsharded": _median_ms(lambda: unsharded_step(cases[:2]), 5)}
+        print(f"times [{card}]: SSIM training step of 2 scenes at full width, median of 5 (host "
+              f"clock to a synchronize): " + ", ".join(f"{k} {v:.2f} ms" for k, v in
+                                                       step_ms.items()), flush=True)
+        print(f"driver: 4 NIfTI cases of the {SHAPE} T1 phantom, batch 2 on a (2, 1) mesh, SSIM "
+              f"at ImpedanceTrainConfig()'s defaults, 2 epochs: losses {whole} "
+              f"({'equal to' if whole == want else 'within rtol 1e-6 of'} the unsharded loop); "
+              f"checkpoint at epoch 1 + resume equal to the uninterrupted run; masked_mse_edge "
+              f"step on (1, 4): loss {float(l_sh):.6f} vs {float(l_ref):.6f}, gradients within "
+              f"rtol 1e-4, atol 1e-6", flush=True)
+
+        # -- sharded multistart recovery at 64 x 128 -----------------------------
+        t0 = time.perf_counter()
+        pcfg = PoseRecoveryConfig(geometry=BeamGeometry(64, 128), render=cfg, lr=0.05, steps=50)
+        with torch.no_grad():
+            target_p = render_pose(vol, TransducerPose.create(APEX, device=dev), pcfg)
+        init = sample_init_poses(torch.Generator(device=dev).manual_seed(RECOVERY_SEED),
+                                 APEX + [0.7, -0.4, 0.5], RADIUS, ROT_SCALE, STARTS)
+        t1_s = time.perf_counter()
+        poses, losses, best = _meshed(totals, "sharded recovery", False,
+                                      lambda: sharded_recover_pose_multistart(
+                                          logical, vol, target_p, init, pcfg))
+        t1_s = time.perf_counter() - t1_s
+        t_ref = time.perf_counter()
+        r_poses, r_losses, r_best = recover_pose_multistart(vol, target_p, init, pcfg)
+        torch.cuda.synchronize()
+        t_ref = time.perf_counter() - t_ref
+        _assert_close(losses, r_losses, 1e-4, 1e-7, "sharded multistart losses")
+        _assert_close(poses.position, r_poses.position, 1e-4, 1e-5, "sharded multistart poses")
+        if int(best) != int(r_best):
+            raise AssertionError(f"sharded multistart best {int(best)} vs {int(r_best)}")
+        err = float(torch.linalg.norm(poses.position[best].cpu() - torch.tensor(APEX)))
+        walls["recovery"] = time.perf_counter() - t0
+        print(f"sharded_recover_pose_multistart on (2, 4), {STARTS} starts, 64 x 128, "
+              f"{pcfg.steps} Adam steps at lr {pcfg.lr}: equal to the unsharded descent within "
+              f"rtol 1e-4; best start {int(best)}, position error {err:.4f} voxels; sharded "
+              f"{t1_s:.2f} s, unsharded {t_ref:.2f} s [{card}]", flush=True)
+
+        # -- the depth-sharded scan on rendered reflections, 8192 x 512 ----------
+        t0 = time.perf_counter()
+        src32 = _sources(rng, 32).to(dev)
+        _, r = simulate_rays(vol, src32, dirs.expand(32, -1, -1), 513, "trilinear_fused")
+        r = r.reshape(-1, 512).contiguous()
+        ref = echo_amplitudes(r.double())
+
+        def units(x):
+            return float(((x.double() - ref).abs() / (1e-4 * ref.abs() + 1e-6)).max())
+
+        u_depth = units(echo_amplitudes_depth_sharded(r, make_mesh(1, 8, [dev] * 8)))
+        u_plain, u_k1 = units(echo_amplitudes(r)), units(echo_fused(r, "parity", 0.0))
+        if not (u_depth <= 2 * max(1.0, u_plain) and u_k1 <= 2 * max(1.0, u_plain)):
+            raise AssertionError(f"depth-sharded scan {u_depth:.3g}, K1 {u_k1:.3g} tolerances "
+                                 f"from f64; plain f32 {u_plain:.3g}")
+        walls["depth scan"] = time.perf_counter() - t0
+        print(f"echo_amplitudes_depth_sharded on (1, 8) at {tuple(r.shape)} rendered reflections: "
+              f"worst error vs f64 in tolerances (rtol 1e-4, atol 1e-6) {u_depth:.3g}, plain "
+              f"scan {u_plain:.3g}, K1 with att 0 {u_k1:.3g} (limit 2x max(1, plain))", flush=True)
+
+        # -- tensor-parallel table fit at hidden (1024, 1024) --------------------
+        t0 = time.perf_counter()
+        tx, ty, _ = table_arrays()
+        m0 = init_params(torch.Generator().manual_seed(0), (1024, 1024), dev)
+        tp, tp_losses = tp_train_on_table(ray4, copy.deepcopy(m0), tx, ty, epochs=50, lr=1e-3)
+        _, ref_losses = train_on_table(m0, torch.as_tensor(tx).reshape(-1, 1),
+                                       torch.as_tensor(ty).reshape(-1, 1), epochs=50, lr=1e-3)
+        _assert_close(tp_losses, ref_losses, 1e-5, 1e-6, "TP table fit losses")
+        walls["tp"] = time.perf_counter() - t0
+        print(f"tp_train_on_table, hidden (1024, 1024) on (1, 4), 50 epochs: losses within rtol "
+              f"1e-5 of train_on_table ({float(tp_losses[0]):.6f} -> "
+              f"{float(tp_losses[-1]):.6f}); {walls['tp']:.2f} s [{card}]", flush=True)
+
+        # -- the CLI: train-cases on a two-case manifest, serve with mesh flags ---
+        t0 = time.perf_counter()
+        manifest = []
+        for i, c in enumerate(cases[:2]):
+            frame_i = render_frame(vol, c.source, dirs, N_SAMPLES,
+                                   RenderConfig(attenuation_coeff=ATT))[3]
+            np.save(os.path.join(work, f"target{i}.npy"), frame_i.cpu().numpy())
+            manifest.append({"t1": c.t1, "target": os.path.join(work, f"target{i}.npy"),
+                             "source": c.source.tolist()})
+        with open(os.path.join(work, "cases.json"), "w") as fh:
+            json.dump(manifest, fh)
+        out = json.loads(_run_cli(["train-cases", "--manifest", os.path.join(work, "cases.json"),
+                                   "--rays", str(N_RAYS), "--samples", str(N_SAMPLES),
+                                   "--batch-size", "2", "--mesh-pose", "1", "--mesh-ray", "1"],
+                                  "train-cases --mesh-pose 1 --mesh-ray 1",
+                                  card).strip().splitlines()[-1])
+        if out["cases"] != 2 or out["steps"] != 1 or not np.isfinite(out["loss_first"]):
+            raise AssertionError(f"CLI train-cases: {out}")
+        print(_serve_cli(paths[0], dev, t1_dev, card, work), flush=True)
+        walls["cli"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    if totals["gather_probe"] != 0:
+        raise AssertionError(f"a meshed path launched K3, the probe: {totals}")
+    print(f"times [{card}]: phase 12 parts (s): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in walls.items())
+          + f"; launches on the meshed paths {totals}", flush=True)
+    return {"launches": totals}
+
+
 def _requests_only(dev, card: str) -> int:
     """``--requests``: the phase-4 service's request latency and device-time
     split at each tier, nothing else."""
@@ -1647,6 +2048,11 @@ def main(argv=None) -> int:
     # -- 11. the serving surface: I/O, HTTP, scenes, coalescing, the CLI -------
     surface = _serving_surface_phase(dev, card)
 
+    # -- 12. the mesh, the meshed service, train_impedance_cases, parallel/ -----
+    t0 = time.perf_counter()
+    meshed = _mesh_phase(dev, vol, svc, card)
+    print(f"times [{card}]: phase 12 {time.perf_counter() - t0:.2f} s", flush=True)
+
     kernels = [
         {"name": "echo_scan", "route": "cuda", "source": "diffus_tpu_torch/csrc/echo_scan.cu",
          "replaces": "diffus_tpu/kernels/propagation_pallas.py:45",
@@ -1679,12 +2085,14 @@ def main(argv=None) -> int:
          "ns_per_row": k3["ns_per_row"], "plain_ns_per_row": k3["plain_ns_per_row"]},
     ]
     for k in kernels[:2]:
+        k["mesh_launches"] = meshed["launches"][k["name"]]
         k["training_launches"] = train["launches"][k["name"]]
         k["image_formation_launches"] = bmode["launches"][k["name"]]
         k["recovery_launches"] = recovery["launches"][k["name"]]
         k["serving_surface_launches"] = surface["launches"][k["name"]]
+    kernels[2]["mesh_launches"] = meshed["launches"]["gather_probe"]
     for path, run in (("training", train), ("image_formation", bmode), ("recovery", recovery),
-                      ("serving_surface", surface)):
+                      ("serving_surface", surface), ("mesh", meshed)):
         kernels[1][f"{path}_idx_launches"] = run["launches"]["trilinear_idx"]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -13,7 +13,8 @@ Layer map (the ported slices):
   renderer core          -> diffus_tpu_torch.ops, diffus_tpu_torch.render
   hand-written kernels   -> diffus_tpu_torch.kernels (CUDA C++, sm_90a)
   image formation        -> diffus_tpu_torch.ops (filters, bmode, artifacts, splat)
-  training, recovery     -> diffus_tpu_torch.train (impedance_train, pose_recovery)
+  training, recovery     -> diffus_tpu_torch.train (impedance_train, pose_recovery, driver)
+  device mesh            -> diffus_tpu_torch.parallel (one controller, (pose, ray) blocks)
   serving, HTTP          -> diffus_tpu_torch.serve
   I/O, utilities, plots  -> diffus_tpu_torch.io, diffus_tpu_torch.utils, diffus_tpu_torch.viz
   command line           -> diffus_tpu_torch.cli (``python -m diffus_tpu_torch.cli``)

@@ -4,6 +4,7 @@ subcommands, flags and outputs, on PyTorch.
     python -m diffus_tpu_torch.cli render  --volume case.nii.gz --out frame.npy --pallas
     python -m diffus_tpu_torch.cli sweep   --volume case.nii.gz --poses 32 --gif sweep.gif
     python -m diffus_tpu_torch.cli train-impedance --t1 t1.nii.gz --us us.npy ...
+    python -m diffus_tpu_torch.cli train-cases --manifest cases.json --epochs 3 ...
     python -m diffus_tpu_torch.cli recover-pose    --volume case.nii.gz ...
     python -m diffus_tpu_torch.cli serve   --volume case.nii.gz --scene case50=case50.nii
     python -m diffus_tpu_torch.cli selftest
@@ -11,15 +12,19 @@ subcommands, flags and outputs, on PyTorch.
 Volumes may be NIfTI files or .npy arrays; ``--impedance table|mlp|none``
 maps intensities through the tissue table, a trained MLP checkpoint
 (``--impedance-checkpoint``, written by ``train-impedance --checkpoint``),
-or not at all.  ``serve`` runs the HTTP serving runtime
-(``serve.make_http_server``).
+or not at all.  ``train-cases`` drives the multi-case training loop
+(``train.driver.train_impedance_cases``: prefetching loader, device mesh,
+checkpoints, JSONL metrics) from a JSON manifest; ``serve`` runs the HTTP
+serving runtime (``serve.make_http_server``).  ``--mesh-pose``/``--mesh-ray``
+above 1 run ``serve`` and ``train-cases`` over a (pose, ray) mesh of the
+cards from ``--device``'s on (``--device cpu``: of the one CPU); at 1 x 1
+no mesh is built.  A mesh larger than the devices stops with
+``make_mesh``'s message.
 
 Every subcommand takes ``--device`` (default ``cuda``) and runs there; on
 a machine without CUDA it stops with a message that says to pass
 ``--device cpu``.  ``--pallas`` runs the echo scan through the CUDA kernel
-K1.  ``render --image`` and ``sweep --gif`` need matplotlib.  Not ported
-yet: ``train-cases`` (it needs ``train/driver.py``) and ``serve``'s
-``--mesh-pose``/``--mesh-ray`` above 1 (``parallel/``, ROADMAP A13).
+K1.  ``render --image`` and ``sweep --gif`` need matplotlib.
 """
 
 from __future__ import annotations
@@ -59,6 +64,30 @@ def _load_volume(path: str) -> np.ndarray:
             f"error: volume {path!r} has shape {data.shape}; need 3D (or 4D with singleton "
             f"axes)")
     return data
+
+
+def _mesh(args, device: torch.device):
+    """The ``--mesh-pose`` x ``--mesh-ray`` mesh, built only when a flag is
+    above 1 (None otherwise), of the cards from ``device``'s index on, or
+    of ``device`` when it is the CPU.  Too few devices stop the command with
+    ``make_mesh``'s message."""
+    if args.mesh_pose <= 1 and args.mesh_ray <= 1:
+        return None
+    from diffus_tpu_torch.parallel import make_mesh
+
+    devices = [device] if device.type == "cpu" else [
+        torch.device("cuda", i) for i in range(device.index or 0, torch.cuda.device_count())]
+    try:
+        return make_mesh(args.mesh_pose, args.mesh_ray, devices)
+    except ValueError as e:
+        raise SystemExit(f"error: --mesh-pose {args.mesh_pose} --mesh-ray {args.mesh_ray}: {e}")
+
+
+def _mesh_args(p: argparse.ArgumentParser, what: str):
+    p.add_argument("--mesh-pose", type=int, default=1,
+                   help=f"{what} over a (pose, ray) mesh of the cards from --device's on, "
+                        f"with this many pose rows (a mesh is built only above 1 x 1)")
+    p.add_argument("--mesh-ray", type=int, default=1, help="the mesh's ray columns")
 
 
 def _load_mlp(checkpoint: str, device: torch.device):
@@ -262,22 +291,72 @@ def cmd_recover_pose(args):
     print(json.dumps(result))
 
 
+def cmd_train_cases(args):
+    """Multi-case training from a JSON manifest (``diffus_tpu/cli.py:277-365``).
+
+    Manifest: a list of case objects, each with ``t1`` (NIfTI/.npy path),
+    ``target`` (.npy path), optional ``mask`` (.npy bool path, default
+    all-true), ``source`` ([x, y, z]), and optional ``direction``/``angle``/
+    ``rays`` overriding the shared flags.
+    """
+    from diffus_tpu_torch.geometry import fan_directions_2d
+    from diffus_tpu_torch.parallel import make_mesh
+    from diffus_tpu_torch.train import ImpedanceTrainConfig
+    from diffus_tpu_torch.train.driver import CaseSpec, train_impedance_cases
+    from diffus_tpu_torch.types import RenderConfig
+
+    device = _device(args)
+    mesh = _mesh(args, device) or make_mesh(1, 1, [device])
+    with open(args.manifest) as fh:
+        entries = json.load(fh)
+    if not isinstance(entries, list) or not entries:
+        raise SystemExit(f"manifest {args.manifest!r} must be a non-empty list")
+    cases = []
+    for e in entries:
+        target = np.load(e["target"]).astype(np.float32)
+        mask = np.load(e["mask"]).astype(bool) if e.get("mask") else np.ones_like(target, bool)
+        dirs = fan_directions_2d(e.get("direction", args.direction),
+                                 np.radians(e.get("angle", args.angle)), e.get("rays", args.rays))
+        t1 = e["t1"]
+        if isinstance(t1, str) and t1.endswith(".npy"):
+            t1 = np.load(t1).astype(np.float32)
+        cases.append(CaseSpec(t1=t1, target=target, mask=mask,
+                              source=np.asarray(e["source"], np.float32),
+                              directions=dirs.numpy()))
+    cfg = ImpedanceTrainConfig(
+        num_samples=args.samples,
+        slice_index=args.slice_index,
+        lr=args.lr,
+        loss=args.loss,
+        image_shape=tuple(cases[-1].target.shape),
+        render=RenderConfig(attenuation_coeff=args.attenuation, interp=args.interp),
+    )
+    _, history = train_impedance_cases(
+        torch.Generator().manual_seed(args.seed), cases, cfg, epochs=args.epochs,
+        batch_size=args.batch_size, mesh=mesh, checkpoint_dir=args.checkpoint,
+        metrics_path=args.metrics, loader_threads=args.threads, resume=args.resume)
+    print(json.dumps({
+        "cases": len(cases),
+        "steps": len(history),
+        "loss_first": history[0] if history else None,
+        "loss_last": history[-1] if history else None,
+    }))
+
+
 def cmd_serve(args):
     from diffus_tpu_torch.serve import RendererService, make_http_server
     from diffus_tpu_torch.types import BeamGeometry, RenderConfig
 
-    if args.mesh_pose > 1 or args.mesh_ray > 1:
-        raise SystemExit("error: --mesh-pose/--mesh-ray > 1 serve over a device mesh, which "
-                         "needs parallel/ (ROADMAP A13, not ported yet)")
     device = _device(args)
+    mesh = _mesh(args, device)
     vol = _maybe_impedance(_load_volume(args.volume), args.impedance,
                            args.impedance_checkpoint, device)
     geom = BeamGeometry(n_rays=args.rays, num_samples=args.samples,
                         opening_angle=float(np.radians(args.angle)))
     cfg = RenderConfig(attenuation_coeff=args.attenuation, interp=args.interp)
     svc = RendererService(vol, geom, cfg, median_direction=args.direction,
-                          batch_tiers=tuple(args.tiers), device=device, crop=args.crop,
-                          adaptive_window=args.adaptive_window)
+                          batch_tiers=tuple(args.tiers), device=device, mesh=mesh,
+                          crop=args.crop, adaptive_window=args.adaptive_window)
     for spec in args.scene:
         name, _, path = spec.partition("=")
         if not name or not path:
@@ -375,6 +454,31 @@ def main(argv=None):
     _device_arg(p)
     p.set_defaults(fn=cmd_train_impedance)
 
+    p = sub.add_parser("train-cases",
+                       help="multi-case training (prefetch/mesh/checkpoint/metrics)")
+    p.add_argument("--manifest", required=True, help="JSON list of case specs")
+    p.add_argument("--direction", type=float, nargs=2, default=[0.0, 1.0])
+    p.add_argument("--angle", type=float, default=45.0)
+    p.add_argument("--rays", type=int, default=256)
+    p.add_argument("--samples", type=int, default=512)
+    p.add_argument("--attenuation", type=float, default=1e-4)
+    p.add_argument("--interp", default="nearest",
+                   choices=["nearest", "trilinear", "trilinear_bf16"])
+    p.add_argument("--slice-index", type=int, default=128)
+    p.add_argument("--epochs", type=int, default=1)
+    p.add_argument("--batch-size", type=int, default=4)
+    p.add_argument("--lr", type=float, default=0.01)
+    p.add_argument("--loss", default="masked_mse_edge", choices=["ssim", "masked_mse_edge"])
+    _mesh_args(p, "train")
+    p.add_argument("--threads", type=int, default=0, help="loader threads")
+    p.add_argument("--checkpoint", default=None,
+                   help="checkpoint directory (the state is its file 'latest')")
+    p.add_argument("--metrics", default=None, help="JSONL metrics path")
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--seed", type=int, default=0)
+    _device_arg(p)
+    p.set_defaults(fn=cmd_train_cases)
+
     p = sub.add_parser("serve", help="HTTP serving runtime (RendererService)")
     p.add_argument("--volume", required=True)
     p.add_argument("--impedance", default="table", choices=["table", "mlp", "none"])
@@ -387,9 +491,7 @@ def main(argv=None):
     p.add_argument("--interp", default="nearest",
                    choices=["nearest", "trilinear", "trilinear_bf16"])
     p.add_argument("--tiers", type=int, nargs="+", default=[1, 8, 32])
-    p.add_argument("--mesh-pose", type=int, default=1,
-                   help=">1: serve over a (pose, ray) device mesh (not ported yet)")
-    p.add_argument("--mesh-ray", type=int, default=1)
+    _mesh_args(p, "serve")
     p.add_argument("--crop", action="store_true",
                    help="content-crop the volume at startup (client coordinates unchanged)")
     p.add_argument("--adaptive-window", action="store_true",

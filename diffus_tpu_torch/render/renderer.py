@@ -25,6 +25,8 @@ tables, pose chunking, placement warnings, ``:436-566``) is not ported.
 
 from __future__ import annotations
 
+import warnings
+
 import torch
 
 from diffus_tpu_torch.kernels.propagation_cuda import echo_fused
@@ -78,6 +80,14 @@ def simulate_rays(volume, source, directions, num_samples: int, interp: str = "n
     idx, z = trace_rays(volume, source, directions, num_samples, interp)
     z = z.float()
     return idx, reflection_coeff(z[..., :-1], z[..., 1:])
+
+
+def simulate_frame(volume, source, directions, num_samples: int, interp: str = "nearest"):
+    """Deprecated per-direction API (``renderer.py:173-190``), kept for API
+    familiarity: ``simulate_rays(...)[1]``, after a ``DeprecationWarning``."""
+    warnings.warn("simulate_frame is deprecated; use simulate_rays (batched)",
+                  DeprecationWarning, stacklevel=2)
+    return simulate_rays(volume, source, directions, num_samples, interp)[1]
 
 
 def mri_projection(volume, source, directions, num_samples: int, interp: str = "nearest"):
@@ -147,31 +157,60 @@ def _render(volume, source, directions, num_samples: int,
     ``idx`` the ``(..., n_rays, num_samples - start, 3)`` int32 sample
     coordinates, or None without ``with_idx``: then ``intensities`` is
     ``render_frame(...)[3]`` and K2 writes no coordinates."""
+    idx, r, rho = _reflections(volume, source, directions, num_samples, config, step, with_idx)
+    out = _echo_frames(r, rho, num_samples, config, generator)
+    start = config.start_index(num_samples)
+    return (idx[..., start:, :] if with_idx else None), out
+
+
+def _reflections(volume, source, directions, num_samples: int, config: RenderConfig,
+                 step: float = 1.0, with_idx: bool = True):
+    """The per-ray half of the render: trace, sample and the reflection
+    coefficients.  Returns ``(idx, r, rho)``: the sample coordinates (None
+    without ``with_idx``), ``r`` ``(..., n_rays, num_samples - 1)`` in at
+    least f32, and the physical convention's right-to-left coefficients
+    (None in the other modes).  Nothing here couples two rays."""
     if isinstance(volume, Volume):
         volume = volume.data
     if volume.dim() != 3:
         raise ValueError(
             f"render_frame needs a 3D (D, H, W) volume, got shape "
             f"{tuple(volume.shape)} — squeeze singleton axes first")
-    if config.artifacts and generator is None:
-        raise ValueError("config.artifacts=True requires a torch.Generator")
-    if config.dtype == "bfloat16":
-        # bf16 samples halve the gather bytes; reflection and scan stay f32
-        volume = volume.to(torch.bfloat16)
     start = config.start_index(num_samples)
     if start >= num_samples - 1:
         raise ValueError(
             f"start={config.start!r} skips all {num_samples} samples "
             f"(resolved start index {start})")
+    if config.dtype == "bfloat16":
+        # bf16 samples halve the gather bytes; reflection and scan stay f32
+        volume = volume.to(torch.bfloat16)
     idx, z = trace_rays(volume, source, directions, num_samples, config.interp, step,
                         _with_idx=with_idx)
     # reflection in at least f32: in bf16 (z2 - z1) cancels catastrophically
     z = z.to(torch.promote_types(z.dtype, torch.float32))
     r = reflection_coeff(z[..., :-1], z[..., 1:])
+    rho = (impedance_weighted_rho(r, z[..., :-1], z[..., 1:])
+           if config.reflection_mode == "physical" else None)
+    return idx, r, rho
 
+
+def couples_rays(config: RenderConfig, num_samples: int) -> bool:
+    """Whether :func:`_echo_frames` mixes the rays of a frame: the start
+    patch's median across rays, the envelope's per-frame max, the
+    artifacts' clip ranges, lateral blur and sharpen."""
+    return config.start_index(num_samples) > 0 or config.envelope or config.artifacts
+
+
+def _echo_frames(r, rho, num_samples: int, config: RenderConfig,
+                 generator: torch.Generator | None = None) -> torch.Tensor:
+    """The rest of the render from :func:`_reflections`' ``r`` and ``rho``:
+    the start skip with its median patch, the echo scan, depth attenuation,
+    pulse, envelope and artifacts.  Per ray unless :func:`couples_rays`."""
+    if config.artifacts and generator is None:
+        raise ValueError("config.artifacts=True requires a torch.Generator")
+    start = config.start_index(num_samples)
     if config.reflection_mode == "physical":
-        rho = _apply_start(impedance_weighted_rho(r, z[..., :-1], z[..., 1:]), start)
-        echo = echo_amplitudes(_apply_start(r, start), rho=rho)
+        echo = echo_amplitudes(_apply_start(r, start), rho=_apply_start(rho, start))
         out = depth_attenuation(echo, config.attenuation_coeff)
     elif config.use_pallas:
         out = echo_fused(_apply_start(r, start), config.reflection_mode,
@@ -191,8 +230,7 @@ def _render(volume, source, directions, num_samples: int,
                                std_local=config.std_local)
         out = depth_dependent_lateral_blur(out, max_sigma=config.max_sigma)
         out = sharpen(out, alpha=config.sharpen_alpha)
-
-    return (idx[..., start:, :] if with_idx else None), out
+    return out
 
 
 def frame_time_delays(spacing, directions, num_samples: int,

@@ -13,8 +13,9 @@ annealed multistart pose recovery against a resident scene.
 
 Every scene is staged as its raw float32 volume: the JAX service's
 placement-aware tile tables (``_prepare``, ``:329-449``) answer a TPU
-question, and ``scenes()`` reports ``"staged": "raw"`` for each.  Serving
-over a device mesh (``mesh=``) waits for ``parallel/`` (ROADMAP A13).
+question, and ``scenes()`` reports ``"staged": "raw"`` for each.  With a
+device mesh (``mesh=``) a request's poses split over the mesh's ``pose``
+axis and its rays over ``ray`` (:mod:`diffus_tpu_torch.parallel`).
 """
 
 from __future__ import annotations
@@ -64,9 +65,12 @@ class _Pending:
 class _Scene:
     """One resident case: the staged float32 volume and, for a content-cropped
     scene, the crop's offset on the device, its box in the original volume
-    and the original shape (clients keep original coordinates)."""
+    and the original shape (clients keep original coordinates).  A meshed
+    service also keeps ``replicas``, the volume on each distinct device of
+    the mesh, staged once with the scene."""
 
     volume: torch.Tensor
+    replicas: dict | None = None
     offset: torch.Tensor | None = None
     crop_slices: tuple | None = None
     crop_margin: int = 16
@@ -90,6 +94,13 @@ class RendererService:
     ``device`` defaults to the card (``"cuda"``); where there is none the
     service raises rather than serve on the CPU, which takes
     ``device="cpu"``.
+
+    ``mesh`` (:func:`~diffus_tpu_torch.parallel.make_mesh`) serves over a
+    (pose, ray) device mesh: each request's padded tier splits its poses
+    over ``pose`` and its rays over ``ray``, and the frames come back on
+    the mesh's first device, equal to the unmeshed service's.  A config
+    that couples rays (``start > 0``, artifacts) needs a ray count that
+    divides the ray axis, checked here rather than per request.
 
     The construction-time volume is scene ``"default"``, which cannot be
     removed; :meth:`add_scene` stages more and requests route per scene.
@@ -129,6 +140,7 @@ class RendererService:
         median_direction=(0.0, 1.0),
         batch_tiers: Sequence[int] = (1, 8, 32),
         device="cuda",
+        mesh=None,
         coalesce: bool = True,
         coalesce_window_s: float = 0.003,
         adaptive_window: bool = False,
@@ -148,6 +160,15 @@ class RendererService:
                 f"False here; pass device='cpu' to serve on the CPU")
         self.directions = fan_directions_2d(
             median_direction, geometry.opening_angle, geometry.n_rays, device=self.device)
+        self._mesh = mesh
+        if mesh is not None:
+            ray_m = mesh.shape.get("ray", 1)
+            if geometry.n_rays % ray_m and (
+                    config.start_index(geometry.num_samples) > 0 or config.artifacts):
+                raise ValueError(
+                    f"n_rays={geometry.n_rays} does not divide the mesh ray axis ({ray_m}) "
+                    "and the config couples rays; use a divisible ray count for meshed "
+                    "serving")
         self.stats = {"requests": 0, "frames": 0, "padded_frames": 0, "batches": 0,
                       "recoveries": 0}
         self._scene_stats: dict = {}
@@ -172,10 +193,18 @@ class RendererService:
         """The default scene's staged volume (the single-scene API)."""
         return self._get_scene("default").volume
 
-    def _stage(self, volume) -> torch.Tensor:
+    def _stage(self, volume, **fields) -> _Scene:
+        """A scene of ``volume`` on the service's device (and, meshed, on
+        each mesh device), with the other ``_Scene`` fields given."""
         if not torch.is_tensor(volume):  # a copy: the caller may reuse its array
             volume = torch.tensor(np.asarray(volume, np.float32))
-        return volume.to(self.device, torch.float32).contiguous()
+        volume = volume.to(self.device, torch.float32).contiguous()
+        replicas = None
+        if self._mesh is not None:
+            from diffus_tpu_torch.parallel import replicate
+
+            replicas = replicate(volume, self._mesh)
+        return _Scene(volume, replicas, **fields)
 
     def _make_scene(self, volume, crop: bool, crop_margin: int) -> _Scene:
         """Stage one case, content-cropped first with ``crop`` (on the host,
@@ -184,13 +213,14 @@ class RendererService:
             volume = np.asarray(volume, np.float32)
         orig_shape = tuple(volume.shape)
         if not crop:
-            return _Scene(self._stage(volume), crop_margin=crop_margin, orig_shape=orig_shape)
+            return self._stage(volume, crop_margin=crop_margin, orig_shape=orig_shape)
         host = volume.detach().to("cpu", torch.float32).numpy() if torch.is_tensor(volume) \
             else volume
         cropped, off = crop_to_content(host, margin=crop_margin)
         crop_slices = tuple(slice(int(o), int(o) + s) for o, s in zip(off, cropped.shape))
         offset = torch.tensor(off, dtype=torch.float32, device=self.device)
-        return _Scene(self._stage(cropped), offset, crop_slices, crop_margin, orig_shape)
+        return self._stage(cropped, offset=offset, crop_slices=crop_slices,
+                           crop_margin=crop_margin, orig_shape=orig_shape)
 
     def _get_scene(self, name: str) -> _Scene:
         with self._lock:
@@ -240,11 +270,17 @@ class RendererService:
                 return b
         return self.batch_tiers[-1]
 
-    def _frames(self, volume, sources) -> torch.Tensor:
-        """``render_sweep(volume, sources, self.directions, ...)[3]``: one fan
-        for every pose, no sample coordinates."""
-        return _render(volume, sources, self.directions, self.geometry.num_samples,
-                       self.config, step=float(self.geometry.step), with_idx=False)[1]
+    def _frames(self, sc: _Scene, sources) -> torch.Tensor:
+        """``render_sweep(sc.volume, sources, self.directions, ...)[3]``: one
+        fan for every pose, no sample coordinates; over the mesh when the
+        service has one."""
+        args = (sources, self.directions, self.geometry.num_samples, self.config,
+                float(self.geometry.step))
+        if self._mesh is not None:
+            from diffus_tpu_torch.parallel import sharded_sweep_frames
+
+            return sharded_sweep_frames(self._mesh, sc.replicas, *args)
+        return _render(sc.volume, *args, with_idx=False)[1]
 
     def warmup(self, scene: str | None = None) -> float:
         """Render every batch tier once for ``scene`` (default: every
@@ -262,12 +298,12 @@ class RendererService:
                 continue
             seen.add(sc.volume.shape)
             for b in self.batch_tiers:
-                self._frames(sc.volume, torch.zeros((b, 3), device=self.device))
+                self._frames(sc, torch.zeros((b, 3), device=self.device))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return time.perf_counter() - t0
 
-    def _dispatch(self, volume, sources) -> torch.Tensor:
+    def _dispatch(self, sc: _Scene, sources) -> torch.Tensor:
         """Split into top-tier chunks, pad each up to its tier by repeating
         its last pose, render, and drop the padding.  No lock held."""
         p = sources.shape[0]
@@ -279,7 +315,7 @@ class RendererService:
             if n < tier:
                 chunk = torch.cat([chunk, chunk[-1:].expand(tier - n, 3)])
                 padded += tier - n
-            out.append(self._frames(volume, chunk)[:n])
+            out.append(self._frames(sc, chunk)[:n])
             offset += n
         with self._lock:
             self.stats["padded_frames"] += padded
@@ -331,7 +367,7 @@ class RendererService:
             try:
                 sources = (torch.cat([r.sources for r in batch]) if len(batch) > 1
                            else batch[0].sources)
-                frames = self._dispatch(scene.volume, sources)
+                frames = self._dispatch(scene, sources)
                 if len(batch) > 1:
                     # one device-to-host copy for the whole batch, made here
                     # on the leader's thread: the waiters read only its
@@ -389,7 +425,7 @@ class RendererService:
             st["frames"] += int(p)
         if not self._coalesce or p > self.batch_tiers[-1]:
             # large requests fill whole tiers on their own
-            out = self._dispatch(sc.volume, sources)
+            out = self._dispatch(sc, sources)
             self._record_latency(False, t0)
             return out
         req = _Pending(sources, sc)
@@ -476,7 +512,8 @@ class RendererService:
             sc = self._make_scene(new if old.crop_slices is None else volume,
                                   old.crop_slices is not None, old.crop_margin)
         else:
-            sc = dataclasses.replace(old, volume=self._stage(new))
+            sc = self._stage(new, offset=old.offset, crop_slices=old.crop_slices,
+                             crop_margin=old.crop_margin, orig_shape=old.orig_shape)
         with self._lock:
             self._scenes[scene] = sc
 

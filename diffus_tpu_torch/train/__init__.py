@@ -1,6 +1,6 @@
 """Training: losses, renderer-in-the-loop impedance training, pose
-recovery, checkpoints and metrics (``diffus_tpu/train/__init__.py``).
-The multi-case driver is not ported yet (ROADMAP A9)."""
+recovery, the multi-case driver, checkpoints and metrics
+(``diffus_tpu/train/__init__.py``)."""
 
 from diffus_tpu_torch.train.losses import (
     ssim,
@@ -35,5 +35,6 @@ from diffus_tpu_torch.train.pose_recovery import (
     pose_recovery_envelope,
     recover_free,
 )
+from diffus_tpu_torch.train.driver import CaseSpec, train_impedance_cases
 from diffus_tpu_torch.train.checkpoint import save_checkpoint, load_checkpoint
 from diffus_tpu_torch.train.metrics import MetricsLogger

@@ -63,19 +63,23 @@ class ImpedanceTrainConfig:
     render: RenderConfig = RenderConfig(attenuation_coeff=1e-4, start=110)
 
 
+def impedance_volume(model, t1_volume: torch.Tensor, cfg: ImpedanceTrainConfig) -> torch.Tensor:
+    """``t1_volume`` with slice ``cfg.slice_index`` mapped to impedance by the
+    MLP (z-scored first).  JAX's ``t1.at[:, :, k].set(z)`` is an in-place
+    write here, on a fresh copy; the caller's volume is left as it was.
+    ``model`` is the module or any callable with its interface."""
+    k = cfg.slice_index
+    z_vol = t1_volume.clone()
+    z_vol[:, :, k] = impedance_slice_zscore(model, t1_volume[:, :, k])
+    return z_vol
+
+
 def synth_forward(model: ImpedanceMLP, t1_volume: torch.Tensor, source, directions,
                   cfg: ImpedanceTrainConfig) -> torch.Tensor:
     """Differentiable forward: T1 slice -> Z slice -> substituted volume ->
-    render -> splat image ``cfg.image_shape``.
-
-    JAX's ``t1.at[:, :, k].set(z)`` is an in-place write here, on a fresh
-    copy of ``t1_volume``; the caller's volume is left as it was.
-    """
-    k = cfg.slice_index
-    z_slice = impedance_slice_zscore(model, t1_volume[:, :, k])
-    z_vol = t1_volume.clone()
-    z_vol[:, :, k] = z_slice
-    args = (z_vol, source, directions, cfg.num_samples, cfg.render)
+    render -> splat image ``cfg.image_shape``."""
+    args = (impedance_volume(model, t1_volume, cfg), source, directions, cfg.num_samples,
+            cfg.render)
     if cfg.remat:
         x, y, z, intensities = checkpoint(render_frame, *args, use_reentrant=False)
     else:

@@ -11,6 +11,7 @@ import socketserver
 import threading
 import urllib.request
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -167,8 +168,85 @@ def test_serve_matches(tmp_path, t1_path, capsys, monkeypatch):
 
 
 def test_serve_mesh_flags_wait_for_parallel(t1_path):
-    with pytest.raises(SystemExit, match="ROADMAP A13"):
-        tcli.main(["serve", "--volume", t1_path, "--mesh-pose", "2", *CPU])
+    """A mesh larger than the devices (``--device cpu``: one) stops with
+    ``make_mesh``'s message, in ``serve`` and ``train-cases`` alike."""
+    for sub in (["serve", "--volume", t1_path], ["train-cases", "--manifest", "none.json"]):
+        with pytest.raises(SystemExit, match="need 2 devices, have 1"):
+            tcli.main([*sub, "--mesh-pose", "2", *CPU])
+
+
+def test_serve_over_a_mesh_matches(t1_path, capsys, monkeypatch):
+    """``serve --mesh-pose 1 --mesh-ray 1`` builds no mesh, as JAX's CLI
+    builds one only above 1 x 1; its frames equal JAX's server's with the
+    same flags."""
+    import diffus_tpu_torch.serve as tserve
+
+    meshes = []
+
+    class Recording(tserve.RendererService):
+        def __init__(self, *args, mesh=None, **kwargs):
+            meshes.append(mesh)
+            super().__init__(*args, mesh=mesh, **kwargs)
+
+    argv = ["serve", "--volume", t1_path, "--scene", f"b={t1_path}", "--rays", "4",
+            "--samples", "12", "--tiers", "1", "--port", "0", "--mesh-pose", "1",
+            "--mesh-ray", "1"]
+    want = _serve(jcli.main, argv, monkeypatch)
+    capsys.readouterr()
+    monkeypatch.setattr(tserve, "RendererService", Recording)
+    got = _serve(tcli.main, argv + CPU, monkeypatch)
+    assert meshes == [None]
+    for scene in ("default", "b"):
+        assert frame_rel_err(got[scene], want[scene]) < 1e-4, scene
+
+
+def test_train_cases_matches(tmp_path, t1_path, capsys, monkeypatch):
+    """A two-case manifest of NIfTI volumes, both packages from the same flax
+    weights: the same JSON line.  The first loss (the same weights) to rtol
+    1e-5; the last, after one Adam step from each package's own gradients,
+    to rtol 5e-3: on this phantom some gradient entries are f32 noise, and
+    Adam's first step moves each by ~lr * sign(g) (``test_torch_train.py``)."""
+    import diffus_tpu.train.driver as jdriver
+    import diffus_tpu_torch.train.driver as tdriver
+    from diffus_tpu.impedance.mlp import init_params as jinit
+    from diffus_tpu_torch.convert import mlp_state_from_flax
+    from diffus_tpu_torch.impedance.mlp import ImpedanceMLP
+
+    params = jax.tree.map(np.asarray, jinit(jax.random.PRNGKey(0)))
+
+    def converted(generator, hidden=(32, 32), device=None):
+        model = ImpedanceMLP(hidden)
+        model.load_state_dict(mlp_state_from_flax(params))
+        return model.to(device)
+
+    monkeypatch.setattr(jdriver, "init_params", lambda key, hidden=(32, 32): params)
+    monkeypatch.setattr(tdriver, "init_params", converted)
+    rng = np.random.default_rng(3)
+    save_nifti(str(tmp_path / "t1b.nii"), t1_phantom_3d((24, 24, 24)) * np.float32(1.3))
+    entries = []
+    for i, t1 in enumerate((t1_path, str(tmp_path / "t1b.nii"))):
+        np.save(tmp_path / f"target{i}.npy", rng.uniform(0, 1, (8, 12)).astype(np.float32))
+        entries.append({"t1": t1, "target": str(tmp_path / f"target{i}.npy"),
+                        "source": [12.0 + i, 1.0, 12.0]})
+    entries[1]["mask"] = str(tmp_path / "mask.npy")
+    np.save(tmp_path / "mask.npy", rng.uniform(size=(8, 12)) > 0.2)
+    (tmp_path / "cases.json").write_text(json.dumps(entries))
+    argv = ["train-cases", "--manifest", str(tmp_path / "cases.json"), "--rays", "8",
+            "--samples", "12", "--slice-index", "12", "--epochs", "2", "--batch-size", "2",
+            "--interp", "trilinear"]
+    assert jcli.main(argv) == 0
+    want = _last_json(capsys)
+    assert tcli.main(argv + ["--checkpoint", str(tmp_path / "ckpt"), *CPU]) == 0
+    got = _last_json(capsys)
+    assert list(got) == list(want) == ["cases", "steps", "loss_first", "loss_last"]
+    assert (got["cases"], got["steps"]) == (want["cases"], want["steps"]) == (2, 2)
+    np.testing.assert_allclose(got["loss_first"], want["loss_first"], rtol=1e-5)
+    np.testing.assert_allclose(got["loss_last"], want["loss_last"], rtol=5e-3)
+    # the Adam step moved the loss by more than that tolerance, so a CLI
+    # that dropped the update could not pass the line above
+    for out in (got, want):
+        assert abs(out["loss_last"] - out["loss_first"]) > 2 * 5e-3 * abs(out["loss_first"])
+    assert (tmp_path / "ckpt" / "latest").exists()
 
 
 @pytest.mark.parametrize("argv", [
@@ -177,6 +255,7 @@ def test_serve_mesh_flags_wait_for_parallel(t1_path):
     ["sweep", "--volume", "{t1}"],
     ["recover-pose", "--volume", "{t1}", "--source", "12", "1", "12"],
     ["train-impedance", "--t1", "{t1}", "--us", "{t1}"],
+    ["train-cases", "--manifest", "{t1}"],
     ["serve", "--volume", "{t1}", "--port", "0"],
 ], ids=lambda a: a[0])
 def test_default_device_is_the_card(t1_path, argv):

@@ -447,3 +447,58 @@ def test_service_bf16_trilinear_fused_raises(cuda):
                                        interp="trilinear_fused"), device=cuda)
     with pytest.raises(TypeError, match="float32"):
         svc.render([[12.0, 1.5, 12.0]])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("start", [0, 12])
+def test_sharded_sweep_on_a_logical_mesh_of_the_card(cuda, start):
+    """A (2, 4) mesh of ``cuda:0`` runs every block through K1 and K2: at
+    start 0 no sum crosses a shard, so the frames equal ``render_sweep``'s
+    bit for bit; at start 12 the median over every ray holds them to rtol
+    1e-5, atol 1e-6.  K2 launches once a block (8 blocks of 4 poses x 4
+    rays), K1 once a block at start 0 and once a pose row (2) at start 12."""
+    from diffus_tpu_torch.parallel import make_mesh, sharded_render_sweep
+    from diffus_tpu_torch.render.renderer import render_sweep
+    from diffus_tpu_torch.types import RenderConfig
+
+    vol = torch.from_numpy(brain_phantom_3d((48, 48, 48))).to(cuda)
+    cfg = RenderConfig(attenuation_coeff=1e-4, interp="trilinear_fused", use_pallas=True,
+                       start=start)
+    dirs = fan_directions_2d([0.0, 1.0], np.radians(45.0), 16, device=cuda)
+    src = torch.tensor(np.random.default_rng(0).uniform([20, 1, 20], [28, 4, 28], (7, 3)),
+                       dtype=torch.float32, device=cuda)
+    before = (echo_fused.launches, march_trilinear_fused.launches)
+    got = sharded_render_sweep(make_mesh(2, 4, [cuda] * 8), vol, src, dirs, 40, cfg)
+    torch.cuda.synchronize()
+    assert (echo_fused.launches - before[0], march_trilinear_fused.launches - before[1]) == \
+        ((8 if start == 0 else 2), 8)
+    want = render_sweep(vol, src, dirs, 40, cfg)
+    for g, w in zip(got[:3], want[:3]):
+        assert torch.equal(g, w)
+    if start == 0:
+        assert torch.equal(got[3], want[3])
+    else:
+        torch.testing.assert_close(got[3], want[3], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_meshed_service_renders_without_idx(cuda):
+    """The service over a (2, 4) mesh of the card: frames equal the unmeshed
+    service's bit for bit, and K2 writes no idx in any block."""
+    from diffus_tpu_torch.parallel import make_mesh
+    from diffus_tpu_torch.serve import RendererService
+    from diffus_tpu_torch.types import BeamGeometry, RenderConfig
+
+    vol = torch.from_numpy(brain_phantom_3d((48, 48, 48))).to(cuda)
+    cfg = RenderConfig(attenuation_coeff=1e-4, interp="trilinear_fused", use_pallas=True)
+    kw = dict(batch_tiers=(1, 8), device=cuda, coalesce=False)
+    meshed = RendererService(vol, BeamGeometry(16, 40), cfg, mesh=make_mesh(2, 4, [cuda] * 8),
+                             **kw)
+    plain = RendererService(vol, BeamGeometry(16, 40), cfg, **kw)
+    src = torch.tensor([[24.0, 2.0, 24.0], [23.0, 2.5, 25.0], [25.5, 1.5, 22.0]])
+    before = (march_trilinear_fused.launches, march_trilinear_fused.idx_launches)
+    got = meshed.render(src)
+    torch.cuda.synchronize()
+    assert march_trilinear_fused.launches - before[0] == 8
+    assert march_trilinear_fused.idx_launches == before[1]
+    assert torch.equal(got, plain.render(src))

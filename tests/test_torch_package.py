@@ -38,6 +38,9 @@ MODULES = [
     "diffus_tpu_torch.utils.debug", "diffus_tpu_torch.utils.profiling",
     "diffus_tpu_torch.utils.timing", "diffus_tpu_torch.viz", "diffus_tpu_torch.viz.plots",
     "diffus_tpu_torch.viz.video", "diffus_tpu_torch.viz.isosurface", "diffus_tpu_torch.cli",
+    "diffus_tpu_torch.parallel", "diffus_tpu_torch.parallel.mesh",
+    "diffus_tpu_torch.parallel.shard", "diffus_tpu_torch.parallel.depth_scan",
+    "diffus_tpu_torch.parallel.tp", "diffus_tpu_torch.train.driver",
 ]
 # an import statement of the JAX package, in the port's sources or chip_smoke.py
 JAX_PACKAGE_IMPORT = re.compile(r"^\s*(from|import)\s+diffus_tpu(\.|\s|$)", re.MULTILINE)
@@ -54,6 +57,16 @@ def test_import_pulls_in_no_jax():
         "                                    'diffus_tpu', 'matplotlib'))\n"
         "print(bad)\n"
     )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=env, cwd=ROOT, timeout=120, check=True)
+    assert out.stdout.strip() == "[]", out.stdout + out.stderr
+
+
+def test_unmeshed_service_leaves_the_mesh_layer_unloaded():
+    """``RendererService`` imports ``parallel`` only when given a mesh."""
+    code = ("import sys, diffus_tpu_torch.serve\n"
+            "print(sorted(m for m in sys.modules if m.startswith('diffus_tpu_torch.parallel')))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          env=env, cwd=ROOT, timeout=120, check=True)
