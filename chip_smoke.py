@@ -27,7 +27,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    32 poses x 256 rays x 512 samples of the service's fan, with and
    without idx, with a NaN source and poses outside the volume, in every
    block tile it is built for with and without paired z loads, and
-   against the points form fed ``ray_points``;
+   against the points form fed ``ray_points``; the backward kernels
+   against their twins bit for bit: K1b (``echo_backward_plain``) at
+   training's 256 rays x 401 interfaces (start 110) and recovery's 8 x 256
+   x 511, on the nearest reflections with the NaN and d' = 0 rows (whose
+   gradient is NaN) and on trilinear ones, parity and symmetric, at 8, 16
+   and 32 lanes, and no further than 2x the plain f32 autograd's distance
+   from float64 autograd; K2b (``march_trilinear_backward_plain``) at 1 pose
+   x 256 x 512 with the volume gradient and at 8 poses without it, on
+   per-pose fans, the shared fan and the shared fan as an expanded view,
+   with a NaN source and two poses outside the volume, and against plain
+   autograd;
 4. main path: a ``RendererService`` on the 256^3 phantom at 256 rays x 512
    samples, ``interp='trilinear_fused'`` with ``use_pallas=True``, tiers
    (1, 8, 32), each request rendered as it comes (``coalesce=False``), answers requests of 1, 5 and 32 poses; K1's and K2's ray
@@ -46,7 +56,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    is larger; K2's bytes count the distinct 32-byte volume sectors the
    corners touch, counted on the card); the request latency of each tier
    and its device time split (K1, K2, ``ray_points``, the rest) from
-   ``torch.profiler``;
+   ``torch.profiler``; K1b at recovery's and training's shapes and K2b
+   with the volume gradient (1 pose) and without it (8 poses): with the
+   wrapper, alone, the plain autograd they replace, ``F.grid_sample``'s
+   backward for K2b, and the bound; every "with the wrapper" time beside
+   the wrapper's host microseconds a call in the same runs;
 6. K3 row-gather probe against its plain version and a float64 sum, at
    the probe's own shapes (M = 131072 rows of 128 floats, 2^20 rows,
    n_buf 8, offsets 0, 5065, -7, M + 3) and one small case; then its entry
@@ -58,14 +72,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``RenderConfig(interp='trilinear_fused', use_pallas=True)`` on the 256^3
    T1 phantom, 256 rays from apex [128, 4, 128], against the splatted frame
    of the 256^3 impedance phantom; K1's and K2's launches must rise (K2
-   with idx, which the splat reads), the
+   with idx, which the splat reads), and K1b's and K2b's, the
    losses be finite and the last below the first; one step's parameter
    gradients through the kernels are held against the plain path in
    float64 on the CPU, no further from it than max(1e-3, 2x) the plain
    path's in float32 on the card;
 8. times: the median training step (CUDA events), and its forward,
-   backward and optimizer device time from ``torch.profiler``, with K1's
-   and K2's part of each;
+   backward and optimizer device time from ``torch.profiler``, with K1's,
+   K2's, K1b's and K2b's part of each; no ``indexing_backward_kernel`` may
+   run in the step's backward (the splat's forward scatter-add launches
+   one);
 9. image formation: a second ``RendererService`` on the 256^3 phantom at
    256 rays x 512 samples with ``trilinear_fused``, ``use_pallas``, an even
    16-sample pulse and the envelope answers requests of 5 and 32 poses
@@ -77,8 +93,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 10. pose recovery: ``svc.recover_pose`` on the phase-4 service (the
    annealed schedule's default 600 steps, 8 starts drawn like JAX's
    acceptance test, radius 1.5 and rot 0.03, around a ``render_pose``
-   target at apex [128, 4, 128]); K1's and K2's launches must rise (K2
-   without idx), every
+   target at apex [128, 4, 128]); K1's, K2's (without idx), K1b's and
+   K2b's launches must rise, every
    final loss be finite and the best start's exact-frame loss fall; the
    frames of the target, the starts and the ends through the kernels, and
    the starts' losses, are held against the float64 CPU plain path like
@@ -103,7 +119,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    and adaptive: the rise of ``batches`` and ``/stats``' latency
    percentiles; at 3 ms, 32 requests must take fewer batches.
    ``/update_volume`` and ``/add_scene`` with 256^3 bodies, ``/remove_scene``,
-   and ``/recover`` on a 64 x 128 service (finite losses); then the CLI's
+   and ``/recover`` on a 64 x 128 service (finite losses; with it K1b and
+   K2b must launch in the phase); then the CLI's
    ``render --pallas`` (its ``.npy`` equal to an in-process ``render_frame``),
    ``sweep --pallas --poses 32`` and ``selftest``, each in a subprocess;
 12. the mesh (``diffus_tpu_torch.parallel``): a (1, 1) mesh of the card and a
@@ -124,7 +141,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    against ``train_on_table`` (rtol 1e-5); the CLI's ``train-cases`` and
    ``serve --mesh-pose 1 --mesh-ray 1`` in subprocesses.  The kernels'
    launches on the meshed paths go on the ``kernels`` line
-   (``mesh_launches``, K2's ``mesh_idx_launches``).
+   (``mesh_launches``, K2's ``mesh_idx_launches``); K1b and K2b must
+   launch on the driver, the masked step and sharded recovery, and on no
+   render path.
 
 TF32 is off for matmuls and cuDNN (``torch.backends``), so no comparison
 depends on those defaults.  The line before the last is a JSON object of
@@ -152,14 +171,21 @@ import numpy as np
 import torch
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM3 bytes/s, and
-# f32 FLOP/s outside the tensor cores
-HBM_BYTES_PER_S, F32_FLOPS = 3.35e12, 67e12
+# f32 and f64 FLOP/s outside the tensor cores
+HBM_BYTES_PER_S, F32_FLOPS, F64_FLOPS = 3.35e12, 67e12, 34e12
 # operations per K1 step (k, the 2x2 left-multiply, 4 abs and 4 max, the
 # reciprocal and 4 multiplies, -c/d, nan_to_num, att): ~35; per K2 point
 # (clamp, floor and fraction per axis, 7 lerps, 3 rounded indices): ~45,
 # of which the indices 3; K2's ray form adds the point (k * step, 3
 # multiplies, 3 adds): 7
 K1_OPS_PER_STEP, K2_OPS_PER_POINT, K2_IDX_OPS, K2_POINT_OPS = 35, 45, 3, 7
+# the backward kernels' operations: K1b per interface, the forward step (35)
+# to recompute the carry and the reverse step (~35: the echo's cotangent, dr
+# and the transposed step); K2b per sample, with the volume gradient (the
+# point, corners and fractions, the 8 corner weights times g: ~40) and with
+# the points' (the point, corners, the 7 blends, the 3 fraction gradients
+# through the clamp and the 6 sums: ~85)
+K1B_OPS_PER_STEP, K2B_VOLUME_OPS, K2B_POINT_OPS = 70, 40, 85
 ATT = 1e-4
 SHAPE = (256, 256, 256)
 N_RAYS, N_SAMPLES = 256, 512
@@ -184,10 +210,11 @@ def _sources(rng, p: int) -> torch.Tensor:
     return torch.tensor(APEX + off, dtype=torch.float32)
 
 
-def _bound(n_bytes: float, ops: float) -> dict:
+def _bound(n_bytes: float, ops: float, flops: float = F32_FLOPS) -> dict:
     """The least time the card could take: bytes over HBM bandwidth or
-    operations over the f32 peak, whichever is larger."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
+    operations over the peak of their type (f32 unless ``flops``), whichever
+    is larger."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, ops / flops * 1e3
     return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops
             else "operations", "bound_bytes": n_bytes, "bound_ops": ops}
 
@@ -218,6 +245,24 @@ def _k2_march_bound(n_pts: int, sectors: int, p: int, n_rays: int, with_idx: boo
     return _bound(per_point * n_pts + 32.0 * sectors + 12.0 * (p + n_rays), ops * n_pts)
 
 
+def _k1b_bound(b: int, n: int) -> dict:
+    """r and the echo's gradient read once, dr written once, the N+1
+    attenuation factors (f64); its operations are f64."""
+    return _bound(4.0 * b * n + 4.0 * b * (n + 1) + 4.0 * b * n + 8.0 * (n + 1),
+                  K1B_OPS_PER_STEP * b * n, F64_FLOPS)
+
+
+def _k2b_bound(n_pts: int, p: int, n_rays: int, nvox: int, sectors: int) -> dict:
+    """K2b: the values' gradient, each pose's source and fan in; with the
+    volume gradient (``nvox`` > 0) the dense gradient out, else the distinct
+    volume sectors the corners touch in and the sources' and directions'
+    gradients out."""
+    fans = 12.0 * (p + p * n_rays)
+    if nvox:
+        return _bound(4.0 * n_pts + 4.0 * nvox + fans, K2B_VOLUME_OPS * n_pts)
+    return _bound(4.0 * n_pts + 32.0 * sectors + 2 * fans, K2B_POINT_OPS * n_pts)
+
+
 def _same(got: torch.Tensor, want: torch.Tensor) -> bool:
     """Equal bit for bit, NaN where NaN (a NaN's payload aside)."""
     nan = torch.isnan(want)
@@ -234,22 +279,60 @@ def _grid_sample_grid(pts: torch.Tensor, shape) -> torch.Tensor:
     return (2.0 * pts.flip(-1) / (size - 1.0) - 1.0).reshape(1, *pts.shape[:-1], 3)
 
 
+def _trace(run, what: str, name: str | None = None, tries: int = 3):
+    """``torch.profiler``'s trace (CPU and CUDA) of ``run()``: ``(profile,
+    events, device events, wall microseconds of run() to a synchronize)``.
+    CUPTI can hand back a trace without the device activities of the run,
+    so a trace with no device time (of kernels whose name holds ``name``,
+    if given) is taken again, up to ``tries`` times; then None."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for attempt in range(1, tries + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        events = prof.events()
+        device = [e for e in events if e.device_type != torch.autograd.DeviceType.CPU
+                  and not getattr(e, "is_user_annotation", False)]
+        if sum(e.device_time_total for e in device if name is None or name in e.name) > 0:
+            return prof, events, device, wall_us
+        print(f"torch.profiler: no device time{f' of {name}' if name else ''} in trace "
+              f"{attempt} of {tries} of {what}", file=sys.stderr, flush=True)
+    return None
+
+
+def _profiled_us(fn, iters: int, what: str, name: str | None = None) -> float:
+    """Device time of one call of ``fn`` over ``iters`` calls from
+    ``torch.profiler``: of the kernels whose name holds ``name`` (the
+    largest mean a launch of any one of them), else of every kernel and
+    memset ``fn`` launches.  Where no trace holds it, the CUDA-event time
+    of the calls back to back, wrapper included, said so on stdout."""
+    fn()
+    torch.cuda.synchronize()
+
+    def run():
+        for _ in range(iters):
+            fn()
+
+    traced = _trace(run, what, name)
+    if traced is None:
+        us = _event_ms(fn, iters) * 1e3
+        print(f"times: torch.profiler saw no device time of {what}; its 'alone' time below "
+              f"is CUDA events instead, wrapper included: {us:.2f} us", flush=True)
+        return us
+    prof, _, device, _ = traced
+    if name is not None:
+        return max(e.device_time_total / e.count for e in prof.key_averages()
+                   if name in e.key and e.count > 0 and e.device_time_total > 0)
+    return sum(e.device_time_total for e in device) / iters
+
+
 def _kernel_device_us(fn, name: str, iters: int) -> float:
     """Mean device time of one launch of the kernels whose name holds
     ``name`` over ``iters`` calls of ``fn``, from ``torch.profiler``."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    times = [e.device_time_total / e.count for e in prof.key_averages()
-             if name in e.key and e.count > 0 and e.device_time_total > 0]
-    if not times:
-        raise AssertionError(f"torch.profiler saw no device time of {name}")
-    return max(times)
+    return _profiled_us(fn, iters, name, name)
 
 
 def _ptxas_report(log: str) -> list:
@@ -277,25 +360,38 @@ def _ptxas_report(log: str) -> list:
     return [f"{n}: {info}" for n, info in rows]
 
 
-def _event_ms(fn, iters: int) -> float:
+def _event_ms(fn, iters: int, host: bool = False):
+    """Mean time of ``iters`` calls back to back (CUDA events) after 3; with
+    ``host``, also the host's microseconds a call to queue them (the loop
+    holds no synchronize): the wrapper's host time in the same run."""
     for _ in range(3):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
+    t0 = time.perf_counter()
     for _ in range(iters):
         fn()
+    host_us = (time.perf_counter() - t0) / iters * 1e6
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    ms = start.elapsed_time(end) / iters
+    return (ms, host_us) if host else ms
 
 
 def _paired_ms(kernel, plain, iters: int):
-    """Plain, kernel, kernel, plain: each side's mean over its two runs."""
+    """Plain, kernel, kernel, plain: each side's mean over its two runs, and
+    the kernel's wrapper host microseconds a call in those runs."""
     p1 = _event_ms(plain, iters)
-    k1 = _event_ms(kernel, iters)
-    k2 = _event_ms(kernel, iters)
+    k1, h1 = _event_ms(kernel, iters, host=True)
+    k2, h2 = _event_ms(kernel, iters, host=True)
     p2 = _event_ms(plain, iters)
-    return (k1 + k2) / 2, (p1 + p2) / 2
+    return (k1 + k2) / 2, (p1 + p2) / 2, (h1 + h2) / 2
+
+
+def _device_us_per_call(fn, iters: int, what: str) -> float:
+    """Device time of one call of ``fn``: every kernel and memset it
+    launches, from ``torch.profiler`` over ``iters`` calls."""
+    return _profiled_us(fn, iters, what)
 
 
 def _assert_close(got, want, rtol: float, atol: float, what: str,
@@ -314,6 +410,202 @@ def _assert_close(got, want, rtol: float, atol: float, what: str,
 def _frame_rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
     got, want = got.double().cpu(), want.double().cpu()
     return float((got - want).abs().max() / want.abs().max())
+
+
+def _grad_units(x: torch.Tensor, ref: torch.Tensor) -> float:
+    """Worst distance from ``ref`` in units of rtol 1e-4 and atol 1e-6 of
+    ``ref``'s largest magnitude (a gradient has no natural unit)."""
+    ref = ref.double()
+    return float(((x.double() - ref).abs() / (1e-4 * ref.abs() + 1e-6 * ref.abs().max())).max())
+
+
+def _backward_checks(dev, vol, r_near, r_tri, src_m, dirs, rng) -> dict:
+    """Phase 3's backward half: K1b and K2b against their twins, bit for bit
+    (NaN where NaN), at the shapes training and recovery give them.
+
+    K1b: training's 256 rays x 401 interfaces (start 110) and recovery's
+    8 x 256 rays x 511, on nearest reflections with the NaN and d' = 0 rows
+    and on trilinear ones, parity and symmetric, at 8, 16 and 32 lanes; a
+    NaN interface or a d' = 0 echo makes its ray's dr NaN; on the trilinear
+    reflections K1b is at most 2x as far from autograd through the plain scan
+    in f64 as the plain f32 autograd is (:func:`_grad_units`).  K2b: 1 pose
+    x 256 x 512 with the volume gradient (and without the points'), 8 poses
+    without it, on per-pose fans, the shared fan and the shared fan as an
+    expanded view; the 8 sources are ``src_m``'s (a NaN component, two
+    poses outside the volume)."""
+    from diffus_tpu_torch.kernels import propagation_cuda as k1
+    from diffus_tpu_torch.kernels import trilinear_cuda as k2
+    from diffus_tpu_torch.kernels.propagation_cuda import echo_plain
+    from diffus_tpu_torch.ops.sampling import march_trilinear
+    from diffus_tpu_torch.render.renderer import _apply_start
+
+    def normal(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+
+    rec = 8 * N_RAYS
+    inputs = {"training": _apply_start(r_tri[:N_RAYS], 110), "recovery nearest": r_near[:rec],
+              "recovery trilinear": r_tri[:rec]}
+    grads = {k: normal(x.shape[0], x.shape[1] + 1) for k, x in inputs.items()}
+    for label, x in inputs.items():
+        for mode in ("parity", "symmetric"):
+            for lanes in (8, 16, 32):
+                got = k1._launch_bwd(x, grads[label], mode, ATT, lanes)
+                want = k1.echo_backward_plain(x, grads[label], mode, ATT, lanes)
+                torch.cuda.synchronize()
+                if not _same(got, want):
+                    raise AssertionError(
+                        f"K1b {mode}, {lanes} lanes, {label} {tuple(x.shape)} differs from "
+                        f"echo_backward_plain: max abs "
+                        f"{float((got - want).nan_to_num(0).abs().max()):.3e}, NaN "
+                        f"{int(torch.isnan(got).sum())} vs {int(torch.isnan(want).sum())}")
+    x, g = inputs["recovery nearest"], grads["recovery nearest"]
+    for mode, row in (("parity", 1), ("symmetric", 2)):
+        dr = k1._launch_bwd(x, g, mode, ATT)
+        if not (bool(torch.isnan(dr[0]).all()) and bool(torch.isnan(dr[row]).all())):
+            raise AssertionError(f"K1b {mode}: the NaN row and the d' = 0 row must be all NaN")
+    k1b_units = []
+    x, g = inputs["recovery trilinear"], grads["recovery trilinear"]
+    for mode in ("parity", "symmetric"):
+        x64 = x.double().requires_grad_(True)
+        (ref,) = torch.autograd.grad(echo_plain(x64, mode, ATT), x64, g.double())
+        x32 = x.detach().requires_grad_(True)
+        (plain,) = torch.autograd.grad(echo_plain(x32, mode, ATT), x32, g)
+        u_k, u_p = _grad_units(k1._launch_bwd(x, g, mode, ATT), ref), _grad_units(plain, ref)
+        if not u_k <= 2 * u_p:
+            raise AssertionError(f"K1b {mode} on trilinear reflections: {u_k:.3g} tolerances "
+                                 f"from f64 autograd, plain f32 autograd {u_p:.3g}")
+        k1b_units.append(f"{mode} {u_k:.3g} / plain {u_p:.3g}")
+    print(f"K1b vs echo_backward_plain (its order in plain PyTorch): equal bit for bit at "
+          f"training's {tuple(inputs['training'].shape)} and recovery's {(rec, N_SAMPLES - 1)} "
+          f"(nearest with the NaN and d' = 0 rows, which are NaN, and trilinear), parity + "
+          f"symmetric, 8/16/32 lanes; trilinear reflections vs f64 autograd, in tolerances: "
+          + ", ".join(k1b_units), flush=True)
+
+    src1 = torch.tensor(APEX[None], dtype=torch.float32, device=dev)
+    src8 = src_m[:8].contiguous()
+    fans = (dirs[None] + 0.02 * normal(8, N_RAYS, 3)).contiguous()
+    g1, g8 = normal(1, N_RAYS, N_SAMPLES), normal(8, N_RAYS, N_SAMPLES)
+    cases = (("1 pose, shared fan, all three", src1, dirs, g1, (True, True, True)),
+             ("1 pose, the volume (training's)", src1, dirs, g1, (True, False, False)),
+             ("8 poses, own fans (recovery's)", src8, fans, g8, (False, True, True)),
+             ("8 poses, shared (R, 3) fan", src8, dirs, g8, (False, True, True)),
+             ("8 poses, shared fan expanded", src8, dirs.expand(8, -1, -1), g8,
+              (False, True, True)))
+    out = {}
+    for label, src, d, g, need in cases:
+        got = k2._launch_march_bwd(vol, src, d, N_SAMPLES, 1.0, g, need)
+        want = k2.march_trilinear_backward_plain(vol, src, d, N_SAMPLES, 1.0, g, need)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("volume", "sources", "directions"), got, want):
+            if (a is None) != (b is None) or (a is not None and not _same(a, b)):
+                raise AssertionError(f"K2b, {label}: the {name}' gradient differs from "
+                                     f"march_trilinear_backward_plain")
+        out[label] = got
+    dvol = out["1 pose, the volume (training's)"][0]
+    v = vol.detach().requires_grad_(True)
+    (plain_v,) = torch.autograd.grad(march_trilinear(v, src1, dirs, N_SAMPLES, 1.0, False)[1], v, g1)
+    k2b_err = float((dvol - plain_v).abs().max() / plain_v.abs().max())
+    if not k2b_err < 1e-5:
+        raise AssertionError(f"K2b's volume gradient vs plain autograd: {k2b_err:.3e} of its max")
+    dsrc, ddir = out["8 poses, own fans (recovery's)"][1:]
+    leaves = [t.detach().requires_grad_(True) for t in (src8, fans)]
+    plain_s, plain_d = torch.autograd.grad(march_trilinear(vol, *leaves, N_SAMPLES, 1.0, False)[1],
+                                           leaves, g8)
+    if not (torch.equal(torch.isnan(dsrc), torch.isnan(plain_s))
+            and torch.equal(torch.isnan(ddir), torch.isnan(plain_d))
+            and torch.isnan(dsrc[0]).tolist() == [True, False, True]
+            and bool(torch.isfinite(dsrc[1:]).all())):
+        raise AssertionError(f"K2b: NaN pattern of the sources' gradient {dsrc[:3].tolist()}")
+    pts_err = max(float((a - b).nan_to_num(0).abs().max() / b.nan_to_num(0).abs().max())
+                  for a, b in ((dsrc, plain_s), (ddir, plain_d)))
+    if not pts_err < 1e-4:
+        raise AssertionError(f"K2b's point gradients vs plain autograd: {pts_err:.3e} of the max")
+    print(f"K2b vs march_trilinear_backward_plain (its order in plain PyTorch): equal bit for "
+          f"bit, NaN where NaN: " + "; ".join(label for label, *_ in cases) + f"; against plain "
+          f"autograd (its f32 sums in another order): volume {k2b_err:.3e}, sources and "
+          f"directions {pts_err:.3e} of the largest gradient; the NaN source's gradient "
+          f"(NaN, 0, NaN) in both", flush=True)
+    return {"k1b_err": 0.0, "k2b_err": 0.0, "k2b_vs_autograd": max(k2b_err, pts_err)}
+
+
+def _backward_times(dev, vol, r_tri, src32, dirs, rng, card: str) -> dict:
+    """Phase 5's backward half: K1b at recovery's (2048, 511) and training's
+    (256, 401) shapes, K2b with the volume gradient at 1 pose x 256 x 512
+    (training's) and without it at 8 poses (recovery's, per-pose fans):
+    with the wrapper (CUDA events, and the wrapper's host time in the same
+    runs), alone (every kernel and memset it launches, profiler), the plain
+    version's VJP as ``_EchoFused``/``_MarchFused.backward`` ran it before
+    K1b and K2b (autograd through the plain forward, recomputed), the bound
+    and, for K2b, ``F.grid_sample``'s backward (bilinear, border,
+    align_corners; atomics, so not deterministic) on the same points."""
+    import torch.nn.functional as F
+
+    from diffus_tpu_torch.kernels import propagation_cuda as k1
+    from diffus_tpu_torch.kernels import trilinear_cuda as k2
+    from diffus_tpu_torch.kernels.propagation_cuda import echo_plain
+    from diffus_tpu_torch.ops.sampling import march_trilinear, ray_points
+    from diffus_tpu_torch.render.renderer import _apply_start
+
+    def normal(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+
+    out = {}
+    for label, x in (("recovery", r_tri[:8 * N_RAYS]),
+                     ("training", _apply_start(r_tri[:N_RAYS], 110))):
+        g = normal(x.shape[0], x.shape[1] + 1)
+        xr = x.detach().requires_grad_(True)
+        ms, plain_ms, host_us = _paired_ms(
+            lambda: k1._launch_bwd(x, g, "parity", ATT),
+            lambda: torch.autograd.grad(echo_plain(xr, "parity", ATT), xr, g), 20)
+        alone_us = _device_us_per_call(lambda: k1._launch_bwd(x, g, "parity", ATT), 20,
+                                       f"K1b {label}")
+        bound = _k1b_bound(*x.shape)
+        out[f"k1b_{label}"] = {"shape": tuple(x.shape), "ms": ms, "plain_ms": plain_ms,
+                               "host_us": host_us, "device_us": alone_us, **bound}
+        print(f"times [{card}]: K1b {label} {tuple(x.shape)} {ms:.4f} ms (CUDA events, wrapper "
+              f"included; the wrapper's host time {host_us:.2f} us a call in the same runs) vs "
+              f"plain autograd through echo_plain {plain_ms:.4f} ms; alone {alone_us:.2f} us "
+              f"(profiler); bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}): "
+              f"{bound['bound_ms'] / ms:.1%} of it with the wrapper, "
+              f"{bound['bound_ms'] * 1e3 / alone_us:.1%} alone", flush=True)
+
+    src1 = torch.tensor(APEX[None], dtype=torch.float32, device=dev)
+    fans = (dirs[None] + 0.02 * normal(8, N_RAYS, 3)).contiguous()
+    src8 = src32[:8].contiguous()
+    for label, src, d, need in (("volume, 1 pose", src1, dirs, (True, False, False)),
+                                ("points, 8 poses", src8, fans, (False, True, True))):
+        p = src.shape[0]
+        g = normal(p, N_RAYS, N_SAMPLES)
+        leaves = [t.detach().requires_grad_(n) for t, n in zip((vol, src, d), need)]
+        wrt = [t for t in leaves if t.requires_grad]
+        ms, plain_ms, host_us = _paired_ms(
+            lambda: k2._launch_march_bwd(vol, src, d, N_SAMPLES, 1.0, g, need),
+            lambda: torch.autograd.grad(march_trilinear(*leaves, N_SAMPLES, 1.0, False)[1], wrt,
+                                        g), 10)
+        alone_us = _device_us_per_call(
+            lambda: k2._launch_march_bwd(vol, src, d, N_SAMPLES, 1.0, g, need), 10,
+            f"K2b {label}")
+        pts = ray_points(src, d.expand(p, -1, -1), N_SAMPLES)
+        grid = _grid_sample_grid(pts, tuple(vol.shape)).requires_grad_(not need[0])
+        vol5 = vol[None, None].detach().requires_grad_(need[0])
+        gs_out = F.grid_sample(vol5, grid, mode="bilinear", padding_mode="border",
+                               align_corners=True)
+        g5 = g.reshape(gs_out.shape)
+        gs_ms = _event_ms(lambda: torch.autograd.grad(
+            gs_out, vol5 if need[0] else grid, g5, retain_graph=True), 10)
+        bound = (_k2b_bound(pts[..., 0].numel(), p, N_RAYS, vol.numel(), 0) if need[0] else
+                 _k2b_bound(pts[..., 0].numel(), p, N_RAYS, 0, _k2_sectors(vol, pts)))
+        out[f"k2b_{label.split(',')[0]}"] = {
+            "poses": p, "ms": ms, "plain_ms": plain_ms, "host_us": host_us,
+            "device_us": alone_us, "library_ms": gs_ms, **bound}
+        print(f"times [{card}]: K2b {label} x {N_RAYS} x {N_SAMPLES} {ms:.4f} ms (CUDA events, "
+              f"wrapper included; the wrapper's host time {host_us:.2f} us a call in the same "
+              f"runs) vs plain autograd through march_trilinear {plain_ms:.4f} ms vs "
+              f"F.grid_sample's backward {gs_ms:.4f} ms; alone {alone_us:.2f} us (profiler); "
+              f"bound {bound['bound_bytes'] / 1e6:.2f} MB -> {bound['bound_ms']:.4f} ms "
+              f"({bound['bound_by']}): {bound['bound_ms'] / ms:.1%} of it with the wrapper, "
+              f"{bound['bound_ms'] * 1e3 / alone_us:.1%} alone", flush=True)
+    return out
 
 
 def _gather_probe_phase(dev) -> dict:
@@ -429,7 +721,7 @@ def _training_phase(dev, vol) -> dict:
         train_s = time.perf_counter() - t0
     finally:
         torch.use_deterministic_algorithms(False)
-    launches = _counts("training path", idx=True)
+    launches = _counts("training path", idx=True, bwd=True)
     losses = losses.cpu()
     if tuple(losses.shape) != (cfg.epochs,) or not bool(torch.isfinite(losses).all()):
         raise AssertionError(f"training losses: shape {tuple(losses.shape)}, {losses}")
@@ -471,8 +763,10 @@ def _training_phase(dev, vol) -> dict:
             "launches": launches}
 
 
-def _training_times(dev, train: dict, card: str) -> None:
-    """Phase 8: the training step's times."""
+def _training_times(dev, train: dict, card: str) -> dict:
+    """Phase 8: the training step's times; its backward holds no
+    ``indexing_backward_kernel`` (the volume gradient is K2b's; the splat's
+    forward scatter-add still launches one)."""
     from diffus_tpu_torch.impedance.mlp import init_params
     from diffus_tpu_torch.train import make_optimizer, synth_loss, train_step
 
@@ -480,17 +774,21 @@ def _training_times(dev, train: dict, card: str) -> None:
     args = (train["t1"], train["us_norm"], train["mask"], train["src"], train["dirs"], cfg)
     model = init_params(torch.Generator().manual_seed(TRAIN_SEED), cfg.hidden, dev)
     opt = make_optimizer(model, cfg)
-    _step_times(card, "training step", "train_step", lambda: train_step(model, opt, *args),
-                forward=("synth_loss", lambda: synth_loss(model, *args)))
+    return _step_times(card, "training step", "train_step",
+                       lambda: train_step(model, opt, *args),
+                       forward=("synth_loss", lambda: synth_loss(model, *args)),
+                       forbid="indexing_backward_kernel")
 
 
-def _step_times(card: str, label: str, prefix: str, step, forward=None) -> dict:
+def _step_times(card: str, label: str, prefix: str, step, forward=None,
+                forbid: str | None = None) -> dict:
     """Median step time (CUDA events), the mean of steps run back to back,
     and ``torch.profiler``'s split of the device time over the step's
-    ``{prefix}.forward``, ``.backward`` and ``.optimizer`` ranges, with K1's
-    and K2's part of each.  ``forward``: ``(name, callable)`` timed alone."""
-    from torch.profiler import ProfilerActivity, profile
-
+    ``{prefix}.forward``, ``.backward`` and ``.optimizer`` ranges, with K1's,
+    K2's, K1b's and K2b's part of each.  ``forward``: ``(name, callable)``
+    timed alone.  Raises if a kernel of the backward (the step's device
+    kernels outside its forward and optimizer ranges) has a name holding
+    ``forbid``."""
     for _ in range(3):
         step()
     torch.cuda.synchronize()
@@ -514,20 +812,20 @@ def _step_times(card: str, label: str, prefix: str, step, forward=None) -> dict:
           f"back {loop_ms:.4f} ms a step{alone}", flush=True)
 
     steps = 5
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+
+    def run():
         for _ in range(steps):
             step()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    events = prof.events()
-    ranges = tuple(f"{prefix}.{p}" for p in ("forward", "backward", "optimizer"))
-    device = [e for e in events if e.device_type != torch.autograd.DeviceType.CPU
-              and e.name not in ranges and not getattr(e, "is_user_annotation", False)]
-    total = sum(e.device_time_total for e in device)
-    if total <= 0:
+
+    traced = _trace(run, f"the {label}s")
+    if traced is None:
         raise AssertionError(f"torch.profiler saw no device time in the {label}s")
-    keys = {"K1": "echo_scan_kernel", "K2": "trilinear_"}
+    prof, events, device, wall_us = traced
+    ranges = tuple(f"{prefix}.{p}" for p in ("forward", "backward", "optimizer"))
+    device = [e for e in device if e.name not in ranges]
+    total = sum(e.device_time_total for e in device)
+    keys = {"K1": "echo_scan_kernel", "K2": "trilinear_", "K1b": "echo_scan_bwd_kernel",
+            "K2b": "march_bwd_"}
     kernel_total = {k: sum(e.device_time_total for e in device if v in e.name)
                     for k, v in keys.items()}
     phase = {}
@@ -541,12 +839,22 @@ def _step_times(card: str, label: str, prefix: str, step, forward=None) -> dict:
     fwd, opt_p = phase[ranges[0]], phase[ranges[2]]
     bwd = {"us": total - fwd["us"] - opt_p["us"],
            **{k: kernel_total[k] - fwd[k] - opt_p[k] for k in keys}}
+    if forbid is not None:
+        # the backward's kernels run on autograd's thread, outside the step's
+        # ranges: they are those of the step not under the forward or optimizer
+        outside = sum(1 for e in device if forbid in e.name) - sum(
+            1 for name in (ranges[0], ranges[2]) for r in events
+            if r.name == name and r.device_type == torch.autograd.DeviceType.CPU
+            for e in _subtree(r) for kern in e.kernels if forbid in kern.name)
+        if outside:
+            raise AssertionError(f"the {label}'s backward launched {forbid} {outside} times "
+                                 f"in {steps} steps")
     per = 1.0 / steps
     idle = max(0.0, 1 - total * per / 1e3 / loop_ms)
     lines = []
     for name, d in (("forward", fwd), ("backward", bwd), ("optimizer", opt_p)):
-        lines.append(f"{name} {d['us'] * per / 1e3:.4f} ms ({d['us'] / total:.1%}; K1 "
-                     f"{d['K1'] * per / 1e3:.4f} ms, K2 {d['K2'] * per / 1e3:.4f} ms)")
+        lines.append(f"{name} {d['us'] * per / 1e3:.4f} ms ({d['us'] / total:.1%}; " + ", ".join(
+            f"{k} {d[k] * per / 1e3:.4f} ms" for k in keys) + ")")
     print(f"times [{card}]: {label} device time per step {total * per / 1e3:.4f} ms "
           f"(profiler, {steps} steps; device idle {1 - total / wall_us:.1%} of "
           f"{wall_us * per / 1e3:.4f} ms profiled wall, {idle:.1%} of the {loop_ms:.4f} ms "
@@ -567,7 +875,8 @@ def _step_times(card: str, label: str, prefix: str, step, forward=None) -> dict:
         f"{name[:40]} {us * per / 1e3:.4f} ms x{count * per:.0f}" for name, us, count in host),
         flush=True)
     return {"median_ms": med, "loop_ms": loop_ms, "device_ms": total * per / 1e3,
-            "idle": idle}
+            "idle": idle, "backward_share": bwd["us"] / total,
+            "launches": len(device) * per}
 
 
 def _tier_latencies(svc, rng, card: str, label: str) -> None:
@@ -596,7 +905,6 @@ def _request_profiles(svc, rng, card: str, label: str) -> dict:
     as the kernels launched inside a profiler range around the renderer's
     calls of it (none where K2's ray form computes the points)."""
     from torch.autograd.profiler import record_function
-    from torch.profiler import ProfilerActivity, profile
 
     import diffus_tpu_torch.render.renderer as renderer
 
@@ -614,25 +922,19 @@ def _request_profiles(svc, rng, card: str, label: str) -> dict:
         torch.cuda.synchronize()
         renderer.ray_points = ray_points
         try:
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                for _ in range(5):
-                    svc.render(src_t)
-                torch.cuda.synchronize()
-                wall_us = (time.perf_counter() - t0) * 1e6
+            traced = _trace(lambda: [svc.render(src_t) for _ in range(5)],
+                            f"{label}s of {tier} poses")
         finally:
             renderer.ray_points = plain_ray_points
-        events = prof.events()
-        device = [e for e in events if e.device_type != torch.autograd.DeviceType.CPU
-                  and not getattr(e, "is_user_annotation", False)]
+        if traced is None:
+            raise AssertionError(f"torch.profiler saw no device time in a {label}")
+        _, events, device, wall_us = traced
         total = sum(e.device_time_total for e in device)
         k1_us = sum(e.device_time_total for e in device if "echo_scan_kernel" in e.name)
         k2_us = sum(e.device_time_total for e in device if "trilinear_" in e.name)
         rp_us = sum(kern.duration for r in events if r.name == "ray_points"
                     and r.device_type == torch.autograd.DeviceType.CPU
                     for e in _subtree(r) for kern in e.kernels)
-        if total <= 0:
-            raise AssertionError(f"torch.profiler saw no device time in a {label}")
         rest_us = total - k1_us - k2_us - rp_us
         out[tier] = {"device_ms": total / 5e3, "k1_ms": k1_us / 5e3, "k2_ms": k2_us / 5e3,
                      "ray_points_ms": rp_us / 5e3, "rest_ms": rest_us / 5e3,
@@ -652,17 +954,21 @@ def _counts_reset() -> None:
 
     probe.gather_probe.launches = 0
     echo_fused.launches = 0
+    echo_fused.bwd_launches = 0
     march_trilinear_fused.launches = 0
     march_trilinear_fused.idx_launches = 0
+    march_trilinear_fused.bwd_launches = 0
     sample_trilinear_fused.launches = 0
 
 
-def _counts(what: str, idx: bool | None = None) -> dict:
+def _counts(what: str, idx: bool | None = None, bwd: bool = False) -> dict:
     """K1's, K2's and K3's launches since :func:`_counts_reset`: K2's ray
     form (``trilinear_sample``), those of its launches that wrote an idx,
-    and its points form.  Raises if K1 or K2's ray form never launched, and,
-    for ``idx`` False or True, unless no launch or every launch of the ray
-    form wrote an idx."""
+    and its points form; K1b's and K2b's (``echo_scan_bwd``,
+    ``trilinear_bwd``).  Raises if K1 or K2's ray form never launched; for
+    ``idx`` False or True, unless no launch or every launch of the ray form
+    wrote an idx; and unless K1b and K2b both launched (``bwd``, a path that
+    takes gradients) or neither did."""
     from diffus_tpu_torch.kernels import gather_probe as probe
     from diffus_tpu_torch.kernels.propagation_cuda import echo_fused
     from diffus_tpu_torch.kernels.trilinear_cuda import march_trilinear_fused, sample_trilinear_fused
@@ -671,13 +977,19 @@ def _counts(what: str, idx: bool | None = None) -> dict:
                 "trilinear_sample": march_trilinear_fused.launches,
                 "trilinear_idx": march_trilinear_fused.idx_launches,
                 "trilinear_points": sample_trilinear_fused.launches,
-                "gather_probe": probe.gather_probe.launches}
+                "gather_probe": probe.gather_probe.launches,
+                "echo_scan_bwd": echo_fused.bwd_launches,
+                "trilinear_bwd": march_trilinear_fused.bwd_launches}
     if min(launches["echo_scan"], launches["trilinear_sample"]) < 1:
         raise AssertionError(f"a kernel of the {what} never launched: {launches}")
     if idx is not None and launches["trilinear_idx"] != (launches["trilinear_sample"] if idx
                                                          else 0):
         raise AssertionError(f"the {what} should launch K2 {'with' if idx else 'without'} "
                              f"idx: {launches}")
+    backward = (launches["echo_scan_bwd"], launches["trilinear_bwd"])
+    if (min(backward) < 1) if bwd else (max(backward) > 0):
+        raise AssertionError(f"the {what} should launch {'both' if bwd else 'neither'} of K1b "
+                             f"and K2b: {launches}")
     return launches
 
 
@@ -785,7 +1097,7 @@ def _recover(dev, svc, label: str) -> dict:
                            seed=RECOVERY_SEED)
     torch.cuda.synchronize()
     rec_s = time.perf_counter() - t0
-    launches = _counts(f"recovery path ({label})", idx=False)
+    launches = _counts(f"recovery path ({label})", idx=False, bwd=True)
 
     # the starts the service drew, and their exact-frame loss before any step
     init = sample_init_poses(torch.Generator(device=dev).manual_seed(RECOVERY_SEED), APEX,
@@ -1268,7 +1580,7 @@ def _serving_surface_phase(dev, card: str) -> dict:
         finally:
             http.close()
         torch.cuda.synchronize()
-        launches = _counts("serving surface", idx=False)
+        launches = _counts("serving surface", idx=False, bwd=True)
         if not np.all(np.isfinite(fit["final_losses"])):
             raise AssertionError(f"/recover losses {fit['final_losses']}")
         print(f"/recover at 64 x 128 (4 starts, 80 steps): {rec_s:.2f} s [{card}]; final losses "
@@ -1329,13 +1641,13 @@ def _median_ms(fn, n: int = 10) -> float:
     return statistics.median(lat)
 
 
-def _meshed(totals: dict, what: str, idx, fn):
+def _meshed(totals: dict, what: str, idx, fn, bwd: bool = False):
     """Run ``fn`` (a meshed path) with the launch counts at 0, check them as
     :func:`_counts` does, add them to ``totals`` and return ``fn``'s result."""
     _counts_reset()
     out = fn()
     torch.cuda.synchronize()
-    for k, v in _counts(what, idx).items():
+    for k, v in _counts(what, idx, bwd).items():
         totals[k] = totals.get(k, 0) + v
     return out
 
@@ -1534,12 +1846,12 @@ def _mesh_phase(dev, vol, svc, card: str) -> dict:
         torch.use_deterministic_algorithms(True)
         try:
             t0 = time.perf_counter()
-            _, whole = _meshed(totals, "driver", True, lambda: drive(2))
+            _, whole = _meshed(totals, "driver", True, lambda: drive(2), bwd=True)
             walls["driver, 2 epochs"] = time.perf_counter() - t0
             _, first = _meshed(totals, "driver to epoch 1", True,
-                               lambda: drive(1, checkpoint_dir=ckpt))
+                               lambda: drive(1, checkpoint_dir=ckpt), bwd=True)
             _, rest = _meshed(totals, "driver resumed", True,
-                              lambda: drive(2, checkpoint_dir=ckpt, resume=True))
+                              lambda: drive(2, checkpoint_dir=ckpt, resume=True), bwd=True)
             # the same batches through the port's unsharded forward, one Adam
             model = init_params(torch.Generator().manual_seed(TRAIN_SEED), tcfg.hidden, dev)
             opt = torch.optim.Adam(model.parameters(), lr=tcfg.lr)
@@ -1569,7 +1881,8 @@ def _mesh_phase(dev, vol, svc, card: str) -> dict:
             ray4 = make_mesh(1, 4, [dev] * 4)
             step_fn, init_opt = make_sharded_train_step(ray4, mcfg, lr=mcfg.lr)
             l_sh = _meshed(totals, "masked_mse_edge step (1, 4)", False,
-                           lambda: step_fn(m_sh, init_opt(m_sh), shard_batch(ray4, batch)))
+                           lambda: step_fn(m_sh, init_opt(m_sh), shard_batch(ray4, batch)),
+                           bwd=True)
             ref_frame = render_frame(impedance_volume(m_ref, t1_dev, mcfg), batch[3][0], dirs,
                                      N_SAMPLES, mcfg.render)[3]
             l_ref = masked_mse_edge_loss(ref_frame, target, mask, mcfg.edge_weight)
@@ -1614,7 +1927,7 @@ def _mesh_phase(dev, vol, svc, card: str) -> dict:
         t1_s = time.perf_counter()
         poses, losses, best = _meshed(totals, "sharded recovery", False,
                                       lambda: sharded_recover_pose_multistart(
-                                          logical, vol, target_p, init, pcfg))
+                                          logical, vol, target_p, init, pcfg), bwd=True)
         t1_s = time.perf_counter() - t1_s
         t_ref = time.perf_counter()
         r_poses, r_losses, r_best = recover_pose_multistart(vol, target_p, init, pcfg)
@@ -1707,6 +2020,7 @@ def _requests_only(dev, card: str) -> int:
                           device=dev, coalesce=False)
     svc.warmup()
     rng = np.random.default_rng(0)
+    bwd_times = _backward_times(dev, vol, r_tri, src32, dirs, rng, card)
     _tier_latencies(svc, rng, card, "request")
     _request_profiles(svc, rng, card, "request")
     return 0
@@ -1887,6 +2201,7 @@ def main(argv=None) -> int:
     print(f"K2 ray form vs march_trilinear at {tuple(val_p.shape)} (a NaN source, 2 poses "
           f"outside the volume): equal bit for bit, values and idx, with and without idx; "
           f"the points form fed ray_points equal too", flush=True)
+    bwd_checks = _backward_checks(dev, vol, r, r_tri, src_m, dirs, rng)
 
     # -- 4. main path: the service ------------------------------------------
     warm_s = svc.warmup()
@@ -1933,21 +2248,15 @@ def main(argv=None) -> int:
     k1_by_rays = {}
     for rays in (N_RAYS, 8 * N_RAYS, 32 * N_RAYS):
         x = r[:rays]
-        k_ms, p_ms = _paired_ms(lambda: echo_fused(x, "parity", ATT),
-                                lambda: echo_plain(x, "parity", ATT), 20)
+        k_ms, p_ms, host_us = _paired_ms(lambda: echo_fused(x, "parity", ATT),
+                                         lambda: echo_plain(x, "parity", ATT), 20)
         dev_us = _kernel_device_us(lambda: echo_fused(x, "parity", ATT), "echo_scan_kernel", 20)
-        # the wrapper's host time per call: 50 calls queued without a synchronize
-        t0 = time.perf_counter()
-        for _ in range(50):
-            echo_fused(x, "parity", ATT)
-        host_us = (time.perf_counter() - t0) / 50 * 1e6
-        torch.cuda.synchronize()
         k1_by_rays[rays] = {"ms": k_ms, "plain_ms": p_ms, "device_us": dev_us,
                             "host_us": host_us, **_k1_bound(rays, n_if)}
         bound_ms = k1_by_rays[rays]["bound_ms"]
         print(f"times [{card}]: K1 echo scan ({rays}, {n_if}) {k_ms:.4f} ms (CUDA events, "
               f"wrapper included) vs plain {p_ms:.4f} ms; kernel alone {dev_us:.2f} us "
-              f"(profiler), the wrapper's host time {host_us:.2f} us a call; bound "
+              f"(profiler), the wrapper's host time {host_us:.2f} us a call in the same runs; bound "
               f"{bound_ms:.4f} ms ({k1_by_rays[rays]['bound_by']}): {bound_ms / k_ms:.1%} of it "
               f"with the wrapper, {bound_ms * 1e3 / dev_us:.1%} alone", flush=True)
     k1_variants = {f"{lanes} lanes": _kernel_device_us(lambda: k1._launch(r, "parity", ATT, lanes),
@@ -1965,20 +2274,14 @@ def main(argv=None) -> int:
     def march(with_idx=False):
         return march_trilinear_fused(vol, src32, dirs32, N_SAMPLES, with_idx=with_idx)
 
-    k2_ms, k2_plain = _paired_ms(march, lambda: march_trilinear(vol, src32, dirs32, N_SAMPLES,
-                                                                with_idx=False), 20)
+    k2_ms, k2_plain, k2_host_us = _paired_ms(
+        march, lambda: march_trilinear(vol, src32, dirs32, N_SAMPLES, with_idx=False), 20)
     k2_idx_ms = _event_ms(lambda: march(True), 20)
     k2_us = _kernel_device_us(march, "trilinear_march_kernel", 20)
     k2_idx_us = _kernel_device_us(lambda: march(True), "trilinear_march_kernel", 20)
     points_ms = _event_ms(lambda: sample_trilinear_fused(vol, pts_main), 20)
     points_us = _kernel_device_us(lambda: sample_trilinear_fused(vol, pts_main),
                                   "trilinear_points_kernel", 20)
-    # the ray form wrapper's host time per call: 50 calls queued without a synchronize
-    t0 = time.perf_counter()
-    for _ in range(50):
-        march()
-    k2_host_us = (time.perf_counter() - t0) / 50 * 1e6
-    torch.cuda.synchronize()
     rp_ms = _event_ms(lambda: ray_points(src32, dirs32, N_SAMPLES), 20)
     old_way_ms = _event_ms(lambda: sample_trilinear_fused(
         vol, ray_points(src32, dirs32, N_SAMPLES)), 20)
@@ -2010,7 +2313,7 @@ def main(argv=None) -> int:
     points_bound = _bound(28.0 * n_pts + 32.0 * sectors, K2_OPS_PER_POINT * n_pts)
     print(f"times [{card}]: K2 ray form {tuple(pts_main.shape[:-1])}, values only {k2_ms:.4f} ms "
           f"(CUDA events, wrapper included; {k2_us:.2f} us alone, profiler; the wrapper's host "
-          f"time {k2_host_us:.2f} us a call) vs plain "
+          f"time {k2_host_us:.2f} us a call in the same runs) vs plain "
           f"{k2_plain:.4f} ms vs F.grid_sample (values only) {gs_ms:.4f} ms, which is "
           f"{gs_err:.3e} from K2 (limit {gs_tol:.3e}); bound: 4 B x {n_pts} points + "
           f"{sectors} distinct 32-byte volume sectors + sources and fan = "
@@ -2027,6 +2330,7 @@ def main(argv=None) -> int:
           f"alone); ray_points alone {rp_ms:.4f} ms; ray_points + points form (the renderer's "
           f"way before the ray form) {old_way_ms:.4f} ms vs the ray form's {k2_ms:.4f} ms",
           flush=True)
+    bwd_times = _backward_times(dev, vol, r_tri, src32, dirs, rng, card)
     _tier_latencies(svc, rng, card, "request")
     _request_profiles(svc, rng, card, "request")
 
@@ -2037,7 +2341,7 @@ def main(argv=None) -> int:
     train = _training_phase(dev, vol)
 
     # -- 8. times of the training step ----------------------------------------
-    _training_times(dev, train, card)
+    train_times = _training_times(dev, train, card)
 
     # -- 9. image formation at full width -------------------------------------
     bmode = _image_formation_phase(dev, vol, rng, card)
@@ -2084,7 +2388,29 @@ def main(argv=None) -> int:
          "bound_by": k3["bound_by"], "library_ms": k3["library_ms"],
          "ns_per_row": k3["ns_per_row"], "plain_ns_per_row": k3["plain_ns_per_row"]},
     ]
-    for k in kernels[:2]:
+    # the backward kernels' path is training's (phase 7): launches there
+    k1b_rec, k2b_vol = bwd_times["k1b_recovery"], bwd_times["k2b_volume"]
+    kernels += [
+        {"name": "echo_scan_bwd", "route": "cuda",
+         "source": "diffus_tpu_torch/csrc/echo_scan_bwd.cu",
+         "replaces": "diffus_tpu/kernels/propagation_pallas.py:145",
+         "launches": train["launches"]["echo_scan_bwd"], "max_abs_err": bwd_checks["k1b_err"],
+         "ms": k1b_rec["ms"], "plain_ms": k1b_rec["plain_ms"], "bound_ms": k1b_rec["bound_ms"],
+         "bound_by": k1b_rec["bound_by"], "library_ms": None, "lanes": k1.LANES,
+         "device_us": k1b_rec["device_us"], "host_us": k1b_rec["host_us"],
+         "shape": k1b_rec["shape"], "training_shape": bwd_times["k1b_training"],
+         "step_times": {"training": train_times, "recovery": recovery["times"]}},
+        {"name": "trilinear_bwd", "route": "cuda",
+         "source": "diffus_tpu_torch/csrc/trilinear_bwd.cu",
+         "replaces": "diffus_tpu/kernels/tile_select_pallas.py:153",
+         "launches": train["launches"]["trilinear_bwd"], "max_abs_err": bwd_checks["k2b_err"],
+         "ms": k2b_vol["ms"], "plain_ms": k2b_vol["plain_ms"], "bound_ms": k2b_vol["bound_ms"],
+         "bound_by": k2b_vol["bound_by"], "library_ms": k2b_vol["library_ms"],
+         "device_us": k2b_vol["device_us"], "host_us": k2b_vol["host_us"],
+         "form": "volume gradient, 1 pose", "points_form": bwd_times["k2b_points"],
+         "max_rel_err_vs_autograd": bwd_checks["k2b_vs_autograd"]},
+    ]
+    for k in kernels[:2] + kernels[3:]:
         k["mesh_launches"] = meshed["launches"][k["name"]]
         k["training_launches"] = train["launches"][k["name"]]
         k["image_formation_launches"] = bmode["launches"][k["name"]]

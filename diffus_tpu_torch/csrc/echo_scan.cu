@@ -65,62 +65,12 @@
 //    (diffus_tpu_torch/kernels/propagation_cuda.py), which follows this
 //    order step for step.
 
-#include <cuda_runtime.h>
-#include <cfloat>
-#include <climits>
-#include <cstdint>
+#include "echo_scan_common.cuh"
 
 namespace {
 
 constexpr int kWarpsPerBlock = 2;
 constexpr int kThreads = 32 * kWarpsPerBlock;
-constexpr unsigned kFullMask = 0xffffffffu;
-
-// The larger of a and b, NaN if either is NaN (PTX max.NaN, sm_80 and later),
-// as jnp.maximum and torch.maximum; fmaxf would drop the NaN.
-__device__ __forceinline__ float max_nan(float a, float b) {
-  float m;
-  asm("max.NaN.f32 %0, %1, %2;" : "=f"(m) : "f"(a), "f"(b));
-  return m;
-}
-
-__device__ __forceinline__ float nan_to_num(float v) {
-  if (isnan(v)) return 0.0f;
-  if (isinf(v)) return v > 0.0f ? FLT_MAX : -FLT_MAX;
-  return v;
-}
-
-struct Mat {
-  float a, b, c, d;
-};
-
-__device__ __forceinline__ Mat renormalized(float a, float b, float c, float d) {
-  const float s = max_nan(max_nan(fabsf(a), fabsf(b)), max_nan(fabsf(c), fabsf(d)));
-  const float inv = 1.0f / max_nan(s, 1e-30f);
-  return {a * inv, b * inv, c * inv, d * inv};
-}
-
-// The later product q left-multiplies the earlier p (ops/propagation.py _combine).
-__device__ __forceinline__ Mat combine(const Mat& p, const Mat& q) {
-  return renormalized(q.a * p.a + q.b * p.c, q.a * p.b + q.b * p.d,
-                      q.c * p.a + q.d * p.c, q.c * p.b + q.d * p.d);
-}
-
-// One interface [[k, r], [-rho, 1]] left-multiplies the carry p; without
-// FMAs, -rho pa + 1 pc rounds as the Pallas kernel's pc - rho pa.
-template <bool kParity>
-__device__ __forceinline__ Mat step(const Mat& p, float r) {
-  const float k = kParity ? 1.0f - 2.0f * r * r : 1.0f;
-  return combine(p, {k, r, kParity ? -r : r, 1.0f});
-}
-
-template <int kLanes>
-__device__ __forceinline__ Mat shfl_up(const Mat& m, int delta) {
-  return {__shfl_up_sync(kFullMask, m.a, delta, kLanes),
-          __shfl_up_sync(kFullMask, m.b, delta, kLanes),
-          __shfl_up_sync(kFullMask, m.c, delta, kLanes),
-          __shfl_up_sync(kFullMask, m.d, delta, kLanes)};
-}
 
 // r: (b, n) f32; att: (n + 1,) f32; out: (b, n + 1) f32.  A warp holds 32 / kLanes
 // rays; its shared rows are 32 chunks of `stride` floats, lane i's at i * stride.
@@ -135,42 +85,24 @@ echo_scan_kernel(const float* __restrict__ r, const float* __restrict__ att,
   const int64_t first = (static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + warp) * kRays;
   float* const rows = smem + warp * 32 * stride;
   float* const chunk = rows + lane * stride;
-  // (jc, ji) = (j / c, j % c), kept as j steps by 32, with no division per step
-  const int dq = 32 / c, dm = 32 % c;
 
   for (int g = 0; g < kRays; ++g) {
     const bool ok = first + g < b;
     const float* src = r + (first + g) * n;
     float* dst = rows + g * kLanes * stride;
-    int jc = lane / c, ji = lane % c;
-    for (int j = lane; j < kLanes * c; j += 32) {
-      dst[jc * stride + ji] = (ok && j < n) ? src[j] : 0.0f;
-      jc += dq;
-      ji += dm;
-      if (ji >= c) {
-        ji -= c;
-        ++jc;
-      }
-    }
+    ChunkPos pos(lane, c);
+    for (int j = lane; j < kLanes * c; j += 32, pos.advance32())
+      dst[pos.at(stride)] = (ok && j < n) ? src[j] : 0.0f;
   }
   __syncwarp();
 
-  // pass 1: this chunk's product
-  Mat q = {1.0f, 0.0f, 0.0f, 1.0f};
-  for (int i = 0; i < c; ++i) q = step<kParity>(q, chunk[i]);
-
-  // inclusive scan over the group's chunks, then shifted by one: the carry in
-#pragma unroll
-  for (int o = 1; o < kLanes; o <<= 1) {
-    const Mat p = shfl_up<kLanes>(q, o);
-    if (l >= o) q = combine(p, q);
-  }
-  Mat carry = shfl_up<kLanes>(q, 1);
-  if (l == 0) carry = {1.0f, 0.0f, 0.0f, 1.0f};
+  // pass 1 and the scan over the group's chunks: the carry in
+  Mat<float> carry = carry_in<kParity, kLanes, float>(chunk, c, l);
 
   // pass 2: replay the chunk from the carry
+  float inv;
   for (int i = 0; i < c; ++i) {
-    carry = step<kParity>(carry, chunk[i]);
+    carry = step<kParity>(carry, chunk[i], inv);
     chunk[i] = nan_to_num(-(carry.c / carry.d));  // the slot of r_j now holds echo j + 1
   }
 
@@ -179,16 +111,8 @@ echo_scan_kernel(const float* __restrict__ r, const float* __restrict__ att,
     float* dst = out + (first + g) * (n + 1);
     const float* src = rows + g * kLanes * stride;
     if (lane == 0) dst[0] = 0.0f;
-    int jc = lane / c, ji = lane % c;
-    for (int j = lane; j < n; j += 32) {
-      dst[j + 1] = src[jc * stride + ji] * att[j + 1];
-      jc += dq;
-      ji += dm;
-      if (ji >= c) {
-        ji -= c;
-        ++jc;
-      }
-    }
+    ChunkPos pos(lane, c);
+    for (int j = lane; j < n; j += 32, pos.advance32()) dst[j + 1] = src[pos.at(stride)] * att[j + 1];
   }
 }
 

@@ -62,23 +62,11 @@
 //   warp's 4 x 8 patch writing 4 32-byte segments.
 // Not tried: staging a tile's corner footprint in shared memory.
 
-#include <cuda_runtime.h>
-#include <climits>
-#include <cstdint>
+#include "trilinear_common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-
-// fmaxf/fminf drop a NaN, so a NaN component reads voxel 0 as its corners;
-// its fraction stays NaN, and so does the sample, as in the plain sampler.
-__device__ __forceinline__ void corner_coords(float p, int dim, int& i0, int& i1, float& f) {
-  const float c = fminf(fmaxf(p, 0.0f), static_cast<float>(dim - 1));
-  const float fl = floorf(c);
-  f = isnan(p) ? p : c - fl;
-  i0 = static_cast<int>(fl);
-  i1 = min(i0 + 1, dim - 1);
-}
 
 // Clamped in floats first, as the plain sampler does: NaN gives index 0.
 __device__ __forceinline__ int round_clamp(float p, int dim) {
@@ -148,16 +136,13 @@ __global__ void __launch_bounds__(kThreads)
   if (r >= n_rays || k >= n) return;
   const float* s = src + 3 * p;
   const float* dv = dirs + p * dir_pose_stride + 3 * static_cast<int64_t>(r);
-  const float t = static_cast<float>(k) * step;    // ray_points: arange * step,
-  const float px = __ldg(s) + t * __ldg(dv);        // then * dir, then + source
-  const float py = __ldg(s + 1) + t * __ldg(dv + 1);
-  const float pz = __ldg(s + 2) + t * __ldg(dv + 2);
+  const float3 pt = march_point(s, dv, k, step);
   const int64_t at = (p * n_rays + r) * n + k;
-  out[at] = trilinear_at(vol, px, py, pz, d, h, w, quad);
+  out[at] = trilinear_at(vol, pt.x, pt.y, pt.z, d, h, w, quad);
   if (idx != nullptr) {
-    idx[3 * at] = round_clamp(px, d);
-    idx[3 * at + 1] = round_clamp(py, h);
-    idx[3 * at + 2] = round_clamp(pz, w);
+    idx[3 * at] = round_clamp(pt.x, d);
+    idx[3 * at + 1] = round_clamp(pt.y, h);
+    idx[3 * at + 2] = round_clamp(pt.z, w);
   }
 }
 

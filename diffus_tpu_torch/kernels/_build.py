@@ -1,7 +1,7 @@
 """Build and load the port's CUDA kernels.
 
 Each ``diffus_tpu_torch/csrc/*.cu`` compiles with its own ``nvcc``, all
-started together, and the objects link into one shared library with a
+started together (the ``*.cuh`` headers they share are hashed with them), and the objects link into one shared library with a
 plain C interface, ``diffus_tpu_torch/build/libdiffus_kernels.so``,
 loaded with ``ctypes``.  No PyTorch header is included, so a build takes
 seconds.  The build runs at first use and again whenever the sources or
@@ -42,6 +42,9 @@ _SIGNATURES = {
     # r, att, out, n, b, mode, lanes, stream
     "diffus_echo_scan": (_c, _c, _c, ctypes.c_int, ctypes.c_int64, ctypes.c_int,
                          ctypes.c_int, _c),
+    # r, grad, att, dr, n, b, mode, lanes, stream
+    "diffus_echo_scan_bwd": (_c, _c, _c, _c, ctypes.c_int, ctypes.c_int64, ctypes.c_int,
+                             ctypes.c_int, _c),
     # vol, pts, out, idx, n, d, h, w, stream
     "diffus_trilinear_sample": (_c, _c, _c, _c, ctypes.c_int64, ctypes.c_int,
                                 ctypes.c_int, ctypes.c_int, _c),
@@ -49,6 +52,12 @@ _SIGNATURES = {
     "diffus_trilinear_march": (_c, _c, _c, ctypes.c_int64, _c, _c, ctypes.c_int64,
                                ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
                                ctypes.c_int, ctypes.c_int, _c),
+    # vol, src, dirs, dir_pose_stride, grad, p, n_rays, n, step, d, h, w, dvol, acc, nan_mask,
+    # gmax, base, src_part, dir_part, dsrc_pose, dsrc_sum, ddir_sum, stream
+    "diffus_trilinear_march_bwd": (_c, _c, _c, ctypes.c_int64, _c, ctypes.c_int64, ctypes.c_int,
+                                   ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                                   ctypes.c_int, _c, _c, _c, _c, ctypes.c_int, _c, _c, _c, _c,
+                                   _c, _c),
     # table, partial, out, off, n_rows, m, n_buf, grid, stream
     "diffus_gather_probe": (_c, _c, _c, ctypes.c_int, ctypes.c_int64, ctypes.c_int,
                             ctypes.c_int, ctypes.c_int, _c),
@@ -61,7 +70,7 @@ def _sources():
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(SRC_DIR.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()

@@ -16,8 +16,8 @@ Torch has no associative scan.  :func:`echo_amplitudes` runs a log-step
 doubling (Hillis-Steele) prefix scan with the same renormalizing
 :func:`_combine`: ``ceil(log2 N)`` rounds, each combining element ``k``
 with the running product that ends ``2^j`` elements earlier.  Autograd
-through it is the gradient of the plain path and the backward of the
-fused CUDA kernel (:mod:`diffus_tpu_torch.kernels.propagation_cuda`).
+through it is the gradient of the plain path; the fused CUDA kernel
+(:mod:`diffus_tpu_torch.kernels.propagation_cuda`) has its own backward.
 """
 
 from __future__ import annotations
@@ -45,22 +45,26 @@ def transfer_matrix_elements(r: torch.Tensor, rho: torch.Tensor):
     return a, b, c, d
 
 
-def _combine(p, q):
-    """Later element ``q`` left-multiplies ``p`` (``Q @ P``), renormalized
-    by the max-abs entry.  ``torch.maximum`` propagates NaN like
-    ``jnp.maximum``, so a NaN interface poisons every deeper product."""
-    pa, pb, pc, pd = p
-    qa, qb, qc, qd = q
-    a = qa * pa + qb * pc
-    b = qa * pb + qb * pd
-    c = qc * pa + qd * pc
-    d = qc * pb + qd * pd
+def _renormalized(a, b, c, d):
+    """``(a, b, c, d)`` scaled by ``inv = 1 / max-abs entry`` (floored at
+    ``_TINY``); returns the entries and ``inv``.  ``torch.maximum``
+    propagates NaN like ``jnp.maximum``, so a NaN interface poisons every
+    deeper product."""
     s = torch.maximum(
         torch.maximum(torch.abs(a), torch.abs(b)),
         torch.maximum(torch.abs(c), torch.abs(d)),
     )
     inv = 1.0 / torch.clamp_min(s, _TINY)
-    return a * inv, b * inv, c * inv, d * inv
+    return (a * inv, b * inv, c * inv, d * inv), inv
+
+
+def _combine(p, q):
+    """Later element ``q`` left-multiplies ``p`` (``Q @ P``), renormalized
+    by the max-abs entry (:func:`_renormalized`)."""
+    pa, pb, pc, pd = p
+    qa, qb, qc, qd = q
+    return _renormalized(qa * pa + qb * pc, qa * pb + qb * pd,
+                         qc * pa + qd * pc, qc * pb + qd * pd)[0]
 
 
 def impedance_weighted_rho(r: torch.Tensor, z1: torch.Tensor, z2: torch.Tensor) -> torch.Tensor:

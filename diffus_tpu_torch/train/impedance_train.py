@@ -6,8 +6,9 @@ volume, the differentiable renderer and splat make a synthetic B-mode
 image, and an image loss (SSIM, or masked MSE + edge) backpropagates
 through the whole render, echo scan included, into the MLP's weights.
 With ``render.use_pallas=True`` the scan runs through kernel K1 and with
-``render.interp='trilinear_fused'`` the sampler through K2; their
-backward passes run autograd through the plain versions.
+``render.interp='trilinear_fused'`` the sampler through K2, and on the
+card their gradients through K1b and K2b (the volume gradient summed in
+fixed point, so a step repeats bit for bit under deterministic algorithms).
 
 The JAX package jits one pure ``train_step`` and scans it over epochs.
 Here a step is eager PyTorch: :func:`train_step` updates the module and

@@ -15,6 +15,8 @@ from diffus_tpu_torch.kernels.gather_probe import gather_probe, take_probe
 from diffus_tpu_torch.kernels.propagation_cuda import (
     _att_table,
     _launch,
+    _launch_bwd,
+    echo_backward_plain,
     echo_chunked_plain,
     echo_fused,
     echo_plain,
@@ -137,6 +139,54 @@ def test_echo_kernel_gradient_matches_plain(cuda):
     (echo_fused(r1, "parity", 0.1) ** 2).sum().backward()
     (echo_plain(r2, "parity", 0.1) ** 2).sum().backward()
     torch.testing.assert_close(r1.grad, r2.grad, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [8, 16, 32])
+def test_echo_backward_kernel_matches_its_twin_bit_for_bit(cuda, lanes):
+    """K1b and ``echo_backward_plain`` run the same IEEE f64 operations in
+    the same order: equal bit for bit (NaN where NaN: the NaN and d' = 0
+    rows), at depths below, at and above the lane count, training's 401 and
+    recovery's 511, and rays that leave a lane group part-empty."""
+    rng = np.random.default_rng(10)
+    for n in (1, 3, 17, 31, 33, 40, 128, 401, 511):
+        for b in (1, 5, 37):
+            r = torch.from_numpy(_k1_rows(rng, b, n, 0.3)).to(cuda)
+            g = torch.from_numpy(rng.normal(size=(b, n + 1)).astype(np.float32)).to(cuda)
+            for mode in ("parity", "symmetric"):
+                got = _launch_bwd(r, g, mode, 1e-3, lanes)
+                want = echo_backward_plain(r, g, mode, 1e-3, lanes)
+                torch.cuda.synchronize()
+                assert _same(got, want), (n, b, mode)
+                if n >= 3 and b >= 3:
+                    row = 1 if mode == "parity" else 2
+                    assert bool(torch.isnan(got[[0, row]]).all()), (n, b, mode)
+
+
+@pytest.mark.cuda
+def test_echo_gradient_launches_k1b(cuda):
+    """``echo_fused``'s gradient on the card is K1b's: one backward launch,
+    and close to autograd through the plain scan."""
+    r0 = torch.from_numpy(np.random.default_rng(11).uniform(-0.4, 0.4, (4, 60))
+                          .astype(np.float32)).to(cuda)
+    r = r0.clone().requires_grad_(True)
+    before = echo_fused.bwd_launches
+    (echo_fused(r, "symmetric", 0.05) ** 2).sum().backward()
+    assert echo_fused.bwd_launches == before + 1
+    rp = r0.clone().requires_grad_(True)
+    (echo_plain(rp, "symmetric", 0.05) ** 2).sum().backward()
+    torch.testing.assert_close(r.grad, rp.grad, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_echo_backward_kernel_rejects(cuda):
+    r, g = torch.zeros((2, 8), device=cuda), torch.zeros((2, 9), device=cuda)
+    with pytest.raises(TypeError, match="float32"):
+        _launch_bwd(r.to(torch.bfloat16), g, "parity", 0.1)
+    with pytest.raises(TypeError, match="float32 grad"):
+        _launch_bwd(r, g.double(), "parity", 0.1)
+    with pytest.raises(TypeError, match="float32 grad"):
+        _launch_bwd(r, g.cpu(), "parity", 0.1)
 
 
 @pytest.mark.cuda
@@ -286,6 +336,95 @@ def test_march_kernel_gradients_match_plain(cuda):
     src = src0.clone().requires_grad_(True)
     march_trilinear_fused(vol0, src, dirs0, 30, 0.7, with_idx=False)[1].sum().backward()
     assert src.grad is not None and bool(torch.isfinite(src.grad).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("need", [(True, False, False), (False, True, True), (True, True, True)],
+                         ids=["volume", "points", "all"])
+@pytest.mark.parametrize("per_pose", [False, True])
+def test_march_backward_kernel_matches_its_twin_bit_for_bit(cuda, per_pose, need):
+    """K2b and ``march_trilinear_backward_plain`` equal bit for bit, NaN
+    where NaN, at P, R and N off every tile, a NaN source and a pose outside
+    the volume; a shared fan's direction gradient summed over the poses."""
+    rng = np.random.default_rng(12)
+    for p, r, n in ((1, 1, 1), (3, 37, 13), (5, 9, 130), (2, 33, 515)):
+        vol, src, dirs = _march_case(rng, cuda, p, r, per_pose, 12)
+        if not per_pose:
+            dirs = dirs[0]                      # (R, 3): summed over the poses
+        g = torch.from_numpy(rng.normal(size=(p, r, n)).astype(np.float32)).to(cuda)
+        got = k2._launch_march_bwd(vol, src, dirs, n, 0.5, g, need)
+        want = k2.march_trilinear_backward_plain(vol, src, dirs, n, 0.5, g, need)
+        torch.cuda.synchronize()
+        for a, w in zip(got, want):
+            assert (a is None) == (w is None)
+            assert a is None or _same(a, w), (p, r, n)
+
+
+@pytest.mark.cuda
+def test_march_gradient_launches_k2b_and_is_deterministic(cuda):
+    """The ray form's gradient on the card is K2b's, one launch a backward,
+    and the volume gradient repeats bit for bit (fixed-point sums)."""
+    vol0 = torch.from_numpy(brain_phantom_3d((20, 24, 22)) / 1e6).to(cuda)
+    dirs = fan_directions_2d([0.0, 1.0], np.radians(45.0), 16, device=cuda)
+    src = torch.tensor([[10.3, 1.2, 11.7], [9.1, 2.0, 10.2]], device=cuda)
+    grads = []
+    for _ in range(2):
+        vol = vol0.clone().requires_grad_(True)
+        before = march_trilinear_fused.bwd_launches
+        march_trilinear_fused(vol, src, dirs, 30, 0.7)[1].square().sum().backward()
+        assert march_trilinear_fused.bwd_launches == before + 1
+        grads.append(vol.grad)
+    assert torch.equal(grads[0], grads[1])
+
+
+@pytest.mark.cuda
+def test_march_backward_kernel_rejects(cuda):
+    vol = torch.ones((4, 4, 4), device=cuda)
+    src, dirs = torch.zeros((2, 3), device=cuda), torch.ones((2, 5, 3), device=cuda)
+    g = torch.zeros((2, 5, 8), device=cuda)
+    with pytest.raises(TypeError, match="float32"):
+        k2._launch_march_bwd(vol.to(torch.bfloat16), src, dirs, 8, 1.0, g, (True, True, True))
+    with pytest.raises(TypeError, match="float32"):
+        k2._launch_march_bwd(vol, src, dirs, 8, 1.0, g.double(), (True, True, True))
+    with pytest.raises(ValueError, match="cpu"):
+        k2._launch_march_bwd(vol, src, dirs, 8, 1.0, g.cpu(), (True, True, True))
+
+
+@pytest.mark.cuda
+def test_remat_train_step_on_the_card(cuda):
+    """``ImpedanceTrainConfig.remat`` (``torch.utils.checkpoint``) reruns
+    the forward in the backward; K1b and K2b launch once each and give the
+    step without remat's gradients."""
+    import copy
+    import dataclasses
+
+    from diffus_tpu_torch.impedance.mlp import init_params
+    from diffus_tpu_torch.phantoms import t1_phantom_3d
+    from diffus_tpu_torch.train import ImpedanceTrainConfig, make_optimizer, train_step
+    from diffus_tpu_torch.types import RenderConfig
+
+    t1 = torch.from_numpy(t1_phantom_3d((24, 24, 24))).to(cuda)
+    dirs = fan_directions_2d([0.0, 1.0], np.radians(40.0), 8, device=cuda)
+    src = torch.tensor([12.0, 1.0, 12.0], device=cuda)
+    cfg = ImpedanceTrainConfig(num_samples=20, slice_index=12, image_shape=(32, 32),
+                               render=RenderConfig(attenuation_coeff=1e-4,
+                                                   interp="trilinear_fused", use_pallas=True))
+    target = torch.rand((32, 32), generator=torch.Generator().manual_seed(0)).to(cuda)
+    mask = torch.ones_like(target, dtype=torch.bool)
+    model0 = init_params(torch.Generator().manual_seed(0), cfg.hidden, cuda)
+    out = {}
+    for remat in (False, True):
+        c = dataclasses.replace(cfg, remat=remat)
+        model = copy.deepcopy(model0)
+        before = (echo_fused.bwd_launches, march_trilinear_fused.bwd_launches)
+        loss = train_step(model, make_optimizer(model, c), t1, target, mask, src, dirs, c)
+        assert (echo_fused.bwd_launches, march_trilinear_fused.bwd_launches) == (
+            before[0] + 1, before[1] + 1)
+        out[remat] = (loss, [p.grad for p in model.parameters()])
+    # the splat's scatter-add uses atomics: the two forwards may differ in rounding
+    torch.testing.assert_close(out[True][0], out[False][0], rtol=1e-5, atol=0)
+    for a, b in zip(out[True][1], out[False][1]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6 * float(b.abs().max()))
 
 
 @pytest.mark.cuda

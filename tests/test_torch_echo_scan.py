@@ -1,4 +1,4 @@
-"""Kernel K1's evaluation order, ``echo_chunked_plain``, against ``diffus_tpu``.
+"""Kernel K1's and K1b's evaluation orders against ``diffus_tpu``.
 
 ``csrc/echo_scan.cu`` cuts each ray's depth into ``lanes`` chunks, scans
 the chunks' products across the lanes and replays each chunk from its
@@ -6,10 +6,15 @@ carry.  ``echo_chunked_plain`` is that order in plain PyTorch; here it is
 held, on the CPU, against JAX's ``echo_pallas`` (the Pallas kernel in
 interpret mode), against the plain scan's distance from float64, and
 against the sequential scan (one lane) on its first two chunks.
+``echo_backward_plain`` is K1b's order (``csrc/echo_scan_bwd.cu``, the
+gradient): it is held against ``jax.grad`` through ``echo_pallas`` (whose
+custom VJP runs the XLA scan), against autograd through the plain scan in
+float64, and on the NaN and d' = 0 rows.
 """
 
 import functools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,6 +25,8 @@ from diffus_tpu_torch.geometry import fan_directions_2d
 from diffus_tpu_torch.kernels.propagation_cuda import (
     _att_table,
     _launch,
+    _launch_bwd,
+    echo_backward_plain,
     echo_chunked_plain,
     echo_plain,
 )
@@ -162,3 +169,117 @@ def test_launch_rejects_before_touching_the_card():
         _launch(torch.zeros((2, 8), dtype=torch.float64), "parity", 0.1)
     with pytest.raises(ValueError, match="8, 16 or 32"):
         _launch(torch.zeros((2, 8)), "parity", 0.1, lanes=4)
+
+
+# --- K1b: the gradient, echo_backward_plain -------------------------------
+
+
+def _cotangents(rows: int, n: int, seed: int = 40) -> np.ndarray:
+    """A seeded gradient of the echo trace, ``(rows, n + 1)`` f32."""
+    return seeded(seed).normal(size=(rows, n + 1)).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _pallas_vjp(n: int, mode: str) -> np.ndarray:
+    r, g = _phantom_reflections(n), _cotangents(16, n)
+    return np.asarray(jax.grad(lambda x: jnp.sum(echo_pallas(x, mode, ATT) * g))(jnp.asarray(r)))
+
+
+def _twin_vjp(r: np.ndarray, g: np.ndarray, mode: str, att: float, lanes: int) -> np.ndarray:
+    return echo_backward_plain(torch.from_numpy(r.copy()), torch.from_numpy(g.copy()), mode,
+                               att, lanes).numpy()
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("n", [1, 17, 31, 33, 128])
+@pytest.mark.parametrize("lanes", LANES)
+def test_backward_matches_pallas_vjp_on_phantom_reflections(lanes, n, mode):
+    """rtol 1e-4, atol 1e-6 against ``jax.grad`` through ``echo_pallas``, on
+    rendered reflections (random rows sit near resonances).  Depth 511 is
+    held to float64 below: there JAX's own f32 gradient is ~3 of these
+    tolerance units from float64."""
+    got = _twin_vjp(_phantom_reflections(n), _cotangents(16, n), mode, ATT, lanes)
+    want = _pallas_vjp(n, mode)
+    assert got.shape == want.shape == (16, n) and got.dtype == np.float32
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("n", [128, 511])
+@pytest.mark.parametrize("lanes", LANES)
+def test_backward_no_further_from_f64_than_twice_plain_autograd(lanes, n, mode):
+    """At most 2x as far from autograd through the plain scan in float64 as
+    autograd through it in f32 is (units of rtol 1e-4, atol 1e-6).  The twin
+    runs in float64 from the f32 inputs, so it is ~10x nearer."""
+    r, g = _phantom_reflections(n), torch.from_numpy(_cotangents(16, n))
+    x64 = torch.from_numpy(r.astype(np.float64)).requires_grad_(True)
+    (ref,) = torch.autograd.grad(echo_plain(x64, mode, ATT), x64, g.double())
+    x32 = torch.from_numpy(r.copy()).requires_grad_(True)
+    (plain,) = torch.autograd.grad(echo_plain(x32, mode, ATT), x32, g)
+    u_twin = _tol_units(torch.from_numpy(_twin_vjp(r, g.numpy(), mode, ATT, lanes)), ref)
+    u_plain = _tol_units(plain, ref)
+    assert u_twin <= 2.0 * u_plain, (u_twin, u_plain)
+
+
+@pytest.mark.parametrize("lanes", [1, 8, 32])
+@pytest.mark.parametrize("mode", MODES)
+def test_backward_in_float64_is_the_vjp(mode, lanes):
+    """Given float64, the twin is autograd through the plain scan in float64
+    (the path through the renormalization adds nothing in exact
+    arithmetic), at every lane count, N off the chunk sizes."""
+    r = torch.from_numpy(seeded(41).uniform(-0.5, 0.5, (6, 45)))
+    g = torch.from_numpy(seeded(42).normal(size=(6, 46)))
+    x = r.clone().requires_grad_(True)
+    (want,) = torch.autograd.grad(echo_plain(x, mode, 0.01), x, g)
+    got = echo_backward_plain(r, g, mode, 0.01, lanes)
+    assert got.dtype == torch.float64
+    torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-14)
+
+
+@pytest.mark.parametrize("n", [3, 40])
+@pytest.mark.parametrize("lanes", LANES)
+def test_backward_nan_and_singular_rows_match_pallas_vjp(lanes, n):
+    """Row by row against ``jax.grad`` through ``echo_pallas``: a NaN
+    interface makes the row's whole gradient NaN (``nan_to_num`` passes no
+    gradient, and the division's backward forms 0/NaN); so does d' = 0 at
+    depth 2 (0/0); the other row is finite and close."""
+    rows = seeded(30).uniform(-0.5, 0.5, (3, n)).astype(np.float32)
+    rows[0, 1] = np.nan
+    rows[1:, 2:] = 0.0
+    rows[1, :2] = [2.0, 0.5]
+    rows[2, :2] = [2.0, -0.5]
+    g = _cotangents(3, n, 43)
+    for mode, row, finite in (("parity", 1, 2), ("symmetric", 2, 1)):
+        got = _twin_vjp(rows, g, mode, 0.0, lanes)
+        want = np.asarray(jax.grad(lambda x: jnp.sum(echo_pallas(x, mode, 0.0) * g))(
+            jnp.asarray(rows)))
+        np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+        assert np.isnan(got[[0, row]]).all() and np.isfinite(got[finite]).all()
+        np.testing.assert_allclose(got[finite], want[finite], rtol=1e-4, atol=1e-6)
+
+
+def test_backward_shapes_and_empty_depth():
+    r = torch.from_numpy(seeded(44).uniform(-0.5, 0.5, (2, 3, 20)).astype(np.float32))
+    g = torch.from_numpy(seeded(45).normal(size=(2, 3, 21)).astype(np.float32))
+    dr = echo_backward_plain(r, g, "symmetric", 0.1, 8)
+    assert dr.shape == (2, 3, 20)
+    torch.testing.assert_close(dr.reshape(6, 20), echo_backward_plain(
+        r.reshape(6, 20), g.reshape(6, 21), "symmetric", 0.1, 8), rtol=0, atol=0)
+    assert echo_backward_plain(torch.zeros((4, 0)), torch.ones((4, 1)), "parity").shape == (4, 0)
+    with pytest.raises(ValueError, match="grad"):
+        echo_backward_plain(r, g[..., 1:], "parity", 0.1)
+    with pytest.raises(ValueError, match="unsupported"):
+        echo_backward_plain(r, g, "physical", 0.1)
+
+
+def test_backward_launch_rejects_before_touching_the_card():
+    """K1b's wrapper checks its inputs before the library is loaded or built."""
+    r, g = torch.zeros((2, 8)), torch.zeros((2, 9))
+    with pytest.raises(TypeError, match="float32"):
+        _launch_bwd(r.double(), g, "parity", 0.1)
+    with pytest.raises(TypeError, match="float32 grad"):
+        _launch_bwd(r, g.double(), "parity", 0.1)
+    with pytest.raises(ValueError, match="8, 16 or 32"):
+        _launch_bwd(r, g, "parity", 0.1, lanes=4)
+    with pytest.raises(ValueError, match="grad"):
+        _launch_bwd(r, g[:, :8], "parity", 0.1)

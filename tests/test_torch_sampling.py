@@ -1,4 +1,6 @@
-"""The port's samplers and kernel K2's plain path against ``diffus_tpu``.
+"""The port's samplers and kernel K2's plain path against ``diffus_tpu``,
+and K2b's order (``march_trilinear_backward_plain``, the ray form's
+gradient) against ``jax.grad`` through JAX's ``trace_rays``.
 
 Tolerances follow ``tests/test_pallas_kernel.py:167-217``.
 """
@@ -15,7 +17,13 @@ from diffus_tpu.phantoms import brain_phantom_3d
 from diffus_tpu.types import RenderConfig
 from diffus_tpu.render.renderer import trace_rays as jax_trace_rays
 import diffus_tpu_torch.ops.sampling as ts
-from diffus_tpu_torch.kernels.trilinear_cuda import march_trilinear_fused, sample_trilinear_fused
+from diffus_tpu_torch.kernels.trilinear_cuda import (
+    _launch_march_bwd,
+    _warp_sum,
+    march_trilinear_backward_plain,
+    march_trilinear_fused,
+    sample_trilinear_fused,
+)
 from diffus_tpu_torch.render.renderer import trace_rays
 from torch_parity import assert_parity, seeded
 
@@ -211,3 +219,151 @@ def test_march_gradients_match_jax():
     np.testing.assert_allclose(leaves[0].grad.numpy(), np.asarray(want[0]), rtol=1e-4, atol=1e-6)
     for got, w in zip(leaves[1:], want[1:]):
         np.testing.assert_allclose(got.grad.numpy(), np.asarray(w), rtol=1e-4, atol=1e-5)
+
+
+# --- K2b: the ray form's gradient, march_trilinear_backward_plain ----------
+
+
+def _jax_values(vol, src, dirs, n, step):
+    """JAX's trace_rays (Pallas ``tile_select`` in interpret mode) over
+    ``(P, 3)`` sources and a shared ``(R, 3)`` or per-pose ``(P, R, 3)`` fan."""
+    def one(s, d):
+        return jax_trace_rays(vol, s, d, n, "trilinear_fused", step)[1]
+    if dirs.ndim == 2:
+        return jax.vmap(lambda s: one(s, dirs))(src)
+    return jax.vmap(one)(src, dirs)
+
+
+def _k2b_case(name):
+    """(volume, sources, directions, n, step) as numpy f32.  ``faces``: a
+    source exactly on the x face ``dim - 1`` whose rays run along it (every
+    sample at ``x = dim - 1``), out of it, and out of the other faces, so
+    samples clamp at each face; ``nan``: per-pose fans, one source with a
+    NaN component and one outside the volume."""
+    vol, _, fan = _march_inputs(False, nan_source=False)
+    vol, fan = vol.numpy(), fan.numpy()
+    rng = seeded(35)
+    if name == "faces":
+        src = np.array([[19.0, 5.3, 7.1], [-3.2, 25.4, 7.1], [10.3, 12.2, 24.6]], np.float32)
+        dirs = np.array([[0, 1, 0], [0, 0.6, 0.8], [1, 0, 0], [-1, 0, 0], [0, 0, -1],
+                         [0, -1, 0]], np.float32)
+        return vol, src, dirs, 40, 0.8
+    src = rng.uniform(4.0, 16.0, (3, 3)).astype(np.float32)
+    if name == "shared_fan":
+        return vol, src, fan, 30, 0.8
+    dirs = (fan[None] + rng.normal(0.0, 0.1, (3,) + fan.shape)).astype(np.float32)
+    if name == "nan":
+        src[1, 1] = np.nan
+        src[2] = [-9.0, 30.0, -4.0]
+    return vol, src, dirs, 30, 0.8
+
+
+@pytest.mark.parametrize("name", ["per_pose", "shared_fan", "faces", "nan"])
+def test_march_backward_matches_jax(name):
+    """The volume's, the sources' and the directions' gradients against
+    ``jax.grad`` through JAX's ``trace_rays`` at
+    ``test_march_gradients_match_jax``'s tolerances, with a shared fan's
+    gradient summed over the poses.  The sources' and directions' NaN
+    pattern is JAX's ((NaN, 0, NaN) for a NaN y: the clamp passes nothing to
+    a NaN component).  JAX's tile rows spread a NaN point's NaN over a whole
+    128-lane row of the volume's gradient, the twin (and the plain sampler)
+    over the point's 8 corners: the twin's NaN voxels are JAX's, and the
+    finite voxels agree."""
+    vol, src, dirs, n, step = _k2b_case(name)
+    g = seeded(36).normal(size=(src.shape[0], dirs.shape[-2], n)).astype(np.float32)
+    want = jax.grad(lambda v, s, d: jnp.sum(_jax_values(v, s, d, n, step) * g),
+                    argnums=(0, 1, 2))(jnp.asarray(vol), jnp.asarray(src), jnp.asarray(dirs))
+    got = march_trilinear_backward_plain(*(torch.from_numpy(a) for a in (vol, src, dirs)), n,
+                                         step, torch.from_numpy(g))
+    got, want = [t.numpy() for t in got], [np.asarray(w) for w in want]
+    for a, w in zip(got, want):
+        assert a.shape == w.shape and a.dtype == np.float32
+    nan_v = np.isnan(got[0])
+    assert np.all(np.isnan(want[0])[nan_v]) and (name == "nan") == bool(nan_v.any())
+    both = ~np.isnan(want[0])
+    np.testing.assert_allclose(got[0][both], want[0][both], rtol=1e-4, atol=1e-6)
+    for a, w in zip(got[1:], want[1:]):
+        np.testing.assert_array_equal(np.isnan(a), np.isnan(w))
+        np.testing.assert_allclose(a, w, rtol=1e-4, atol=1e-5)
+    if name == "nan":
+        assert np.isnan(got[1][1]).tolist() == [True, False, True] and got[1][1][1] == 0.0
+
+
+@pytest.mark.parametrize("source_shape, dirs_shape", [
+    ("(P, 3)", "(R, 3)"), ("(P, 3)", "(P, R, 3)"), ("(P, 3)", "expanded"), ("(P, 3)", "(1, R, 3)"),
+    ("(3,)", "(P, R, 3)"), ("(3,)", "expanded"), ("(1, 3)", "(P, R, 3)"), ("(1, 3)", "(1, R, 3)")])
+def test_march_backward_matches_plain_autograd(source_shape, dirs_shape):
+    """Against autograd through the plain sampler (the CPU path), NaN where
+    NaN, for every way the sources and directions broadcast: each gradient
+    in its input's shape, a shared input's summed over the poses (an
+    expanded view's per pose, which autograd then sums).  Samples exactly on
+    the lower face ``p = 0`` included: ``torch.clamp(min=0)`` passes their
+    whole gradient (``jnp.clip`` passes half)."""
+    vol, src, fan = _march_inputs(True, p=4, r=5)
+    src[3] = torch.tensor([0.0, 3.0, 5.5])          # rays along x = 0 ...
+    fan[3, 0] = torch.tensor([0.0, 1.0, 0.0])       # ... on the face itself
+    if source_shape != "(P, 3)":
+        src = src[3:] if source_shape == "(1, 3)" else src[3]
+    if dirs_shape == "(R, 3)":
+        dirs = fan[3]
+    elif dirs_shape == "(1, R, 3)":
+        dirs = fan[3:]
+    elif dirs_shape == "expanded":
+        dirs = fan[3].expand(4, -1, -1)
+    else:
+        dirs = fan
+    p = 1 if source_shape == "(1, 3)" and dirs_shape == "(1, R, 3)" else 4
+    g = torch.from_numpy(seeded(37).normal(size=(p, 5, 25)).astype(np.float32))
+    leaves = [t.detach().clone().requires_grad_(True) for t in (vol, src, dirs)]
+    (ts.march_trilinear(*leaves, 25, 0.9)[1] * g).sum().backward()
+    got = march_trilinear_backward_plain(vol, src, dirs, 25, 0.9, g)
+    for a, leaf in zip(got, leaves):
+        w = leaf.grad
+        assert a.shape == w.shape and torch.equal(torch.isnan(a), torch.isnan(w))
+        torch.testing.assert_close(a.nan_to_num(0), w.nan_to_num(0), rtol=1e-5,
+                                   atol=1e-6 * float(w.nan_to_num(0).abs().max()))
+    assert float(got[1].nan_to_num(0).abs().sum()) > 0 and float(got[2].nan_to_num(0).abs().sum()) > 0
+
+
+def test_march_backward_volume_sum_is_exact_to_f32():
+    """The volume gradient's fixed-point sums are exact to far below f32's
+    rounding: against autograd through the plain sampler in float64 on the
+    same (f32-valued) inputs, within the f32 rounding of the 8 corner
+    contributions (1e-6 of the largest voxel), on 3 poses whose rays cross."""
+    vol, src, dirs = _march_inputs(True, nan_source=False)
+    g = torch.from_numpy(seeded(38).normal(size=(3, 7, 40)).astype(np.float32))
+    dvol = march_trilinear_backward_plain(vol, src, dirs, 40, 0.7, g, (True, False, False))[0]
+    v64 = vol.double().requires_grad_(True)
+    (ref,) = torch.autograd.grad(ts.march_trilinear(v64, src.double(), dirs.double(), 40,
+                                                    0.7)[1], v64, g.double())
+    assert float((dvol.double() - ref).abs().max()) <= 1e-6 * float(ref.abs().max())
+    assert int((dvol != 0).sum()) > 100
+
+
+def test_warp_sum_order():
+    """``_warp_sum``: lane l adds elements l, l + 32, ... in turn, then the
+    lanes meet in a tree (16, 8, 4, 2, 1), as the kernel's warps do."""
+    x = torch.from_numpy(seeded(39).normal(size=(3, 77)).astype(np.float32))
+    lanes = [torch.zeros(3) for _ in range(32)]
+    for i in range(77):
+        lanes[i % 32] = lanes[i % 32] + x[:, i]
+    w = 16
+    while w:
+        lanes = [lanes[i] + lanes[i + w] for i in range(w)]
+        w //= 2
+    assert torch.equal(_warp_sum(x, 1), lanes[0])
+    assert torch.equal(_warp_sum(x.T.contiguous(), 0), lanes[0])
+    assert torch.equal(_warp_sum(torch.zeros((2, 0)), 1), torch.zeros(2))
+
+
+def test_march_backward_launch_rejects_before_touching_the_card():
+    """K2b's wrapper checks types, devices and shapes before the library is
+    loaded or built."""
+    vol, src, dirs = _march_inputs(False, nan_source=False)
+    g = torch.zeros((3, 7, 10))
+    with pytest.raises(TypeError, match="float32"):
+        _launch_march_bwd(vol.double(), src, dirs, 10, 1.0, g, (True, True, True))
+    with pytest.raises(TypeError, match="grad"):
+        _launch_march_bwd(vol, src, dirs, 10, 1.0, g.double(), (True, True, True))
+    with pytest.raises(ValueError, match="grad"):
+        _launch_march_bwd(vol, src, dirs, 10, 1.0, g[..., :9], (True, True, True))
