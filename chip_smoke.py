@@ -3,11 +3,14 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --requests    # phases 1, 2 and the service's request times only
+    python3 chip_smoke.py --backward    # phases 1, 2 and phase 5's K1b and K2b readings only
 
 ``--requests`` times the serving path alone (latency and device-time split
-per tier: K1, K2, ``ray_points`` and the rest) with whatever
-``diffus_tpu_torch`` sits beside the script, so a copy of the script
-beside another checkout's package times that package.
+per tier: K1, K2, ``ray_points`` and the rest), ``--backward`` the
+backward kernels alone (phase 5's readings of K1b and K2b, on phase 3's
+inputs), each with whatever ``diffus_tpu_torch`` sits beside the script,
+so a copy of the script beside another checkout's package times that
+package.
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -31,13 +34,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    against their twins bit for bit: K1b (``echo_backward_plain``) at
    training's 256 rays x 401 interfaces (start 110) and recovery's 8 x 256
    x 511, on the nearest reflections with the NaN and d' = 0 rows (whose
-   gradient is NaN) and on trilinear ones, parity and symmetric, at 8, 16
-   and 32 lanes, and no further than 2x the plain f32 autograd's distance
-   from float64 autograd; K2b (``march_trilinear_backward_plain``) at 1 pose
-   x 256 x 512 with the volume gradient and at 8 poses without it, on
-   per-pose fans, the shared fan and the shared fan as an expanded view,
-   with a NaN source and two poses outside the volume, and against plain
-   autograd;
+   gradient is NaN) and on trilinear ones, parity and symmetric, at every
+   thread count per ray it is built for, and no further than 2x the plain
+   f32 autograd's distance from float64 autograd; K2b
+   (``march_trilinear_backward_plain``) at 1 pose x 256 x 512 with the
+   volume gradient (also with a NaN gradient: NaN voxels, untouched ones
+   +0.0; then back to back on the volume and a cropped one) and at 8 poses
+   without it, on per-pose fans, the shared fan and the shared fan as an
+   expanded view, with a NaN source and two poses outside the volume, and
+   against plain autograd;
 4. main path: a ``RendererService`` on the 256^3 phantom at 256 rays x 512
    samples, ``interp='trilinear_fused'`` with ``use_pallas=True``, tiers
    (1, 8, 32), each request rendered as it comes (``coalesce=False``), answers requests of 1, 5 and 32 poses; K1's and K2's ray
@@ -56,11 +61,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    is larger; K2's bytes count the distinct 32-byte volume sectors the
    corners touch, counted on the card); the request latency of each tier
    and its device time split (K1, K2, ``ray_points``, the rest) from
-   ``torch.profiler``; K1b at recovery's and training's shapes and K2b
-   with the volume gradient (1 pose) and without it (8 poses): with the
-   wrapper, alone, the plain autograd they replace, ``F.grid_sample``'s
-   backward for K2b, and the bound; every "with the wrapper" time beside
-   the wrapper's host microseconds a call in the same runs;
+   ``torch.profiler``; K1b at recovery's and training's shapes (alone also
+   at each thread count per ray) and K2b with the volume gradient (1 pose)
+   and without it (8 poses): with the wrapper, alone (and K2b alone by
+   kernel), the plain autograd they replace, ``F.grid_sample``'s backward
+   for K2b, and the bound; every "with the wrapper" time beside the
+   wrapper's host microseconds a call in the same runs;
 6. K3 row-gather probe against its plain version and a float64 sum, at
    the probe's own shapes (M = 131072 rows of 128 floats, 2^20 rows,
    n_buf 8, offsets 0, 5065, -7, M + 3) and one small case; then its entry
@@ -237,6 +243,21 @@ def _k2_sectors(vol: torch.Tensor, pts: torch.Tensor) -> int:
     return int(torch.unique(lin.reshape(-1) // 8).numel())
 
 
+def _k2b_touches(vol: torch.Tensor, pts: torch.Tensor) -> tuple:
+    """The volume gradient's scatter at points ``pts``: its corner touches,
+    the distinct voxels they land on, and the most that land on one voxel
+    (clamped to the volume as the kernel clamps; no NaN points)."""
+    d, h, w = vol.shape
+    hi = torch.tensor([d - 1, h - 1, w - 1], device=pts.device)
+    i0 = torch.floor(torch.minimum(torch.clamp(pts.reshape(-1, 3), min=0.0),
+                                   hi.to(pts.dtype))).long()
+    i1 = torch.minimum(i0 + 1, hi)
+    x, y, z = (torch.stack([i0[:, k], i1[:, k]]) for k in range(3))
+    lin = (x[:, None, None] * (h * w) + y[None, :, None] * w + z[None, None, :]).reshape(-1)
+    _, counts = torch.unique(lin, return_counts=True)
+    return lin.numel(), counts.numel(), int(counts.max())
+
+
 def _k2_march_bound(n_pts: int, sectors: int, p: int, n_rays: int, with_idx: bool) -> dict:
     """K2's ray form: the values out (and the idx), the distinct volume
     sectors, each pose's source and the shared fan's directions in."""
@@ -269,6 +290,12 @@ def _same(got: torch.Tensor, want: torch.Tensor) -> bool:
     return (got.dtype == want.dtype and got.shape == want.shape
             and torch.equal(torch.isnan(got), nan)
             and torch.equal(torch.where(nan, 0, got), torch.where(nan, 0, want)))
+
+
+def _same_signed(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """:func:`_same`, and every zero of the same sign."""
+    return _same(got, want) and torch.equal(torch.signbit(got.nan_to_num(0.0)),
+                                            torch.signbit(want.nan_to_num(0.0)))
 
 
 def _grid_sample_grid(pts: torch.Tensor, shape) -> torch.Tensor:
@@ -327,6 +354,23 @@ def _profiled_us(fn, iters: int, what: str, name: str | None = None) -> float:
         return max(e.device_time_total / e.count for e in prof.key_averages()
                    if name in e.key and e.count > 0 and e.device_time_total > 0)
     return sum(e.device_time_total for e in device) / iters
+
+
+def _device_split(fn, iters: int, what: str) -> dict:
+    """Device microseconds of one call of ``fn`` by kernel (and memset)
+    name, from ``torch.profiler`` over ``iters`` calls; {} where no trace
+    holds device time."""
+    fn()
+    torch.cuda.synchronize()
+    traced = _trace(lambda: [fn() for _ in range(iters)], what)
+    if traced is None:
+        return {}
+    split = {}
+    for e in traced[2]:
+        key = (e.name.replace("void ", "").replace("(anonymous namespace)::", "")
+               .split("(")[0].split("<")[0].strip())
+        split[key] = split.get(key, 0.0) + e.device_time_total / iters
+    return split
 
 
 def _kernel_device_us(fn, name: str, iters: int) -> float:
@@ -425,14 +469,17 @@ def _backward_checks(dev, vol, r_near, r_tri, src_m, dirs, rng) -> dict:
 
     K1b: training's 256 rays x 401 interfaces (start 110) and recovery's
     8 x 256 rays x 511, on nearest reflections with the NaN and d' = 0 rows
-    and on trilinear ones, parity and symmetric, at 8, 16 and 32 lanes; a
-    NaN interface or a d' = 0 echo makes its ray's dr NaN; on the trilinear
-    reflections K1b is at most 2x as far from autograd through the plain scan
-    in f64 as the plain f32 autograd is (:func:`_grad_units`).  K2b: 1 pose
-    x 256 x 512 with the volume gradient (and without the points'), 8 poses
-    without it, on per-pose fans, the shared fan and the shared fan as an
-    expanded view; the 8 sources are ``src_m``'s (a NaN component, two
-    poses outside the volume)."""
+    and on trilinear ones, parity and symmetric, at every thread count per
+    ray it is built for; a NaN interface or a d' = 0 echo makes its ray's dr
+    NaN; on the trilinear reflections K1b is at most 2x as far from autograd
+    through the plain scan in f64 as the plain f32 autograd is
+    (:func:`_grad_units`).  K2b: 1 pose x 256 x 512 with the volume gradient
+    (and without the points'), again with a NaN gradient (its corners' voxels
+    NaN, every untouched voxel +0.0, the sign of every zero as the twin's),
+    8 poses without it, on per-pose fans, the shared fan and the shared fan
+    as an expanded view; the 8 sources are ``src_m``'s (a NaN component, two
+    poses outside the volume); then two volume gradients back to back, with
+    another fan and gradient, and on a cropped volume of another shape."""
     from diffus_tpu_torch.kernels import propagation_cuda as k1
     from diffus_tpu_torch.kernels import trilinear_cuda as k2
     from diffus_tpu_torch.kernels.propagation_cuda import echo_plain
@@ -448,13 +495,13 @@ def _backward_checks(dev, vol, r_near, r_tri, src_m, dirs, rng) -> dict:
     grads = {k: normal(x.shape[0], x.shape[1] + 1) for k, x in inputs.items()}
     for label, x in inputs.items():
         for mode in ("parity", "symmetric"):
-            for lanes in (8, 16, 32):
-                got = k1._launch_bwd(x, grads[label], mode, ATT, lanes)
-                want = k1.echo_backward_plain(x, grads[label], mode, ATT, lanes)
+            for threads in k1.BWD_THREADS:
+                got = k1._launch_bwd(x, grads[label], mode, ATT, threads)
+                want = k1.echo_backward_plain(x, grads[label], mode, ATT, threads)
                 torch.cuda.synchronize()
                 if not _same(got, want):
                     raise AssertionError(
-                        f"K1b {mode}, {lanes} lanes, {label} {tuple(x.shape)} differs from "
+                        f"K1b {mode}, {threads} threads, {label} {tuple(x.shape)} differs from "
                         f"echo_backward_plain: max abs "
                         f"{float((got - want).nan_to_num(0).abs().max()):.3e}, NaN "
                         f"{int(torch.isnan(got).sum())} vs {int(torch.isnan(want).sum())}")
@@ -478,15 +525,20 @@ def _backward_checks(dev, vol, r_near, r_tri, src_m, dirs, rng) -> dict:
     print(f"K1b vs echo_backward_plain (its order in plain PyTorch): equal bit for bit at "
           f"training's {tuple(inputs['training'].shape)} and recovery's {(rec, N_SAMPLES - 1)} "
           f"(nearest with the NaN and d' = 0 rows, which are NaN, and trilinear), parity + "
-          f"symmetric, 8/16/32 lanes; trilinear reflections vs f64 autograd, in tolerances: "
+          f"symmetric, {'/'.join(map(str, k1.BWD_THREADS))} threads a ray (shipped: "
+          f"{k1.bwd_threads(N_SAMPLES - 1)}); trilinear reflections vs f64 autograd, in "
+          f"tolerances: "
           + ", ".join(k1b_units), flush=True)
 
     src1 = torch.tensor(APEX[None], dtype=torch.float32, device=dev)
     src8 = src_m[:8].contiguous()
     fans = (dirs[None] + 0.02 * normal(8, N_RAYS, 3)).contiguous()
     g1, g8 = normal(1, N_RAYS, N_SAMPLES), normal(8, N_RAYS, N_SAMPLES)
+    g1_nan = g1.clone()
+    g1_nan[0, N_RAYS // 6, N_SAMPLES // 3] = float("nan")
     cases = (("1 pose, shared fan, all three", src1, dirs, g1, (True, True, True)),
              ("1 pose, the volume (training's)", src1, dirs, g1, (True, False, False)),
+             ("1 pose, the volume, a NaN gradient", src1, dirs, g1_nan, (True, False, False)),
              ("8 poses, own fans (recovery's)", src8, fans, g8, (False, True, True)),
              ("8 poses, shared (R, 3) fan", src8, dirs, g8, (False, True, True)),
              ("8 poses, shared fan expanded", src8, dirs.expand(8, -1, -1), g8,
@@ -497,10 +549,28 @@ def _backward_checks(dev, vol, r_near, r_tri, src_m, dirs, rng) -> dict:
         want = k2.march_trilinear_backward_plain(vol, src, d, N_SAMPLES, 1.0, g, need)
         torch.cuda.synchronize()
         for name, a, b in zip(("volume", "sources", "directions"), got, want):
-            if (a is None) != (b is None) or (a is not None and not _same(a, b)):
+            if (a is None) != (b is None) or (a is not None and not _same_signed(a, b)):
                 raise AssertionError(f"K2b, {label}: the {name}' gradient differs from "
                                      f"march_trilinear_backward_plain")
         out[label] = got
+    dvol_nan = out["1 pose, the volume, a NaN gradient"][0]
+    n_nan, n_zero = int(torch.isnan(dvol_nan).sum()), int((dvol_nan == 0).sum())
+    # a sample touches at most 8 voxels: at least the rest must read +0.0
+    if not (1 <= n_nan <= 8 and n_zero >= vol.numel() - 8 * g1.numel()
+            and not bool(torch.signbit(dvol_nan[dvol_nan == 0]).any())):
+        raise AssertionError(f"K2b's volume gradient with a NaN gradient: {n_nan} NaN voxels, "
+                             f"{n_zero} zeros (untouched voxels must read +0.0)")
+    # back to back: another fan and gradient on the volume, then a cropped
+    # volume of another shape; each equals its own twin (no state between calls)
+    crop = vol[:200, :, 16:].contiguous()
+    g_other = normal(1, N_RAYS, N_SAMPLES)
+    for v, d, g in ((vol, fans[3], g1), (vol, dirs, g_other), (crop, dirs, g1)):
+        got = k2._launch_march_bwd(v, src1, d, N_SAMPLES, 1.0, g, (True, False, False))[0]
+        want = k2.march_trilinear_backward_plain(v, src1, d, N_SAMPLES, 1.0, g,
+                                                 (True, False, False))[0]
+        if not _same_signed(got, want):
+            raise AssertionError(f"K2b's volume gradient back to back on {tuple(v.shape)} differs "
+                                 f"from march_trilinear_backward_plain")
     dvol = out["1 pose, the volume (training's)"][0]
     v = vol.detach().requires_grad_(True)
     (plain_v,) = torch.autograd.grad(march_trilinear(v, src1, dirs, N_SAMPLES, 1.0, False)[1], v, g1)
@@ -524,7 +594,9 @@ def _backward_checks(dev, vol, r_near, r_tri, src_m, dirs, rng) -> dict:
           f"bit, NaN where NaN: " + "; ".join(label for label, *_ in cases) + f"; against plain "
           f"autograd (its f32 sums in another order): volume {k2b_err:.3e}, sources and "
           f"directions {pts_err:.3e} of the largest gradient; the NaN source's gradient "
-          f"(NaN, 0, NaN) in both", flush=True)
+          f"(NaN, 0, NaN) in both; a NaN gradient: {n_nan} NaN voxels, {n_zero} of "
+          f"{vol.numel()} voxels +0.0; back to back on {tuple(vol.shape)} and "
+          f"{tuple(crop.shape)} equal too", flush=True)
     return {"k1b_err": 0.0, "k2b_err": 0.0, "k2b_vs_autograd": max(k2b_err, pts_err)}
 
 
@@ -568,6 +640,14 @@ def _backward_times(dev, vol, r_tri, src32, dirs, rng, card: str) -> dict:
               f"(profiler); bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}): "
               f"{bound['bound_ms'] / ms:.1%} of it with the wrapper, "
               f"{bound['bound_ms'] * 1e3 / alone_us:.1%} alone", flush=True)
+        if hasattr(k1, "BWD_THREADS"):   # an older checkout (--root) has one configuration
+            variants = {t: _device_us_per_call(lambda: k1._launch_bwd(x, g, "parity", ATT, t), 20,
+                                               f"K1b {label}, {t} threads")
+                        for t in k1.BWD_THREADS if x.shape[1] <= t * k1.BWD_CHUNK}
+            out[f"k1b_{label}"]["variants_us"] = variants
+            print(f"times [{card}]: K1b {label} {tuple(x.shape)} alone by threads per ray "
+                  f"(profiler): " + ", ".join(f"{t} {us:.2f} us" for t, us in variants.items())
+                  + f"; shipped {k1.bwd_threads(x.shape[1])}", flush=True)
 
     src1 = torch.tensor(APEX[None], dtype=torch.float32, device=dev)
     fans = (dirs[None] + 0.02 * normal(8, N_RAYS, 3)).contiguous()
@@ -585,7 +665,10 @@ def _backward_times(dev, vol, r_tri, src32, dirs, rng, card: str) -> dict:
         alone_us = _device_us_per_call(
             lambda: k2._launch_march_bwd(vol, src, d, N_SAMPLES, 1.0, g, need), 10,
             f"K2b {label}")
+        split = _device_split(lambda: k2._launch_march_bwd(vol, src, d, N_SAMPLES, 1.0, g, need),
+                              10, f"K2b {label}")
         pts = ray_points(src, d.expand(p, -1, -1), N_SAMPLES)
+        touches = _k2b_touches(vol, pts) if need[0] else None
         grid = _grid_sample_grid(pts, tuple(vol.shape)).requires_grad_(not need[0])
         vol5 = vol[None, None].detach().requires_grad_(need[0])
         gs_out = F.grid_sample(vol5, grid, mode="bilinear", padding_mode="border",
@@ -597,14 +680,18 @@ def _backward_times(dev, vol, r_tri, src32, dirs, rng, card: str) -> dict:
                  _k2b_bound(pts[..., 0].numel(), p, N_RAYS, 0, _k2_sectors(vol, pts)))
         out[f"k2b_{label.split(',')[0]}"] = {
             "poses": p, "ms": ms, "plain_ms": plain_ms, "host_us": host_us,
-            "device_us": alone_us, "library_ms": gs_ms, **bound}
+            "device_us": alone_us, "split_us": split, "library_ms": gs_ms, "touches": touches,
+            **bound}
         print(f"times [{card}]: K2b {label} x {N_RAYS} x {N_SAMPLES} {ms:.4f} ms (CUDA events, "
               f"wrapper included; the wrapper's host time {host_us:.2f} us a call in the same "
               f"runs) vs plain autograd through march_trilinear {plain_ms:.4f} ms vs "
               f"F.grid_sample's backward {gs_ms:.4f} ms; alone {alone_us:.2f} us (profiler); "
               f"bound {bound['bound_bytes'] / 1e6:.2f} MB -> {bound['bound_ms']:.4f} ms "
               f"({bound['bound_by']}): {bound['bound_ms'] / ms:.1%} of it with the wrapper, "
-              f"{bound['bound_ms'] * 1e3 / alone_us:.1%} alone", flush=True)
+              f"{bound['bound_ms'] * 1e3 / alone_us:.1%} alone; alone by kernel: "
+              + ", ".join(f"{k} {us:.2f} us" for k, us in split.items())
+              + ("" if touches is None else f"; {touches[0]} corner touches land on {touches[1]} "
+                 f"voxels, at most {touches[2]} on one"), flush=True)
     return out
 
 
@@ -2020,9 +2107,28 @@ def _requests_only(dev, card: str) -> int:
                           device=dev, coalesce=False)
     svc.warmup()
     rng = np.random.default_rng(0)
-    bwd_times = _backward_times(dev, vol, r_tri, src32, dirs, rng, card)
     _tier_latencies(svc, rng, card, "request")
     _request_profiles(svc, rng, card, "request")
+    return 0
+
+
+def _backward_only(dev, card: str) -> int:
+    """``--backward``: phase 5's K1b and K2b readings on phase 3's inputs
+    (the 256^3 phantom, the service's fan, 32 sources, their trilinear
+    reflections), nothing else."""
+    from diffus_tpu_torch.phantoms import brain_phantom_3d
+    from diffus_tpu_torch.render.renderer import simulate_rays
+    from diffus_tpu_torch.serve import RendererService
+    from diffus_tpu_torch.types import BeamGeometry, RenderConfig
+
+    rng = np.random.default_rng(0)
+    vol = torch.from_numpy(brain_phantom_3d(SHAPE)).to(dev)
+    cfg = RenderConfig(attenuation_coeff=ATT, interp="trilinear_fused", use_pallas=True)
+    dirs = RendererService(vol, BeamGeometry(N_RAYS, N_SAMPLES), cfg, batch_tiers=TIERS,
+                           device=dev, coalesce=False).directions
+    src32 = _sources(rng, 32).to(dev)
+    _, r = simulate_rays(vol, src32, dirs.expand(32, -1, -1), N_SAMPLES, "trilinear_fused")
+    _backward_times(dev, vol, r.reshape(-1, N_SAMPLES - 1).contiguous(), src32, dirs, rng, card)
     return 0
 
 
@@ -2030,6 +2136,8 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--requests", action="store_true",
                         help="time only the service's requests at each tier")
+    parser.add_argument("--backward", action="store_true",
+                        help="time only the backward kernels K1b and K2b (phase 5's readings)")
     args = parser.parse_args(argv)
     # -- 1. device ---------------------------------------------------------
     if not torch.cuda.is_available():
@@ -2055,6 +2163,8 @@ def main(argv=None) -> int:
           + " | ".join(regs), flush=True)
     if args.requests:
         return _requests_only(dev, card)
+    if args.backward:
+        return _backward_only(dev, card)
 
     import torch.nn.functional as F
 
@@ -2396,7 +2506,8 @@ def main(argv=None) -> int:
          "replaces": "diffus_tpu/kernels/propagation_pallas.py:145",
          "launches": train["launches"]["echo_scan_bwd"], "max_abs_err": bwd_checks["k1b_err"],
          "ms": k1b_rec["ms"], "plain_ms": k1b_rec["plain_ms"], "bound_ms": k1b_rec["bound_ms"],
-         "bound_by": k1b_rec["bound_by"], "library_ms": None, "lanes": k1.LANES,
+         "bound_by": k1b_rec["bound_by"], "library_ms": None,
+         "threads": k1.bwd_threads(N_SAMPLES - 1), "variants_us": k1b_rec["variants_us"],
          "device_us": k1b_rec["device_us"], "host_us": k1b_rec["host_us"],
          "shape": k1b_rec["shape"], "training_shape": bwd_times["k1b_training"],
          "step_times": {"training": train_times, "recovery": recovery["times"]}},
@@ -2407,6 +2518,7 @@ def main(argv=None) -> int:
          "ms": k2b_vol["ms"], "plain_ms": k2b_vol["plain_ms"], "bound_ms": k2b_vol["bound_ms"],
          "bound_by": k2b_vol["bound_by"], "library_ms": k2b_vol["library_ms"],
          "device_us": k2b_vol["device_us"], "host_us": k2b_vol["host_us"],
+         "split_us": k2b_vol["split_us"],
          "form": "volume gradient, 1 pose", "points_form": bwd_times["k2b_points"],
          "max_rel_err_vs_autograd": bwd_checks["k2b_vs_autograd"]},
     ]

@@ -1,7 +1,8 @@
-// Device helpers of the echo scan (echo_scan.cu, kernel K1, in float) and
-// its backward (echo_scan_bwd.cu, kernel K1b, in double): one step, one
-// combine and one carry-in scan for both, so the backward replays the
-// forward's order.  Numerics: see echo_scan.cu.
+// Device helpers of the echo scan (echo_scan.cu, kernel K1, in float): one
+// step, one combine and one carry-in scan.  Its backward (echo_scan_bwd.cu,
+// kernel K1b, in double) shares the matrix type and the warp shuffle only: it
+// renormalizes by powers of two, in its own order.  Numerics: see
+// echo_scan.cu.
 
 #pragma once
 
@@ -15,16 +16,12 @@ namespace {
 constexpr unsigned kFullMask = 0xffffffffu;
 
 // The larger of a and b, NaN if either is NaN, as jnp.maximum and
-// torch.maximum; fmaxf would drop the NaN.  In float one PTX max.NaN (sm_80
-// and later); double has no such instruction.
+// torch.maximum; fmaxf would drop the NaN.  One PTX max.NaN (sm_80 and
+// later).
 __device__ __forceinline__ float max_nan(float a, float b) {
   float m;
   asm("max.NaN.f32 %0, %1, %2;" : "=f"(m) : "f"(a), "f"(b));
   return m;
-}
-
-__device__ __forceinline__ double max_nan(double a, double b) {
-  return (isnan(a) || isnan(b)) ? a + b : fmax(a, b);
 }
 
 __device__ __forceinline__ float nan_to_num(float v) {

@@ -41,9 +41,26 @@
 //  - the sums convert back as float(double(sum) * 2^-e).
 //  The error against exact sums is at most half of 2^-e a contribution:
 //  below max|g| n_samples 2^-60, 1.1e-13 max|g| at 1 x 256 x 512 samples,
-//  against the 6e-8 relative rounding of the f32 result.  The int64 sums
-//  and the mask (8.1 B a voxel) are scratch the wrapper allocates; only the
-//  volume gradient's callers pay for them.
+//  against the 6e-8 relative rounding of the f32 result.
+// Only the voxels the rays touch are summed (training's 256-ray fan in one
+// plane touches 53 718 of the 16.7 M voxels of a 256^3 volume), and no
+// state is kept between calls:
+//  1. one memset zeroes a touched bitmap, the NaN mask (1 bit a voxel each)
+//     and the max;
+//  2. the mark pass recomputes each sample's corners, stores 0 into their
+//     int64 sums (equal stores: their race is harmless), sets their touched
+//     bits and folds the finite max |g| (one atomicMax a block);
+//  3. the scatter adds the contributions (order-free integer atomics);
+//  4. the convert writes the dense f32 gradient once: NaN where the NaN bit
+//     is set, the converted sum where the touched bit is (the only reads of
+//     the sums), +0.0 elsewhere, a warp to 1024 voxels in float4 stores.
+// Samples clamped to the volume's faces pile up on a few voxels (19 698 of
+// training's 1 M corner touches land on one), and atomics on one address
+// run one after another.  So in passes 2 and 3 a warp's lanes, consecutive
+// samples of a ray, first merge runs of adjacent lanes on the same voxel
+// (a segmented shuffle scan of the int64 terms, exact): one atomic a run.
+// The int64 sums are addressed by voxel (d h w slots, allocated but neither
+// zeroed nor read outside the touched ones); the masks are 0.25 B a voxel.
 // The sources' and directions' sums are per ray and per pose: one warp a
 // ray adds its samples in a fixed order (lane l takes samples l, l + 32, ...,
 // then a shuffle tree), and the same warp sum over rays gives each pose's
@@ -52,9 +69,10 @@
 //
 // What bounds it on the card: bytes.  With the volume gradient the dense
 // (D, H, W) f32 gradient is written (64 MiB at 256^3, 20 us at 3.35 TB/s);
-// without it, the value gradient is read (4 B a sample) with the corner
-// sectors, as the forward's bound counts them.  The fixed-point scratch adds
-// 192 MiB of zeroing and reading at 256^3 (not in the bound).
+// the scratch adds the masks (4 MiB zeroed and read at 256^3) and ~24 B a
+// touched voxel (its sum zeroed, added to and read).  Without it, the value
+// gradient is read (4 B a sample) with the corner sectors, as the forward's
+// bound counts them.
 
 #include <cfloat>
 
@@ -86,31 +104,132 @@ __device__ __forceinline__ int scale_exponent(const unsigned* gmax, int base) {
   return base - e;
 }
 
+// Sample i (flat over pose, ray, sample) of the ray form: its corners' rows
+// (flat voxel index of z = 0) and z, and its fractions, as the forward
+// computes them.
+struct Corners {
+  int64_t p00, p01, p10, p11;
+  int z0, z1;
+  float fx, fy, fz;
+};
+
+__device__ __forceinline__ Corners sample_corners(const float* __restrict__ src,
+                                                  const float* __restrict__ dirs,
+                                                  int64_t dir_pose_stride, int64_t i, int n_rays,
+                                                  int n, float step, int d, int h, int w) {
+  const int k = static_cast<int>(i % n);
+  const int64_t ray = i / n;
+  const int64_t p = ray / n_rays;
+  const int r = static_cast<int>(ray % n_rays);
+  const float3 pt =
+      march_point(src + 3 * p, dirs + p * dir_pose_stride + 3 * static_cast<int64_t>(r), k, step);
+  Corners c;
+  int x0, x1, y0, y1;
+  corner_coords(pt.x, d, x0, x1, c.fx);
+  corner_coords(pt.y, h, y0, y1, c.fy);
+  corner_coords(pt.z, w, c.z0, c.z1, c.fz);
+  const int64_t hw = static_cast<int64_t>(h) * w;
+  c.p00 = x0 * hw + static_cast<int64_t>(y0) * w;
+  c.p01 = x0 * hw + static_cast<int64_t>(y1) * w;
+  c.p10 = x1 * hw + static_cast<int64_t>(y0) * w;
+  c.p11 = x1 * hw + static_cast<int64_t>(y1) * w;
+  return c;
+}
+
+// The warp's lanes hold one sample each, in order along the rays, so a
+// voxel is often a key of adjacent lanes (a ray's samples clamped to the
+// volume's faces land on one voxel by the hundred).  A run is a maximal
+// stretch of adjacent lanes with equal keys; its last lane, the tail, does
+// the run's one global operation.  A lane past the samples' end has a key
+// of its own (no voxel).
+__device__ __forceinline__ bool run_tail(long long key, int lane) {
+  const long long right = __shfl_down_sync(kFullMask, key, 1);  // every lane shuffles
+  return lane == 31 || right != key;
+}
+
+// Zero the sums of voxels z0 and z1 of a row and set their touched bits,
+// unless both bits are set already (read from L2): a pile-up's later runs
+// then neither store nor take an atomic.  The scatter runs after this pass
+// ends, so every zero is stored before any sum is added.
+__device__ __forceinline__ void mark_pair(long long* acc, unsigned* touched, int64_t row, int z0,
+                                          int z1) {
+  const int64_t v0 = row + z0, v1 = row + z1;
+  if ((v0 >> 5) == (v1 >> 5)) {
+    const unsigned bits = (1u << (v0 & 31)) | (1u << (v1 & 31));
+    if ((__ldcg(touched + (v0 >> 5)) & bits) == bits) return;  // zeroed in this pass already
+  }
+  acc[v0] = 0;
+  acc[v1] = 0;
+  if ((v0 >> 5) == (v1 >> 5)) {
+    atomicOr(touched + (v0 >> 5), (1u << (v0 & 31)) | (1u << (v1 & 31)));
+  } else {
+    atomicOr(touched + (v0 >> 5), 1u << (v0 & 31));
+    atomicOr(touched + (v1 >> 5), 1u << (v1 & 31));
+  }
+}
+
+// One sample a thread: zero the sums of its 8 corners and set their touched
+// bits, once a run of lanes with the same row and z0; the block's finite
+// max |g| into gmax (an order-free max).
 __global__ void __launch_bounds__(kThreads)
-    march_bwd_max_kernel(const float* __restrict__ grad, int64_t n, unsigned* gmax) {
+    march_bwd_mark_kernel(const float* __restrict__ src, const float* __restrict__ dirs,
+                          int64_t dir_pose_stride, const float* __restrict__ grad,
+                          long long* acc, unsigned* touched, unsigned* gmax, int64_t total,
+                          int n_rays, int n, float step, int d, int h, int w) {
+  __shared__ float warp_max[kWarps];
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  const int lane = threadIdx.x % 32;
+  const bool in = i < total;
+  Corners c{};
   float m = 0.0f;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x; i < n;
-       i += static_cast<int64_t>(gridDim.x) * kThreads) {
+  if (in) {
+    c = sample_corners(src, dirs, dir_pose_stride, i, n_rays, n, step, d, h, w);
     const float a = fabsf(grad[i]);
-    if (a <= FLT_MAX) m = fmaxf(m, a);  // finite only: NaN and inf fail the compare
+    if (a <= FLT_MAX) m = a;  // finite only: NaN and inf fail the compare
+  }
+  for (const int64_t row : {c.p00, c.p01, c.p10, c.p11}) {
+    const long long key = in ? row + c.z0 : -1 - lane;
+    if (run_tail(key, lane) && in) mark_pair(acc, touched, row, c.z0, c.z1);
   }
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_down_sync(kFullMask, m, o));
-  if (threadIdx.x % 32 == 0) atomicMax(gmax, __float_as_uint(m));  // order-free: a max
-}
-
-__device__ __forceinline__ void add_fixed(unsigned long long* acc, unsigned* nan_mask, int64_t v,
-                                          float c, double scale) {
-  if (isfinite(c)) {
-    const long long f = __double2ll_rn(static_cast<double>(c) * scale);
-    if (f != 0) atomicAdd(acc + v, static_cast<unsigned long long>(f));
-  } else {
-    atomicOr(nan_mask + (v >> 5), 1u << (v & 31));
+  if (lane == 0) warp_max[threadIdx.x / 32] = m;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int k = 1; k < kWarps; ++k) m = fmaxf(m, warp_max[k]);
+    atomicMax(gmax, __float_as_uint(m));  // non-negative floats order as their bits
   }
 }
 
-// One sample a thread, flat over (pose, ray, sample): its 8 corner
-// contributions into the fixed-point sums.
+// Corner contribution c of voxel v into the fixed-point sums: round-half-even
+// (c * scale), summed over the run of lanes with the same voxel into its
+// tail (a segmented scan), which adds the run's sum with one integer atomic
+// and sets the NaN bit if a contribution of the run is not finite.  Integer
+// sums are exact, so the grouping changes no bit.
+__device__ __forceinline__ void add_fixed(unsigned long long* acc, unsigned* nan_mask, bool in,
+                                          int64_t v, float c, double scale, int lane) {
+  const bool finite = isfinite(c);
+  long long f = in && finite ? __double2ll_rn(static_cast<double>(c) * scale) : 0;
+  const long long key = in ? v : -1 - lane;
+  const long long left = __shfl_up_sync(kFullMask, key, 1);
+  const unsigned heads = __ballot_sync(kFullMask, lane == 0 || left != key);
+  const unsigned bad = __ballot_sync(kFullMask, in && !finite);
+  const unsigned upto = 0xffffffffu >> (31 - lane);  // lanes 0..lane
+  const int head = 31 - __clz(heads & upto);
+  if (heads != kFullMask) {  // some run is longer than a lane (warp-uniform)
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const long long u = __shfl_up_sync(kFullMask, f, o);
+      if (lane - o >= head) f += u;
+    }
+  }
+  if (run_tail(key, lane) && in) {
+    if (bad & upto & ~((1u << head) - 1u)) atomicOr(nan_mask + (v >> 5), 1u << (v & 31));
+    if (f != 0) atomicAdd(acc + v, static_cast<unsigned long long>(f));
+  }
+}
+
+// One sample a thread: its 8 corner contributions into the fixed-point sums.
 __global__ void __launch_bounds__(kThreads)
     march_bwd_scatter_kernel(const float* __restrict__ src, const float* __restrict__ dirs,
                           int64_t dir_pose_stride, const float* __restrict__ grad,
@@ -118,47 +237,74 @@ __global__ void __launch_bounds__(kThreads)
                           const unsigned* __restrict__ gmax, int base, int64_t total, int n_rays,
                           int n, float step, int d, int h, int w) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i >= total) return;
-  const int k = static_cast<int>(i % n);
-  const int64_t ray = i / n;
-  const int64_t p = ray / n_rays;
-  const int r = static_cast<int>(ray % n_rays);
-  const float3 pt = march_point(src + 3 * p, dirs + p * dir_pose_stride + 3 * static_cast<int64_t>(r),
-                                k, step);
-  int x0, x1, y0, y1, z0, z1;
-  float fx, fy, fz;
-  corner_coords(pt.x, d, x0, x1, fx);
-  corner_coords(pt.y, h, y0, y1, fy);
-  corner_coords(pt.z, w, z0, z1, fz);
-  const float g = grad[i];
-  const float gx = 1.0f - fx, gy = 1.0f - fy, gz = 1.0f - fz;
-  const float dc0 = g * gx, dc1 = g * fx;
-  const float dc00 = dc0 * gy, dc01 = dc0 * fy, dc10 = dc1 * gy, dc11 = dc1 * fy;
+  const int lane = threadIdx.x % 32;
+  const bool in = i < total;  // no early exit: every lane takes part in the runs' shuffles
+  Corners c{};
+  float g = 0.0f;
+  if (in) {
+    c = sample_corners(src, dirs, dir_pose_stride, i, n_rays, n, step, d, h, w);
+    g = grad[i];
+  }
+  const float gx = 1.0f - c.fx, gy = 1.0f - c.fy, gz = 1.0f - c.fz;
+  const float dc0 = g * gx, dc1 = g * c.fx;
+  const float dc00 = dc0 * gy, dc01 = dc0 * c.fy, dc10 = dc1 * gy, dc11 = dc1 * c.fy;
   const double scale = ldexp(1.0, scale_exponent(gmax, base));
-  const int64_t hw = static_cast<int64_t>(h) * w;
-  const int64_t p00 = x0 * hw + static_cast<int64_t>(y0) * w,
-                p01 = x0 * hw + static_cast<int64_t>(y1) * w,
-                p10 = x1 * hw + static_cast<int64_t>(y0) * w,
-                p11 = x1 * hw + static_cast<int64_t>(y1) * w;
-  add_fixed(acc, nan_mask, p00 + z0, dc00 * gz, scale);
-  add_fixed(acc, nan_mask, p00 + z1, dc00 * fz, scale);
-  add_fixed(acc, nan_mask, p01 + z0, dc01 * gz, scale);
-  add_fixed(acc, nan_mask, p01 + z1, dc01 * fz, scale);
-  add_fixed(acc, nan_mask, p10 + z0, dc10 * gz, scale);
-  add_fixed(acc, nan_mask, p10 + z1, dc10 * fz, scale);
-  add_fixed(acc, nan_mask, p11 + z0, dc11 * gz, scale);
-  add_fixed(acc, nan_mask, p11 + z1, dc11 * fz, scale);
+  add_fixed(acc, nan_mask, in, c.p00 + c.z0, dc00 * gz, scale, lane);
+  add_fixed(acc, nan_mask, in, c.p00 + c.z1, dc00 * c.fz, scale, lane);
+  add_fixed(acc, nan_mask, in, c.p01 + c.z0, dc01 * gz, scale, lane);
+  add_fixed(acc, nan_mask, in, c.p01 + c.z1, dc01 * c.fz, scale, lane);
+  add_fixed(acc, nan_mask, in, c.p10 + c.z0, dc10 * gz, scale, lane);
+  add_fixed(acc, nan_mask, in, c.p10 + c.z1, dc10 * c.fz, scale, lane);
+  add_fixed(acc, nan_mask, in, c.p11 + c.z0, dc11 * gz, scale, lane);
+  add_fixed(acc, nan_mask, in, c.p11 + c.z1, dc11 * c.fz, scale, lane);
 }
 
+// Voxel v's gradient from its touched and NaN bits: NaN, the converted sum
+// (the only read of the sums) or +0.0.
+__device__ __forceinline__ float voxel_gradient(const long long* __restrict__ acc, int64_t v,
+                                                unsigned touched, unsigned nan, double inv) {
+  if (nan) return __int_as_float(0x7fc00000);
+  return touched ? __double2float_rn(__ll2double_rn(acc[v]) * inv) : 0.0f;
+}
+
+constexpr int kGroup = 1024;  // voxels a warp converts: 32 mask words
+
+// One warp a group of 1024 voxels: lane l reads the group's mask words l,
+// then the warp writes the group as 8 rows of float4 with streaming stores,
+// each lane taking its 4 voxels' bits from the lane that read their word; the
+// last, partial group goes voxel by voxel.
 __global__ void __launch_bounds__(kThreads)
-    march_bwd_convert_kernel(const long long* __restrict__ acc, const unsigned* __restrict__ nan_mask,
+    march_bwd_convert_kernel(const long long* __restrict__ acc,
+                          const unsigned* __restrict__ touched,
+                          const unsigned* __restrict__ nan_mask,
                           const unsigned* __restrict__ gmax, int base, float* __restrict__ out,
                           int64_t nvox) {
+  const int64_t v0 = (static_cast<int64_t>(blockIdx.x) * kWarps + threadIdx.x / 32) * kGroup;
+  if (v0 >= nvox) return;  // warp-uniform
+  const int lane = threadIdx.x % 32;
   const double inv = ldexp(1.0, -scale_exponent(gmax, base));
-  for (int64_t v = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x; v < nvox;
-       v += static_cast<int64_t>(gridDim.x) * kThreads) {
-    const bool nan = ((nan_mask[v >> 5] >> (v & 31)) & 1u) != 0;
-    out[v] = nan ? __int_as_float(0x7fc00000) : __double2float_rn(__ll2double_rn(acc[v]) * inv);
+  if (v0 + kGroup <= nvox) {
+    const unsigned tw = touched[v0 / 32 + lane], nw = nan_mask[v0 / 32 + lane];
+#pragma unroll
+    for (int j = 0; j < kGroup / 128; ++j) {
+      const int from = 4 * j + lane / 8, shift = 4 * (lane % 8);
+      const unsigned t4 = (__shfl_sync(kFullMask, tw, from) >> shift) & 0xfu;
+      const unsigned n4 = (__shfl_sync(kFullMask, nw, from) >> shift) & 0xfu;
+      const int64_t v = v0 + 4 * (32 * j + lane);
+      float4 o = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (t4 | n4) {
+        o.x = voxel_gradient(acc, v, t4 & 1u, n4 & 1u, inv);
+        o.y = voxel_gradient(acc, v + 1, t4 & 2u, n4 & 2u, inv);
+        o.z = voxel_gradient(acc, v + 2, t4 & 4u, n4 & 4u, inv);
+        o.w = voxel_gradient(acc, v + 3, t4 & 8u, n4 & 8u, inv);
+      }
+      __stcs(reinterpret_cast<float4*>(out + v), o);  // evict-first: 64 MiB would flush L2
+    }
+  } else {
+    for (int64_t v = v0 + lane; v < nvox; v += 32) {
+      const unsigned bit = 1u << (v & 31);
+      out[v] = voxel_gradient(acc, v, touched[v >> 5] & bit, nan_mask[v >> 5] & bit, inv);
+    }
   }
 }
 
@@ -266,20 +412,20 @@ cudaError_t strided_sum(const float* x, float* out, int64_t n_out, int n_c, int6
 cudaError_t march_bwd(const float* vol, const float* src, const float* dirs,
                       int64_t dir_pose_stride, const float* grad, int64_t p, int n_rays, int n,
                       float step, int d, int h, int w, float* dvol, long long* acc,
-                      unsigned* nan_mask, unsigned* gmax, int base, float* src_part,
-                      float* dir_part, float* dsrc_pose, float* dsrc_sum, float* ddir_sum,
-                      cudaStream_t stream) {
+                      unsigned* masks, int base, float* src_part, float* dir_part,
+                      float* dsrc_pose, float* dsrc_sum, float* ddir_sum, cudaStream_t stream) {
   const int64_t rays = p * n_rays, total = rays * n;
   if (dvol != nullptr) {
-    const int64_t nvox = static_cast<int64_t>(d) * h * w;
-    RETURN_IF_FAILED(cudaMemsetAsync(acc, 0, sizeof(long long) * nvox, stream));
-    RETURN_IF_FAILED(cudaMemsetAsync(nan_mask, 0, sizeof(unsigned) * ((nvox + 31) / 32), stream));
-    RETURN_IF_FAILED(cudaMemsetAsync(gmax, 0, sizeof(unsigned), stream));
+    const int64_t nvox = static_cast<int64_t>(d) * h * w, words = (nvox + 31) / 32;
+    unsigned* const touched = masks;
+    unsigned* const nan_mask = masks + words;
+    unsigned* const gmax = masks + 2 * words;
+    RETURN_IF_FAILED(cudaMemsetAsync(masks, 0, sizeof(unsigned) * (2 * words + 1), stream));
     if (total > 0) {
       const int64_t blocks = (total + kThreads - 1) / kThreads;
       if (blocks > INT_MAX) return cudaErrorInvalidConfiguration;
-      march_bwd_max_kernel<<<static_cast<unsigned>(blocks < 1024 ? blocks : 1024), kThreads, 0,
-                        stream>>>(grad, total, gmax);
+      march_bwd_mark_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+          src, dirs, dir_pose_stride, grad, acc, touched, gmax, total, n_rays, n, step, d, h, w);
       RETURN_IF_FAILED(cudaGetLastError());
       march_bwd_scatter_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
           src, dirs, dir_pose_stride, grad, reinterpret_cast<unsigned long long*>(acc), nan_mask,
@@ -287,9 +433,10 @@ cudaError_t march_bwd(const float* vol, const float* src, const float* dirs,
       RETURN_IF_FAILED(cudaGetLastError());
     }
     if (nvox > 0) {
-      const int64_t blocks = (nvox + kThreads - 1) / kThreads;
-      march_bwd_convert_kernel<<<static_cast<unsigned>(blocks < 8192 ? blocks : 8192), kThreads, 0,
-                              stream>>>(acc, nan_mask, gmax, base, dvol, nvox);
+      const int64_t groups = (nvox + kGroup - 1) / kGroup, blocks = (groups + kWarps - 1) / kWarps;
+      if (blocks > INT_MAX) return cudaErrorInvalidConfiguration;
+      march_bwd_convert_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+          acc, touched, nan_mask, gmax, base, dvol, nvox);
       RETURN_IF_FAILED(cudaGetLastError());
     }
   }
@@ -320,9 +467,11 @@ cudaError_t march_bwd(const float* vol, const float* src, const float* dirs,
 // The ray form's backward.  vol: (d, h, w) f32 contiguous; src: (p, 3) f32;
 // dirs: rays of 3 f32, ray r of pose q at dirs + q * dir_pose_stride + 3 r (0:
 // one fan for every pose); grad: (p, n_rays, n) f32, the values' gradient.
-// The volume gradient (dvol (d, h, w) f32) with dvol non-null, and its scratch:
-// acc (d h w) int64, nan_mask (ceil(d h w / 32)) uint32, gmax (1) uint32, base
-// = 61 - ceil(log2(p n_rays n)).  The points' gradients with src_part
+// The volume gradient (dvol (d, h, w) f32, 16-byte aligned) with dvol
+// non-null, and its scratch: acc (d h w) int64, neither zeroed nor read
+// outside the touched voxels; masks (2 ceil(d h w / 32) + 1) uint32: the
+// touched bitmap, the NaN mask and the max |g|, zeroed here; base = 61 -
+// ceil(log2(p n_rays n)).  The points' gradients with src_part
 // non-null: src_part and dir_part (p, n_rays, 3) f32 (dir_part: each pose's
 // direction gradient), dsrc_pose (p, 3) f32, and where non-null dsrc_sum (3)
 // f32, the source's summed over the poses, and ddir_sum (n_rays, 3) f32, the
@@ -331,10 +480,10 @@ cudaError_t march_bwd(const float* vol, const float* src, const float* dirs,
 extern "C" int diffus_trilinear_march_bwd(
     const float* vol, const float* src, const float* dirs, int64_t dir_pose_stride,
     const float* grad, int64_t p, int n_rays, int n, float step, int d, int h, int w, float* dvol,
-    long long* acc, unsigned* nan_mask, unsigned* gmax, int base, float* src_part, float* dir_part,
-    float* dsrc_pose, float* dsrc_sum, float* ddir_sum, void* stream) {
+    long long* acc, unsigned* masks, int base, float* src_part, float* dir_part, float* dsrc_pose,
+    float* dsrc_sum, float* ddir_sum, void* stream) {
   return static_cast<int>(march_bwd(vol, src, dirs, dir_pose_stride, grad, p, n_rays, n, step, d,
-                                    h, w, dvol, acc, nan_mask, gmax, base, src_part, dir_part,
+                                    h, w, dvol, acc, masks, base, src_part, dir_part,
                                     dsrc_pose, dsrc_sum, ddir_sum,
                                     static_cast<cudaStream_t>(stream)));
 }

@@ -42,7 +42,7 @@ _SIGNATURES = {
     # r, att, out, n, b, mode, lanes, stream
     "diffus_echo_scan": (_c, _c, _c, ctypes.c_int, ctypes.c_int64, ctypes.c_int,
                          ctypes.c_int, _c),
-    # r, grad, att, dr, n, b, mode, lanes, stream
+    # r, grad, att, dr, n, b, mode, threads, stream
     "diffus_echo_scan_bwd": (_c, _c, _c, _c, ctypes.c_int, ctypes.c_int64, ctypes.c_int,
                              ctypes.c_int, _c),
     # vol, pts, out, idx, n, d, h, w, stream
@@ -52,12 +52,12 @@ _SIGNATURES = {
     "diffus_trilinear_march": (_c, _c, _c, ctypes.c_int64, _c, _c, ctypes.c_int64,
                                ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
                                ctypes.c_int, ctypes.c_int, _c),
-    # vol, src, dirs, dir_pose_stride, grad, p, n_rays, n, step, d, h, w, dvol, acc, nan_mask,
-    # gmax, base, src_part, dir_part, dsrc_pose, dsrc_sum, ddir_sum, stream
+    # vol, src, dirs, dir_pose_stride, grad, p, n_rays, n, step, d, h, w, dvol, acc, masks,
+    # base, src_part, dir_part, dsrc_pose, dsrc_sum, ddir_sum, stream
     "diffus_trilinear_march_bwd": (_c, _c, _c, ctypes.c_int64, _c, ctypes.c_int64, ctypes.c_int,
                                    ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                                   ctypes.c_int, _c, _c, _c, _c, ctypes.c_int, _c, _c, _c, _c,
-                                   _c, _c),
+                                   ctypes.c_int, _c, _c, _c, ctypes.c_int, _c, _c, _c, _c, _c,
+                                   _c),
     # table, partial, out, off, n_rows, m, n_buf, grid, stream
     "diffus_gather_probe": (_c, _c, _c, ctypes.c_int, ctypes.c_int64, ctypes.c_int,
                             ctypes.c_int, ctypes.c_int, _c),

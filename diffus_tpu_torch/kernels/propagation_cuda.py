@@ -24,10 +24,13 @@ it.  What bounds the kernel, and its design, are in the source's header.
 
 Gradient: :class:`_EchoFused` is a ``torch.autograd.Function`` whose
 backward launches K1b, the VJP that JAX's ``_bwd`` (:145-148) takes
-through the XLA scan: the same chunked scan, in float64, run forwards to
-recompute the carries, then backwards as an affine recurrence on the
-carries' cotangents.  :func:`echo_backward_plain` is K1b's evaluation
-order in plain PyTorch (its derivation is in its docstring).
+through the XLA scan: a chunked scan in float64 over one block of
+:func:`bwd_threads` threads a ray (two-level scans: shuffles in a warp,
+the warps' totals through shared memory), run forwards to recompute the
+carries, each scaled by a power of two, then backwards as an affine
+recurrence on the carries' cotangents.  :func:`echo_backward_plain` is
+K1b's evaluation order in plain PyTorch (its derivation is in its
+docstring).
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ import torch.nn.functional as F
 
 from diffus_tpu_torch.kernels import _build
 from diffus_tpu_torch.ops.propagation import (
+    _combine,
     _prefix_scan,
     _renormalized,
     depth_attenuation,
@@ -65,18 +69,17 @@ def _att_table(n: int, att: float, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.multiply.accumulate(factors, dtype=np.float32)).to(device)
 
 
-def _advance(p, r, parity: bool):
+def _advance(p, r, parity: bool, renorm=_renormalized):
     """One interface ``[[k, r], [m10, 1]]`` left-multiplies the carry ``p``
     (parity: ``k = 1 - 2 r^2``, ``m10 = -r``; symmetric: ``k = 1``,
     ``m10 = r``), renormalized by the max-abs entry: the Pallas kernel's
     step (``propagation_pallas.py:61-78``; ``m10 * pa + 1 * pc`` rounds as
     its ``pc - rho * pa``).  Returns the new carry and the factor ``inv``
-    it was scaled by."""
+    it was scaled by (K1b's order passes ``renorm=_pow2_scaled``)."""
     one = torch.ones_like(r)
     k, m10 = (1.0 - 2.0 * r * r, -r) if parity else (one, r)
     pa, pb, pc, pd = p
-    return _renormalized(k * pa + r * pc, k * pb + r * pd, m10 * pa + one * pc,
-                         m10 * pb + one * pd)
+    return renorm(k * pa + r * pc, k * pb + r * pd, m10 * pa + one * pc, m10 * pb + one * pd)
 
 
 def _identity(like: torch.Tensor):
@@ -148,10 +151,12 @@ def _echo_cotangent(p, g, real):
     autograd forms it through ``nan_to_num(-(c / d))``: ``nan_to_num``
     passes ``g`` only where ``c/d`` is finite, and the division's backward
     gives ``(-t, t q)`` with ``q = c/d``, ``t = g/d``, so at ``d = 0`` it is
-    ``0/0 = NaN``, and NaN wherever the carry is NaN.  Zero on the padding
-    (``real`` False)."""
-    q = p[2] / p[3]
-    t = torch.where(torch.isfinite(q), g, torch.zeros_like(g)) / p[3]
+    ``0 * (1/0) = NaN``, and NaN wherever the carry is NaN.  One division:
+    ``q = c (1/d)``, ``t = g (1/d)``.  Zero on the padding (``real``
+    False)."""
+    rd = 1.0 / p[3]
+    q = p[2] * rd
+    t = torch.where(torch.isfinite(q), g, torch.zeros_like(g)) * rd
     zero = torch.zeros_like(t)
     return torch.where(real, -t, zero), torch.where(real, t * q, zero)
 
@@ -172,51 +177,121 @@ def _exp_table(n: int, att: float, device: torch.device) -> torch.Tensor:
     """``exp(-att j)`` for ``j = 0..n`` in float64: the attenuation factors
     of ``depth_attenuation``, whose VJP K1b takes (the forward's f32 table
     of repeated multiplications drifts from them by up to ~3e-5 relative
-    at depth 511, a full tolerance unit of the gradient near a resonance)."""
+    at depth 511, a full tolerance unit of the gradient near a resonance).
+    Built once per ``(n, att, device)``: K1b's calls copy nothing to the
+    card."""
     return torch.from_numpy(np.exp(-att * np.arange(n + 1, dtype=np.float64))).to(device)
 
 
+BWD_THREADS = (64, 128, 256, 512, 1024)   # K1b's threads per ray (csrc/echo_scan_bwd.cu)
+BWD_CHUNK = 8                              # the most interfaces a K1b thread's chunk holds
+_FLOOR_HI = 0x39B00000                     # the high word of 2^-100, the scale's floor
+_INF_HI = 0x7FF00000
+
+
+def bwd_threads(n: int) -> int:
+    """K1b's threads per ray at depth ``n``: the fewest of
+    :data:`BWD_THREADS` whose chunks hold at most :data:`BWD_CHUNK`
+    interfaces (64 up to ``n = 512``)."""
+    for threads in BWD_THREADS:
+        if n <= threads * BWD_CHUNK:
+            return threads
+    raise ValueError(f"K1b takes rays of at most {BWD_THREADS[-1] * BWD_CHUNK} interfaces, "
+                     f"got {n}")
+
+
+def _pow2_scaled(a, b, c, d):
+    """``(a, b, c, d)`` (float64) times ``s = 2^-e``, with ``2^(e-1) <=`` the
+    max-abs entry ``< 2^e``, read from the entries' high words (sign off:
+    ordered as the magnitudes, NaN above inf) with the max floored at
+    ``2^-100``; ``s`` is NaN if an entry is NaN and 0 if the largest is
+    infinite.  A power of two scales without rounding.  Returns the entries
+    and ``s``."""
+    hi = [(e.view(torch.int64) >> 32) & 0x7FFFFFFF for e in (a, b, c, d)]
+    top = torch.clamp_min(torch.maximum(torch.maximum(hi[0], hi[1]),
+                                        torch.maximum(hi[2], hi[3])), _FLOOR_HI)
+    s = ((2045 - (top >> 20)) << 52).view(torch.float64)
+    s = torch.where(top < _INF_HI, s, torch.where(top > _INF_HI, float("nan"), 0.0))
+    return (a * s, b * s, c * s, d * s), s
+
+
+def _combine_pow2(p, q):
+    """The later ``q`` left-multiplies the earlier ``p``, scaled as
+    :func:`_pow2_scaled` (the ``__shfl_up_sync`` rounds' combine)."""
+    return _combine(p, q, _pow2_scaled)
+
+
+def _suffix_scan(s):
+    """Inclusive suffix compositions of maps along the last axis in
+    log-step rounds (lane ``l`` composes with lane ``l + o``: the
+    ``__shfl_down_sync`` rounds), by :func:`_compose`."""
+    n, o = s[1][0].shape[-1], 1
+    while o < n:
+        head = tuple(tuple(e[..., :-o] for e in part) for part in s)
+        tail = tuple(tuple(e[..., o:] for e in part) for part in s)
+        s = tuple(tuple(torch.cat([new, e[..., n - o:]], dim=-1) for new, e in zip(pn, part))
+                  for pn, part in zip(_compose(head, tail), s))
+        o *= 2
+    return s
+
+
+def _warps(t: torch.Tensor, threads: int) -> torch.Tensor:
+    """``(B, threads)`` -> ``(B, W, 32)`` warps (one of ``threads`` lanes below 32)."""
+    width = min(threads, 32)
+    if threads % width:
+        raise ValueError(f"K1b's order takes fewer than 32 threads a ray or a multiple of 32, "
+                         f"got {threads}")
+    return t.reshape(t.shape[0], threads // width, width)
+
+
 def echo_backward_plain(r: torch.Tensor, grad: torch.Tensor, mode: str = "parity",
-                        att: float = 0.5, lanes: int = LANES) -> torch.Tensor:
+                        att: float = 0.5, threads: int | None = None) -> torch.Tensor:
     """K1b's evaluation order in plain PyTorch: the VJP of
     ``depth_attenuation(echo_amplitudes(r, mode), att)`` with respect to
     ``r`` (``(..., N)``), for ``grad`` ``(..., N+1)``; bit for bit what
-    ``csrc/echo_scan_bwd.cu`` computes with ``lanes`` lanes per ray.  Every
-    step runs in float64 (IEEE, no FMA contraction), from the f32 inputs
-    and :func:`_exp_table`, and ``dr`` is rounded to ``r``'s dtype once: in
-    f32 the chunked carries near a resonance put the gradient ~10x further
-    from float64 than autograd through the plain scan, in f64 ~10x nearer.
+    ``csrc/echo_scan_bwd.cu`` computes with ``threads`` threads per ray
+    (default :func:`bwd_threads`).  Every step runs in float64 (IEEE, no
+    FMA contraction), from the f32 inputs and :func:`_exp_table`, and ``dr``
+    is rounded to ``r``'s dtype once: in f32 the chunked carries near a
+    resonance put the gradient ~10x further from float64 than autograd
+    through the plain scan, in f64 ~10x nearer.
 
-    Derivation.  Step ``i = 1..N`` takes ``r_{i-1}``: ``P_i = inv_i M_i
-    P_{i-1}`` from ``P_0 = I``, ``inv_i`` the renormalization, and
-    ``out_i = -c_i/d_i * att_i``.  Every echo is homogeneous of degree 0
-    in a carry, so the path through ``inv_i`` contributes nothing in exact
-    arithmetic (autograd through the plain scan differentiates the ``max``
-    anyway), and with ``G_i`` the echo's cotangent on ``P_i``
-    (:func:`_echo_cotangent`) the carries' cotangents run the reverse affine
-    recurrence
+    Derivation.  Step ``i = 1..N`` takes ``r_{i-1}``: ``P_i = s_i M_i
+    P_{i-1}`` from ``P_0 = I``, ``s_i > 0`` a scale, and ``out_i = -c_i/d_i
+    * att_i``.  Every echo is homogeneous of degree 0 in a carry, so the
+    scales change neither the echoes nor, in exact arithmetic, their VJP
+    (autograd through the plain scan differentiates its ``max`` anyway), and
+    with ``G_i`` the echo's cotangent on ``P_i`` (:func:`_echo_cotangent`)
+    the carries' cotangents run the reverse affine recurrence
 
-        A_N = G_N,   A_{i-1} = G_{i-1} + inv_i M_i^T A_i,
+        A_N = G_N,   A_{i-1} = G_{i-1} + s_i M_i^T A_i,
 
-    and ``dr_{i-1} = inv_i <A_i, (dM_i/dr) P_{i-1}>``, with ``dM/dr =
+    and ``dr_{i-1} = s_i <A_i, (dM_i/dr) P_{i-1}>``, with ``dM/dr =
     [[-4r, 1], [-1, 0]]`` in parity mode and ``[[0, 1], [1, 0]]`` in
-    symmetric mode.
+    symmetric mode.  ``s_i`` is a power of two (:func:`_pow2_scaled`), so
+    scaling rounds nothing and needs no division.
 
-    Order, per ray, with the forward's chunks (lane ``l`` owns steps
-    ``lC+1 .. (l+1)C``):
+    Order, per ray, thread ``l`` owning steps ``lC+1 .. (l+1)C``, ``C =
+    ceil(N / threads)``, the threads in warps of 32:
 
-    1. the carries in (:func:`_carry_in`), then each chunk replayed from
-       its carry, keeping ``P_{i-1}`` and ``inv_i`` of every step, and
-       folding the chunk into the affine map ``Y -> T Y + h`` that takes
-       the cotangent entering its last step from the next chunk to the one
-       leaving its first: ``R_i = R_{i-1} (inv_i M_i^T)`` (``R_0 = I``),
-       ``T = R_C``, ``h = sum_i R_i G_i`` in step order;
-    2. an inclusive suffix scan of the maps over the chunks, each lane
-       composing with the lane ``o`` later for ``o = 1, 2, 4, ..``
-       (:func:`_compose`; the warp's ``__shfl_down_sync`` rounds), shifted
-       by one chunk: the last chunk's ``Y`` is 0;
-    3. each chunk walks its steps backwards from ``Y``:
-       ``A_i = B_{i+1} + G_i``, ``dr``, then ``B_i = inv_i M_i^T A_i``.
+    1. the chunk products from the identity; their inclusive scan within
+       each warp (:func:`_prefix_scan` by :func:`_combine_pow2`), the warps'
+       totals scanned the same way, and each chunk's carry in: ``P_w`` (the
+       totals of the earlier warps, the identity in warp 0) for lane 0, else
+       the warp's inclusive product up to lane ``l - 1`` left-multiplying
+       ``P_w``;
+    2. each chunk replayed from its carry, keeping ``P_{i-1}``, ``s_i`` and
+       ``G_i`` of every step, and folded into the affine map ``Y -> T Y +
+       h`` that takes the cotangent entering its last step from the next
+       chunk to the one leaving its first: ``R_i = R_{i-1} (s_i M_i^T)``
+       (``R_0 = I``), ``T = R_C``, ``h = sum_i R_i G_i`` in step order;
+    3. an inclusive suffix scan of the maps within each warp
+       (:func:`_suffix_scan`), the warps' totals suffix-scanned, and each
+       chunk's ``Y``: ``T' h_U + h'`` of lane ``l + 1``'s map ``(T', h')``
+       and ``h_U``, the totals' ``h`` from the next warp on (0 after the
+       last), or ``h_U`` alone for lane 31;
+    4. each chunk walks its steps backwards from ``Y``:
+       ``A_i = B_{i+1} + G_i``, ``dr``, then ``B_i = s_i M_i^T A_i``.
     """
     if mode not in _MODES:
         raise ValueError(f"unsupported reflection mode for the kernel: {mode!r}")
@@ -224,43 +299,58 @@ def echo_backward_plain(r: torch.Tensor, grad: torch.Tensor, mode: str = "parity
     if grad.shape != lead + (n + 1,):
         raise ValueError(f"grad {tuple(grad.shape)} for r {tuple(r.shape)}: need "
                          f"{tuple(lead + (n + 1,))}")
-    x = _chunks(r.double(), lanes)
+    if threads is None:
+        threads = bwd_threads(n)
+    x = _chunks(r.double(), threads)
     b, c = x.shape[0], x.shape[-1]
     table = _exp_table(n, float(att), r.device)
-    g = _chunks(grad.reshape(b, n + 1)[:, 1:].double() * table[1:], lanes)
-    real = (torch.arange(lanes * c, device=r.device) < n).reshape(lanes, c)
+    g = _chunks(grad.reshape(b, n + 1)[:, 1:].double() * table[1:], threads)
+    real = (torch.arange(threads * c, device=r.device) < n).reshape(threads, c)
     parity = mode == "parity"
     one = torch.ones_like(x[..., 0])
 
-    carry = _carry_in(x, parity)
-    before, invs = [], []
+    q = _identity(one)
+    for i in range(c):
+        q, _ = _advance(q, x[..., i], parity, _pow2_scaled)
+    incl = _prefix_scan(tuple(_warps(e, threads) for e in q), _combine_pow2)
+    totals = _prefix_scan(tuple(e[..., -1] for e in incl), _combine_pow2)
+    before = tuple(torch.cat([e[:, :1], t[:, :-1]], dim=1)[..., None].expand_as(w)
+                   for e, t, w in zip(_identity(totals[0]), totals, incl))
+    prev = tuple(torch.cat([e[..., :1], e[..., :-1]], dim=-1) for e in incl)
+    first = torch.arange(incl[0].shape[-1], device=r.device) == 0
+    carry = tuple(torch.where(first, p, m).reshape(b, threads)
+                  for p, m in zip(before, _combine_pow2(before, prev)))
+
+    before, scales, cots = [], [], []
     rt, h = _identity(one), (torch.zeros_like(one),) * 4
     for i in range(c):
         xi = x[..., i]
         before.append(carry)
-        carry, inv = _advance(carry, xi, parity)
-        invs.append(inv)
+        carry, s = _advance(carry, xi, parity, _pow2_scaled)
+        scales.append(s)
         k, m10 = (1.0 - 2.0 * xi * xi, -xi) if parity else (one, xi)
         ra, rb, rc, rd = rt
-        rt = ((ra * k + rb * xi) * inv, (ra * m10 + rb) * inv,
-              (rc * k + rd * xi) * inv, (rc * m10 + rd) * inv)
+        rt = ((ra * k + rb * xi) * s, (ra * m10 + rb) * s,
+              (rc * k + rd * xi) * s, (rc * m10 + rd) * s)
         gc, gd = _echo_cotangent(carry, g[..., i], real[:, i])
+        cots.append((gc, gd))
         h = (h[0] + rt[1] * gc, h[1] + rt[1] * gd, h[2] + rt[3] * gc, h[3] + rt[3] * gd)
 
-    s, o = (rt, h), 1
-    while o < lanes:
-        head = tuple(tuple(e[:, :-o] for e in part) for part in s)
-        tail = tuple(tuple(e[:, o:] for e in part) for part in s)
-        s = tuple(tuple(torch.cat([new, e[:, lanes - o:]], dim=1) for new, e in zip(pn, part))
-                  for pn, part in zip(_compose(head, tail), s))
-        o *= 2
-    bt = tuple(torch.cat([e[:, 1:], torch.zeros_like(e[:, :1])], dim=1) for e in s[1])
+    maps = _suffix_scan(tuple(tuple(_warps(e, threads) for e in part) for part in (rt, h)))
+    totals = _suffix_scan(tuple(tuple(e[..., 0] for e in part) for part in maps))
+    hu = tuple(torch.cat([e[:, 1:], torch.zeros_like(e[:, :1])], dim=1)[..., None]
+               for e in totals[1])
+    (ta, tb, tc, td), (ha, hb, hc, hd) = (tuple(e[..., 1:] for e in part) for part in maps)
+    ua, ub, uc, ud = hu
+    nxt = (ta * ua + tb * uc + ha, ta * ub + tb * ud + hb,
+           tc * ua + td * uc + hc, tc * ub + td * ud + hd)
+    bt = tuple(torch.cat([v, u], dim=-1).reshape(b, threads) for v, u in zip(nxt, hu))
 
     dr = [None] * c
     for i in reversed(range(c)):
-        xi, inv = x[..., i], invs[i]
+        xi, s = x[..., i], scales[i]
         pa, pb, pc, pd = before[i]
-        gc, gd = _echo_cotangent(carry, g[..., i], real[:, i])
+        gc, gd = cots[i]
         aa, ab, ac, ad = bt[0], bt[1], bt[2] + gc, bt[3] + gd
         if parity:
             m4 = -4.0 * xi
@@ -269,27 +359,26 @@ def echo_backward_plain(r: torch.Tensor, grad: torch.Tensor, mode: str = "parity
         else:
             dq = (pc, pd, pa, pb)
             k, m10 = one, xi
-        dr[i] = (aa * dq[0] + ab * dq[1] + ac * dq[2] + ad * dq[3]) * inv
-        bt = ((k * aa + m10 * ac) * inv, (k * ab + m10 * ad) * inv,
-              (xi * aa + ac) * inv, (xi * ab + ad) * inv)
-        carry = before[i]
-    dr = torch.stack(dr, dim=-1).reshape(b, lanes * c)[:, :n]
+        dr[i] = (aa * dq[0] + ab * dq[1] + ac * dq[2] + ad * dq[3]) * s
+        bt = ((k * aa + m10 * ac) * s, (k * ab + m10 * ad) * s,
+              (xi * aa + ac) * s, (xi * ab + ad) * s)
+    dr = torch.stack(dr, dim=-1).reshape(b, threads * c)[:, :n]
     return dr.to(r.dtype).reshape(lead + (n,))
 
 
-def _rows(r: torch.Tensor, lanes: int):
-    """The kernels' checks and ``r``'s ``(B, N)`` ray-major rows (no copy if
-    contiguous)."""
+def _rows(r: torch.Tensor) -> torch.Tensor:
+    """The kernels' dtype check and ``r``'s ``(B, N)`` ray-major rows (no
+    copy if contiguous)."""
     if r.dtype != torch.float32:
         raise TypeError(f"echo scan kernel takes float32, got {r.dtype}")
-    if lanes not in (8, 16, 32):
-        raise ValueError(f"the echo scan kernel is built for 8, 16 or 32 lanes, got {lanes}")
     n = r.shape[-1]
     return r.reshape(r.shape[:-1].numel(), n).contiguous()
 
 
 def _launch(r: torch.Tensor, mode: str, att: float, lanes: int = LANES) -> torch.Tensor:
-    rows = _rows(r, lanes)
+    rows = _rows(r)
+    if lanes not in (8, 16, 32):
+        raise ValueError(f"the echo scan kernel is built for 8, 16 or 32 lanes, got {lanes}")
     b, n = rows.shape
     out = torch.empty((b, n + 1), dtype=torch.float32, device=r.device)
     table = _att_table(n, float(att), r.device)
@@ -304,11 +393,17 @@ def _launch(r: torch.Tensor, mode: str, att: float, lanes: int = LANES) -> torch
 
 
 def _launch_bwd(r: torch.Tensor, grad: torch.Tensor, mode: str, att: float,
-                lanes: int = LANES) -> torch.Tensor:
+                threads: int | None = None) -> torch.Tensor:
     """K1b: ``dr`` ``(..., N)`` for the echo trace's gradient ``grad``
-    ``(..., N+1)``."""
-    rows = _rows(r, lanes)
+    ``(..., N+1)``, with ``threads`` threads per ray (default
+    :func:`bwd_threads`)."""
+    rows = _rows(r)
     b, n = rows.shape
+    if threads is None:
+        threads = bwd_threads(n)
+    elif threads not in BWD_THREADS or n > threads * BWD_CHUNK:
+        raise ValueError(f"K1b is built for {BWD_THREADS} threads per ray and at most "
+                         f"{BWD_CHUNK} interfaces a thread, got {threads} threads for {n}")
     if grad.dtype != torch.float32 or grad.device != r.device:
         raise TypeError(f"echo scan backward takes a float32 grad on {r.device}, got "
                         f"{grad.dtype} on {grad.device}")
@@ -321,7 +416,7 @@ def _launch_bwd(r: torch.Tensor, grad: torch.Tensor, mode: str, att: float,
     stream = torch.cuda.current_stream(r.device).cuda_stream
     with torch.cuda.device(r.device):
         status = lib.diffus_echo_scan_bwd(rows.data_ptr(), g.data_ptr(), table.data_ptr(),
-                                          dr.data_ptr(), n, b, _MODES[mode], lanes, stream)
+                                          dr.data_ptr(), n, b, _MODES[mode], threads, stream)
     _build.check(status, "echo scan backward")
     echo_fused.bwd_launches += 1
     return dr.reshape(r.shape)

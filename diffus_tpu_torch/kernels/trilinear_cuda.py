@@ -28,8 +28,10 @@ launches ``csrc/trilinear_bwd.cu`` (kernel K2b), the VJP that JAX's
 ``_bwd`` (``tile_select_pallas.py:153-160``) takes through the XLA blend:
 the volume's, the sources' and the directions' gradients, each only when
 asked, from the ray form's own inputs.  The volume gradient sums in
-integer fixed point, so it is deterministic by construction (the scale
-and its error are in the source's header).
+integer fixed point, so it is deterministic by construction, over the
+voxels the rays touch only: their sums are zeroed and read, the rest of
+the dense gradient is written +0.0 (the scale, its error and the passes
+are in the source's header).
 :func:`march_trilinear_backward_plain` is K2b's order in plain PyTorch.
 The points form's backward still runs autograd through
 :func:`~diffus_tpu_torch.ops.sampling.sample_trilinear`; no path of the
@@ -293,10 +295,12 @@ def _launch_march_bwd(volume: torch.Tensor, source: torch.Tensor, directions: to
         return torch.empty(shape, dtype=dtype, device=vol.device)
 
     need_v, need_s, need_d = need
-    dvol = acc = nan_mask = gmax = None
+    dvol = acc = masks = None
     if need_v:
+        # the int64 sums, read and written at the touched voxels only; the
+        # touched and NaN bitmaps and the max, zeroed by the kernel's memset
         dvol, acc = empty(d, h, w), empty(vol.numel(), dtype=torch.int64)
-        nan_mask, gmax = empty(-(-vol.numel() // 32), dtype=torch.int32), empty(1, dtype=torch.int32)
+        masks = empty(2 * -(-vol.numel() // 32) + 1, dtype=torch.int32)
     src_part = dir_part = dsrc_pose = dsrc_sum = ddir_sum = None
     sum_src = need_s and _pose_summed(source.shape[:-1], lead)
     sum_dirs = need_d and _pose_summed(directions.shape[:-2], lead)
@@ -313,7 +317,7 @@ def _launch_march_bwd(volume: torch.Tensor, source: torch.Tensor, directions: to
     with torch.cuda.device(vol.device):
         status = lib.diffus_trilinear_march_bwd(
             vol.data_ptr(), src.data_ptr(), dirs.data_ptr(), pose_stride, g.data_ptr(), p,
-            n_rays, num_samples, step, d, h, w, ptr(dvol), ptr(acc), ptr(nan_mask), ptr(gmax),
+            n_rays, num_samples, step, d, h, w, ptr(dvol), ptr(acc), ptr(masks),
             _fixed_point_base(g.numel()), ptr(src_part), ptr(dir_part), ptr(dsrc_pose),
             ptr(dsrc_sum), ptr(ddir_sum), stream)
     _build.check(status, "trilinear march backward")

@@ -58,13 +58,13 @@ def _renormalized(a, b, c, d):
     return (a * inv, b * inv, c * inv, d * inv), inv
 
 
-def _combine(p, q):
+def _combine(p, q, renorm=_renormalized):
     """Later element ``q`` left-multiplies ``p`` (``Q @ P``), renormalized
-    by the max-abs entry (:func:`_renormalized`)."""
+    by ``renorm`` (the max-abs entry's, :func:`_renormalized`)."""
     pa, pb, pc, pd = p
     qa, qb, qc, qd = q
-    return _renormalized(qa * pa + qb * pc, qa * pb + qb * pd,
-                         qc * pa + qd * pc, qc * pb + qd * pd)[0]
+    return renorm(qa * pa + qb * pc, qa * pb + qb * pd,
+                  qc * pa + qd * pc, qc * pb + qd * pd)[0]
 
 
 def impedance_weighted_rho(r: torch.Tensor, z1: torch.Tensor, z2: torch.Tensor) -> torch.Tensor:
@@ -73,14 +73,14 @@ def impedance_weighted_rho(r: torch.Tensor, z1: torch.Tensor, z2: torch.Tensor) 
     return -r * z1 / z2
 
 
-def _prefix_scan(elems):
+def _prefix_scan(elems, combine=_combine):
     """Inclusive prefix products along the last axis, log-step doubling."""
     n = elems[0].shape[-1]
     offset = 1
     while offset < n:
         earlier = tuple(t[..., :-offset] for t in elems)
         later = tuple(t[..., offset:] for t in elems)
-        combined = _combine(earlier, later)
+        combined = combine(earlier, later)
         elems = tuple(
             torch.cat([t[..., :offset], c], dim=-1) for t, c in zip(elems, combined)
         )

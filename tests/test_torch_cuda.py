@@ -13,6 +13,7 @@ import torch
 from diffus_tpu_torch.geometry import fan_directions_2d
 from diffus_tpu_torch.kernels.gather_probe import gather_probe, take_probe
 from diffus_tpu_torch.kernels.propagation_cuda import (
+    BWD_THREADS,
     _att_table,
     _launch,
     _launch_bwd,
@@ -142,25 +143,43 @@ def test_echo_kernel_gradient_matches_plain(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("lanes", [8, 16, 32])
-def test_echo_backward_kernel_matches_its_twin_bit_for_bit(cuda, lanes):
+@pytest.mark.parametrize("threads", BWD_THREADS)
+def test_echo_backward_kernel_matches_its_twin_bit_for_bit(cuda, threads):
     """K1b and ``echo_backward_plain`` run the same IEEE f64 operations in
     the same order: equal bit for bit (NaN where NaN: the NaN and d' = 0
-    rows), at depths below, at and above the lane count, training's 401 and
-    recovery's 511, and rays that leave a lane group part-empty."""
+    rows), at depths below, at and above the thread count, training's 401
+    and recovery's 511, rays that leave threads without interfaces, and
+    rays as deep as the thread count allows (8 interfaces a thread)."""
     rng = np.random.default_rng(10)
-    for n in (1, 3, 17, 31, 33, 40, 128, 401, 511):
+    for n in (1, 3, 17, 31, 33, 40, 128, 401, 511, 8 * threads):
         for b in (1, 5, 37):
             r = torch.from_numpy(_k1_rows(rng, b, n, 0.3)).to(cuda)
             g = torch.from_numpy(rng.normal(size=(b, n + 1)).astype(np.float32)).to(cuda)
             for mode in ("parity", "symmetric"):
-                got = _launch_bwd(r, g, mode, 1e-3, lanes)
-                want = echo_backward_plain(r, g, mode, 1e-3, lanes)
+                got = _launch_bwd(r, g, mode, 1e-3, threads)
+                want = echo_backward_plain(r, g, mode, 1e-3, threads)
                 torch.cuda.synchronize()
                 assert _same(got, want), (n, b, mode)
                 if n >= 3 and b >= 3:
                     row = 1 if mode == "parity" else 2
                     assert bool(torch.isnan(got[[0, row]]).all()), (n, b, mode)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("threads", BWD_THREADS)
+def test_echo_backward_kernel_matches_its_twin_at_the_paths_shapes(cuda, threads):
+    """Recovery's 2048 x 511 and training's 256 x 401, with the NaN and d' =
+    0 rows (whose whole dr is NaN): kernel == twin bit for bit."""
+    rng = np.random.default_rng(13)
+    for b, n in ((2048, 511), (256, 401)):
+        r = torch.from_numpy(_k1_rows(rng, b, n, 0.3)).to(cuda)
+        g = torch.from_numpy(rng.normal(size=(b, n + 1)).astype(np.float32)).to(cuda)
+        for mode, row in (("parity", 1), ("symmetric", 2)):
+            got = _launch_bwd(r, g, mode, 1e-4, threads)
+            want = echo_backward_plain(r, g, mode, 1e-4, threads)
+            torch.cuda.synchronize()
+            assert _same(got, want), (b, n, mode)
+            assert bool(torch.isnan(got[[0, row]]).all()) and bool(torch.isfinite(got[3:]).all())
 
 
 @pytest.mark.cuda
@@ -187,6 +206,8 @@ def test_echo_backward_kernel_rejects(cuda):
         _launch_bwd(r, g.double(), "parity", 0.1)
     with pytest.raises(TypeError, match="float32 grad"):
         _launch_bwd(r, g.cpu(), "parity", 0.1)
+    with pytest.raises(ValueError, match="threads per ray"):
+        _launch_bwd(r, g, "parity", 0.1, threads=96)
 
 
 @pytest.mark.cuda
@@ -375,6 +396,58 @@ def test_march_gradient_launches_k2b_and_is_deterministic(cuda):
         assert march_trilinear_fused.bwd_launches == before + 1
         grads.append(vol.grad)
     assert torch.equal(grads[0], grads[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(32, 32, 32), (40, 33, 35)])
+def test_march_volume_gradient_nan_voxel_and_untouched_zeros(cuda, shape):
+    """K2b's volume gradient (summed over the touched voxels only) equals
+    ``march_trilinear_backward_plain`` bit for bit: a NaN gradient makes its
+    corners' voxels NaN, and every voxel no ray touched reads exactly +0.0
+    (the scratch sums there are never zeroed nor read).  32^3 is whole
+    groups of 1024 voxels, 40 x 33 x 35 ends in a partial one."""
+    rng = np.random.default_rng(14)
+    vol = torch.from_numpy(rng.uniform(0.5, 2.0, shape).astype(np.float32)).to(cuda)
+    src = torch.tensor([[4.2, 3.1, 5.3], [30.5, 6.2, 2.7]], device=cuda)
+    dirs = torch.from_numpy(rng.normal(size=(2, 16, 3)).astype(np.float32)).to(cuda)
+    g = torch.from_numpy(rng.normal(size=(2, 16, 48)).astype(np.float32)).to(cuda)
+    g[1, 3, 10] = float("nan")
+    need = (True, False, False)
+    got = k2._launch_march_bwd(vol, src, dirs, 48, 0.5, g, need)[0]
+    want = k2.march_trilinear_backward_plain(vol, src, dirs, 48, 0.5, g, need)[0]
+    torch.cuda.synchronize()
+    assert _same(got, want)
+    touched = torch.zeros(vol.numel(), dtype=torch.bool, device=cuda)
+    pts = ray_points(src, dirs, 48, 0.5).reshape(-1, 3)
+    hi = torch.tensor(shape, device=cuda) - 1
+    i0 = torch.floor(torch.minimum(torch.clamp(pts, min=0.0), hi.float())).long()
+    for corner in range(8):
+        offset = torch.tensor([(corner >> k) & 1 for k in (2, 1, 0)], device=cuda)
+        c = torch.minimum(i0 + offset, hi)
+        touched[(c[:, 0] * shape[1] + c[:, 1]) * shape[2] + c[:, 2]] = True
+    untouched = got.reshape(-1)[~touched]
+    assert untouched.numel() > 0 and bool((untouched == 0).all())
+    assert not bool(torch.signbit(untouched).any())
+    assert 0 < int(torch.isnan(got).sum()) <= 8
+
+
+@pytest.mark.cuda
+def test_march_volume_gradient_carries_no_state_between_calls(cuda):
+    """Back-to-back volume gradients with different ``grad`` on one volume,
+    then on a volume of another shape (its scratch reused by the allocator):
+    each equals its own twin's result bit for bit."""
+    rng = np.random.default_rng(15)
+    need = (True, False, False)
+    vol_a = torch.from_numpy(rng.uniform(0.5, 2.0, (24, 20, 28)).astype(np.float32)).to(cuda)
+    vol_b = torch.from_numpy(rng.uniform(0.5, 2.0, (30, 26, 18)).astype(np.float32)).to(cuda)
+    for vol, rays, n in ((vol_a, 12, 40), (vol_a, 12, 40), (vol_b, 7, 33)):
+        src = torch.from_numpy(rng.uniform(2.0, 16.0, (1, 3)).astype(np.float32)).to(cuda)
+        dirs = torch.from_numpy(rng.normal(size=(1, rays, 3)).astype(np.float32)).to(cuda)
+        g = torch.from_numpy(rng.normal(size=(1, rays, n)).astype(np.float32)).to(cuda)
+        got = k2._launch_march_bwd(vol, src, dirs, n, 0.5, g, need)[0]
+        want = k2.march_trilinear_backward_plain(vol, src, dirs, n, 0.5, g, need)[0]
+        torch.cuda.synchronize()
+        assert _same(got, want), tuple(vol.shape)
 
 
 @pytest.mark.cuda
