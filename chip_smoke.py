@@ -4,13 +4,25 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --requests    # phases 1, 2 and the service's request times only
     python3 chip_smoke.py --backward    # phases 1, 2 and phase 5's K1b and K2b readings only
+    python3 chip_smoke.py --points-study   # phases 1, 2 and what K2b's points path spends on what
+    python3 chip_smoke.py --recovery-step  # phases 1, 2 and phase 10's step and its K2b alone
 
 ``--requests`` times the serving path alone (latency and device-time split
 per tier: K1, K2, ``ray_points`` and the rest), ``--backward`` the
 backward kernels alone (phase 5's readings of K1b and K2b, on phase 3's
 inputs), each with whatever ``diffus_tpu_torch`` sits beside the script,
 so a copy of the script beside another checkout's package times that
-package.
+package.  ``--points-study`` copies the package once for each edit of
+``csrc/trilinear_bwd.cu`` in ``_POINTS_STUDY`` (the march alone, the
+sums in one block, the corner gathers, the grad load, other patch shapes,
+paired z loads) into
+``diffus_tpu_torch/build/study/``, builds the copies together and times
+K2b's points path in each (``--points-time``, in a process of its own).
+``--recovery-step`` times phase 10's recovery step, each step from its
+starts (the profiler's split), and K2b's points path alone on the inputs
+that step gives it, with L2 warm and after a write that evicts it, so a
+copy beside another checkout times that checkout's step on the same
+inputs.
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -40,9 +52,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    (``march_trilinear_backward_plain``) at 1 pose x 256 x 512 with the
    volume gradient (also with a NaN gradient: NaN voxels, untouched ones
    +0.0; then back to back on the volume and a cropped one) and at 8 poses
-   without it, on per-pose fans, the shared fan and the shared fan as an
-   expanded view, with a NaN source and two poses outside the volume, and
-   against plain autograd;
+   without it, on per-pose fans, one source for the per-pose fans, the
+   shared fan and the shared fan as an expanded view, with a NaN source and
+   two poses outside the volume, and against plain autograd; the points path
+   at 8 x 256 x 512 twice back to back (no state between calls);
 4. main path: a ``RendererService`` on the 256^3 phantom at 256 rays x 512
    samples, ``interp='trilinear_fused'`` with ``use_pallas=True``, tiers
    (1, 8, 32), each request rendered as it comes (``coalesce=False``), answers requests of 1, 5 and 32 poses; K1's and K2's ray
@@ -164,6 +177,7 @@ import copy
 import dataclasses
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -540,6 +554,7 @@ def _backward_checks(dev, vol, r_near, r_tri, src_m, dirs, rng) -> dict:
              ("1 pose, the volume (training's)", src1, dirs, g1, (True, False, False)),
              ("1 pose, the volume, a NaN gradient", src1, dirs, g1_nan, (True, False, False)),
              ("8 poses, own fans (recovery's)", src8, fans, g8, (False, True, True)),
+             ("8 poses, one source, own fans", src8[3], fans, g8, (False, True, True)),
              ("8 poses, shared (R, 3) fan", src8, dirs, g8, (False, True, True)),
              ("8 poses, shared fan expanded", src8, dirs.expand(8, -1, -1), g8,
               (False, True, True)))
@@ -553,6 +568,17 @@ def _backward_checks(dev, vol, r_near, r_tri, src_m, dirs, rng) -> dict:
                 raise AssertionError(f"K2b, {label}: the {name}' gradient differs from "
                                      f"march_trilinear_backward_plain")
         out[label] = got
+    # the points path at recovery's 8 x 256 x 512, twice back to back (no
+    # state between calls), on per-pose fans and the shared fan
+    points_need = (False, True, True)
+    for label, d in (("own fans", fans), ("shared fan", dirs)):
+        want = k2.march_trilinear_backward_plain(vol, src8, d, N_SAMPLES, 1.0, g8, points_need)
+        for call in (1, 2):
+            got = k2._launch_march_bwd(vol, src8, d, N_SAMPLES, 1.0, g8, points_need)
+            torch.cuda.synchronize()
+            if not all(_same_signed(a, b) for a, b in zip(got[1:], want[1:])):
+                raise AssertionError(f"K2b's points path, {label}, call {call}: differs from "
+                                     f"march_trilinear_backward_plain")
     dvol_nan = out["1 pose, the volume, a NaN gradient"][0]
     n_nan, n_zero = int(torch.isnan(dvol_nan).sum()), int((dvol_nan == 0).sum())
     # a sample touches at most 8 voxels: at least the rest must read +0.0
@@ -596,7 +622,8 @@ def _backward_checks(dev, vol, r_near, r_tri, src_m, dirs, rng) -> dict:
           f"directions {pts_err:.3e} of the largest gradient; the NaN source's gradient "
           f"(NaN, 0, NaN) in both; a NaN gradient: {n_nan} NaN voxels, {n_zero} of "
           f"{vol.numel()} voxels +0.0; back to back on {tuple(vol.shape)} and "
-          f"{tuple(crop.shape)} equal too", flush=True)
+          f"{tuple(crop.shape)} equal too; the points path at 8 x {N_RAYS} x {N_SAMPLES} "
+          f"twice back to back, own and shared fans, equal too", flush=True)
     return {"k1b_err": 0.0, "k2b_err": 0.0, "k2b_vs_autograd": max(k2b_err, pts_err)}
 
 
@@ -2132,12 +2159,301 @@ def _backward_only(dev, card: str) -> int:
     return 0
 
 
+# Edits of csrc/trilinear_bwd.cu that --points-study times, to tell what K2b's
+# points path spends on what: (anchor, replacement), each anchor found once
+_SUMS = "#pragma unroll\n  for (int q = 0; q < kSums; ++q) lane_sums[rr][lane_of_ray][q] = acc[q];"
+_GATHER = "    if (c.in) load_corners<Off>(vol, c, h, w, v);"
+_NO_GATHER = "    if (c.in) for (int q = 0; q < 8; ++q) v[q] = c.fx * q + c.fz;"
+_SUMS_LAUNCH = ("  march_bwd_point_sums_kernel<<<sum_blocks, kThreads, 0, stream>>>(\n"
+                "      ray_src, dsrc_pose, ddir_pose, dsrc_sum, ddir_sum, static_cast<int>(p), "
+                "n_rays);\n")
+
+
+def _patch(rays: int) -> list:
+    return [("constexpr int kPatchRays = 4;", f"constexpr int kPatchRays = {rays};")]
+
+
+# K2's corner reads (trilinear.cu): one aligned float4 for z0 and z1 where
+# the rows are 16-byte aligned and z0 % 4 != 3; with ``warp``, only where
+# every active lane of the warp can
+_CORNERS = "// The 8 corners of a sample from the volume"
+_SCALAR_LOADS = ("  for (int q = 0; q < 4; ++q) v[2 * q] = __ldg(col[q] + c.z0), "
+                 "v[2 * q + 1] = __ldg(col[q] + c.z1);")
+
+
+def _paired(warp: bool = False) -> list:
+    pair = "c.z1 == c.z0 + 1 && (c.z0 & 3) != 3"
+    quad = ("  const bool quad = w % 4 == 0 && reinterpret_cast<unsigned long long>(vol) % 16 == 0"
+            + (f" && __all_sync(__activemask(), {pair});\n" if warp else ";\n"))
+    return [(_CORNERS, """__device__ __forceinline__ float2 z_pair(const float* __restrict__ col, int z0, int z1,
+                                         bool quad) {
+  if (quad && z1 == z0 + 1 && (z0 & 3) != 3) {
+    const float4 q = __ldg(reinterpret_cast<const float4*>(col + (z0 & ~3)));
+    const int lane = z0 & 3;
+    return lane == 0 ? make_float2(q.x, q.y)
+                     : (lane == 1 ? make_float2(q.y, q.z) : make_float2(q.z, q.w));
+  }
+  return make_float2(__ldg(col + z0), __ldg(col + z1));
+}
+
+""" + _CORNERS),
+            ("#pragma unroll\n" + _SCALAR_LOADS, quad + "#pragma unroll\n"
+             "  for (int q = 0; q < 4; ++q) {\n"
+             "    const float2 z = z_pair(col[q], c.z0, c.z1, quad);\n"
+             "    v[2 * q] = z.x, v[2 * q + 1] = z.y;\n"
+             "  }")]
+
+
+_POINTS_STUDY = {
+    "shipped": [],
+    "the march alone: no trees, no sums launch (one store keeps the lanes' sums)": [
+        (_SUMS, "  if (acc[0] == 1234.5f && acc[1] + acc[5] == 0.25f) ray_src[0] = acc[1];\n"
+                "  if (n > 0) return;\n" + _SUMS), (_SUMS_LAUNCH, "")],
+    "no corner gathers": [(_GATHER, _NO_GATHER)],
+    "no corner gathers, no grad load": [
+        (_GATHER, _NO_GATHER), ("  c.g = c.in ? __ldg(g_ray + k) : 0.0f;", "  c.g = 0.5f + c.t;")],
+    "the sums launch in one block": [
+        ("                                  : static_cast<unsigned>((3 * p + kWarps - 1) / kWarps);",
+         "                                  : 1u;")],
+    "patch 8 rays x 4 samples": _patch(8),
+    "patch 2 rays x 16 samples": _patch(2),
+    "patch 1 ray x 32 samples (a warp a ray)": _patch(1),
+    "paired z loads (one float4 for z0 and z1, as K2 reads them)": _paired(),
+    "paired z loads only where the whole warp pairs": _paired(warp=True),
+}
+
+
+def _recovery_inputs(dev):
+    """Phase 5's K2b points inputs: the 256^3 phantom, 8 sources, per-pose
+    fans (the service's fan with noise) and their values' gradient; and
+    ``recover_pose``'s kind of fans, the service's fan rotated by each pose
+    (rotvecs ~ N(0, ROT_SCALE))."""
+    from diffus_tpu_torch.geometry.fan import pose_fan_directions
+    from diffus_tpu_torch.phantoms import brain_phantom_3d
+    from diffus_tpu_torch.serve import RendererService
+    from diffus_tpu_torch.types import BeamGeometry, RenderConfig, TransducerPose
+
+    rng = np.random.default_rng(0)
+    vol = torch.from_numpy(brain_phantom_3d(SHAPE)).to(dev)
+    cfg = RenderConfig(attenuation_coeff=ATT, interp="trilinear_fused", use_pallas=True)
+    dirs = RendererService(vol, BeamGeometry(N_RAYS, N_SAMPLES), cfg, batch_tiers=TIERS,
+                           device=dev, coalesce=False).directions
+    src8 = _sources(rng, 8).to(dev)
+    noise = torch.from_numpy(rng.normal(size=(8, N_RAYS, 3)).astype(np.float32)).to(dev)
+    noisy = (dirs[None] + 0.02 * noise).contiguous()
+    pose = TransducerPose.create(src8, torch.from_numpy(
+        rng.normal(0.0, ROT_SCALE, (8, 3)).astype(np.float32)).to(dev))
+    rotated = pose_fan_directions(pose, BeamGeometry(N_RAYS, N_SAMPLES)).contiguous()
+    g = torch.from_numpy(rng.normal(size=(8, N_RAYS, N_SAMPLES)).astype(np.float32)).to(dev)
+    return vol, src8, {"noisy": noisy, "rotated": rotated}, g
+
+
+def _graph_us(fn, iters: int) -> float:
+    """Device microseconds a call of ``fn``, the gaps between its launches
+    included and the host's time left out: ``iters`` calls captured in one
+    CUDA graph (after 3 on the capturing stream), replayed 10 times between
+    CUDA events."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for _ in range(3):
+            fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(10):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) * 1e3 / (10 * iters)
+
+
+def _points_time(dev) -> int:
+    """``--points-time``: K2b's points path alone (its kernels' device time,
+    and a call's time in a CUDA graph, gaps between launches included) and
+    K2's ray form alone (values only) at recovery's 8 x 256 x 512, on both
+    kinds of fans; then K2b on the recovery step's own inputs, L2 warm and
+    flushed; one line."""
+    from diffus_tpu_torch.kernels import trilinear_cuda as k2
+
+    vol, src8, fans, g = _recovery_inputs(dev)
+    need = (False, True, True)
+    parts = []
+    for kind, d in fans.items():
+        bwd = _device_us_per_call(
+            lambda: k2._launch_march_bwd(vol, src8, d, N_SAMPLES, 1.0, g, need), 20,
+            f"K2b points, {kind} fans")
+        graph = _graph_us(lambda: k2._launch_march_bwd(vol, src8, d, N_SAMPLES, 1.0, g, need), 20)
+        fwd = _kernel_device_us(lambda: k2._launch_march(vol, src8, d, N_SAMPLES, 1.0, False),
+                                "trilinear_march_kernel", 20)
+        parts.append(f"{kind} fans: K2b points {bwd:.2f} us (in a CUDA graph {graph:.2f} us a "
+                     f"call), K2 forward {fwd:.2f} us")
+    args = _recovery_step_setup(dev)[1]
+    warm, cold = (sum(split.values()) for split in _k2b_us_warm_and_cold(dev, args))
+    graph = _graph_us(lambda: k2._launch_march_bwd(*args), 20)
+    parts.append(f"the recovery step's inputs: K2b points {warm:.2f} us (in a CUDA graph "
+                 f"{graph:.2f} us a call), {cold:.2f} us after a 128 MiB write")
+    print("; ".join(parts), flush=True)
+    return 0
+
+
+def _points_study(card: str, only: list) -> int:
+    """``--points-study [WORD ...]``: each edit of ``_POINTS_STUDY`` (those
+    whose names hold one of the words, if any are given, and the shipped
+    source) in a copy of the package under ``diffus_tpu_torch/build/study/``,
+    built together, then ``--points-time`` in each copy in turn (the shipped
+    copy first and last)."""
+    from diffus_tpu_torch.kernels import _build
+
+    base = _build.BUILD_DIR / "study"
+    shutil.rmtree(base, ignore_errors=True)
+    roots = {}
+    study = {name: edits for name, edits in _POINTS_STUDY.items()
+             if name == "shipped" or not only or any(word in name for word in only)}
+    for i, (name, edits) in enumerate(study.items()):
+        root = base / str(i)
+        shutil.copytree(_build.SRC_DIR.parent, root / "diffus_tpu_torch",
+                        ignore=shutil.ignore_patterns("build", "__pycache__"))
+        shutil.copy(os.path.join(ROOT, "chip_smoke.py"), root)
+        src = root / "diffus_tpu_torch" / "csrc" / "trilinear_bwd.cu"
+        text = src.read_text()
+        for old, new in edits:
+            if text.count(old) != 1:
+                raise AssertionError(f"points study, {name}: an edit's anchor is not in "
+                                     f"trilinear_bwd.cu once")
+            text = text.replace(old, new)
+        src.write_text(text)
+        roots[name] = root
+    build = "from diffus_tpu_torch.kernels import _build; _build.library()"
+    procs = {name: subprocess.Popen([sys.executable, "-c", build], cwd=root,
+                                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for name, root in roots.items()}
+    for name, proc in procs.items():
+        out = proc.communicate(timeout=600)[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"points study, {name}: build failed\n{out[-3000:]}")
+    for name in [*roots, "shipped"]:
+        run = subprocess.run([sys.executable, "chip_smoke.py", "--points-time"], cwd=roots[name],
+                             capture_output=True, text=True, timeout=600)
+        if run.returncode != 0:
+            raise RuntimeError(f"points study, {name}: exit {run.returncode}\n{run.stderr[-3000:]}")
+        print(f"points study [{card}], {name}: {run.stdout.strip().splitlines()[-1]}", flush=True)
+    shutil.rmtree(base, ignore_errors=True)
+    return 0
+
+
+def _recovery_step_setup(dev):
+    """Phase 10's recovery step at its STARTS starts on the phase-4 service:
+    ``(step, args)``, ``step()`` one ``pose_step`` from the starts (the pose
+    is set back to them first, so every step, in any checkout, gives the
+    kernels the same inputs, up to the last bits of the gradients) and
+    ``args`` the arguments that one step gave K2b (``_launch_march_bwd``)."""
+    from diffus_tpu_torch.kernels import trilinear_cuda as k2
+    from diffus_tpu_torch.phantoms import brain_phantom_3d
+    from diffus_tpu_torch.serve import RendererService
+    from diffus_tpu_torch.train.pose_recovery import (
+        gaussian_blur_frame,
+        make_pose_optimizer,
+        pose_step,
+        render_pose,
+        sample_init_poses,
+    )
+    from diffus_tpu_torch.types import BeamGeometry, RenderConfig, TransducerPose
+
+    vol = torch.from_numpy(brain_phantom_3d(SHAPE)).to(dev)
+    cfg = RenderConfig(attenuation_coeff=ATT, interp="trilinear_fused", use_pallas=True)
+    svc = RendererService(vol, BeamGeometry(N_RAYS, N_SAMPLES), cfg, batch_tiers=TIERS,
+                          device=dev, coalesce=False)
+    rcfg = svc._recovery_config()
+    base, sigma = rcfg.as_base(), rcfg.phases[0][0]
+    with torch.no_grad():
+        target = render_pose(svc.volume, TransducerPose.create(APEX, device=dev), base)
+    init = sample_init_poses(torch.Generator(device=dev).manual_seed(RECOVERY_SEED), APEX,
+                             RADIUS, ROT_SCALE, STARTS)
+    target_b = gaussian_blur_frame(target, sigma)
+    pose = TransducerPose(init.position.clone().requires_grad_(True),
+                          init.rotvec.clone().requires_grad_(True))
+    opt = make_pose_optimizer(pose, rcfg.phases[0][1], rcfg.phases[0][2])
+
+    def step():
+        with torch.no_grad():   # every step from the starts: the same inputs in any checkout
+            pose.position.copy_(init.position)
+            pose.rotvec.copy_(init.rotvec)
+        pose_step(svc.volume, target_b, pose, opt, base, sigma)
+
+    seen = []
+    launch = k2._launch_march_bwd
+
+    def keep(*args):
+        seen.append(args)
+        return launch(*args)
+
+    k2._launch_march_bwd = keep
+    try:
+        step()
+    finally:
+        k2._launch_march_bwd = launch
+    torch.cuda.synchronize()
+    if len(seen) != 1:
+        raise AssertionError(f"the recovery step called K2b {len(seen)} times, not once")
+    return step, seen[0]
+
+
+def _k2b_us_warm_and_cold(dev, args) -> tuple:
+    """K2b's kernels' device microseconds a call on ``args`` (profiler, 20
+    calls): back to back, so the corners' lines stay in L2, and after a 128
+    MiB write before each call (the recovery step's other kernels pass more
+    than L2's 50 MB between two K2b launches); each ``{kernel: us}``."""
+    from diffus_tpu_torch.kernels import trilinear_cuda as k2
+
+    flush = torch.empty(32 << 20, dtype=torch.float32, device=dev)
+
+    def cold():
+        flush.fill_(1.0)
+        k2._launch_march_bwd(*args)
+
+    warm = _device_split(lambda: k2._launch_march_bwd(*args), 20, "K2b back to back")
+    cold = {k: us for k, us in _device_split(cold, 20, "K2b after an L2 flush").items()
+            if "march_bwd" in k}
+    return warm, cold
+
+
+def _recovery_step_only(dev, card: str) -> int:
+    """``--recovery-step``: phase 10's recovery step from its 8 starts (its
+    times and the profiler's split, as phase 10 prints them, two copies of
+    the starts into the pose a step more), then K2b's
+    points path alone on the inputs that step gives it, L2 warm and
+    flushed (``_k2b_us_warm_and_cold``), by kernel."""
+    step, args = _recovery_step_setup(dev)
+    _step_times(card, f"recovery step ({STARTS} starts, full width)", "pose_step", step)
+    warm, cold = _k2b_us_warm_and_cold(dev, args)
+    print(f"times [{card}]: K2b's points path alone on the recovery step's inputs "
+          f"({tuple(args[5].shape)}; profiler, by kernel), back to back: "
+          + ", ".join(f"{k} {us:.2f} us" for k, us in warm.items())
+          + "; each call after a 128 MiB write: "
+          + ", ".join(f"{k} {us:.2f} us" for k, us in cold.items()), flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--requests", action="store_true",
                         help="time only the service's requests at each tier")
     parser.add_argument("--backward", action="store_true",
                         help="time only the backward kernels K1b and K2b (phase 5's readings)")
+    parser.add_argument("--points-study", nargs="*", metavar="WORD",
+                        help="time K2b's points path in copies with parts of its work left out "
+                             "(the entries whose names hold a WORD, if any are given)")
+    parser.add_argument("--points-time", action="store_true",
+                        help="time K2b's points path and K2 alone at recovery's shape (one line)")
+    parser.add_argument("--recovery-step", action="store_true",
+                        help="time only phase 10's recovery step and K2b on its inputs")
     args = parser.parse_args(argv)
     # -- 1. device ---------------------------------------------------------
     if not torch.cuda.is_available():
@@ -2165,6 +2481,12 @@ def main(argv=None) -> int:
         return _requests_only(dev, card)
     if args.backward:
         return _backward_only(dev, card)
+    if args.points_time:
+        return _points_time(dev)
+    if args.points_study is not None:
+        return _points_study(card, args.points_study)
+    if args.recovery_step:
+        return _recovery_step_only(dev, card)
 
     import torch.nn.functional as F
 

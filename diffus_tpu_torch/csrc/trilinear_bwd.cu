@@ -61,18 +61,46 @@
 // (a segmented shuffle scan of the int64 terms, exact): one atomic a run.
 // The int64 sums are addressed by voxel (d h w slots, allocated but neither
 // zeroed nor read outside the touched ones); the masks are 0.25 B a voxel.
-// The sources' and directions' sums are per ray and per pose: one warp a
-// ray adds its samples in a fixed order (lane l takes samples l, l + 32, ...,
-// then a shuffle tree), and the same warp sum over rays gives each pose's
-// source gradient and, for a fan shared by the poses, over poses the fan's;
-// no float atomics.
-//
-// What bounds it on the card: bytes.  With the volume gradient the dense
-// (D, H, W) f32 gradient is written (64 MiB at 256^3, 20 us at 3.35 TB/s);
-// the scratch adds the masks (4 MiB zeroed and read at 256^3) and ~24 B a
-// touched voxel (its sum zeroed, added to and read).  Without it, the value
-// gradient is read (4 B a sample) with the corner sectors, as the forward's
-// bound counts them.
+// The sources' and directions' gradients (the points path): the sums are
+// per ray, then per pose, then over the poses for a source or fan every
+// pose shares, each in a fixed order by index, with no float atomic, so the
+// path is deterministic by construction.  The order is the earlier
+// one-warp-a-ray design's (lane l of a ray adds samples l, l + 32, ... in
+// turn; a warp's shuffle tree over the lanes; the same over the rays and
+// the poses), so the gradients are that design's bit for bit: a faster
+// order (each of 64 slots a ray summing its own samples) changed their last
+// bits, and pose recovery's chaotic full-width descent then ended worse
+// than it began (PERF.md).  Two launches:
+// - the point kernel: a block is 8 rays x 32 lanes that march the rays to
+//   their ends, the lanes of 4 rays first, so a warp is a patch of 4 rays x
+//   8 samples as in K2's forward; one warp sums a ray's 32 lanes from
+//   shared memory; each ray's source and direction are loaded once; 32-bit
+//   voxel offsets where the volume allows; the corners by 8 scalar loads;
+// - the sums kernel: a warp a pose's source component (one block where a
+//   sum runs over the poses).
+// Timed at recovery's 8 poses x 256 rays x 512 samples on the 256^3
+// phantom, on the recovery step's own inputs, with L2 flushed before each
+// call (as the step's other kernels leave it) and back to back
+// (chip_smoke.py --points-study and --recovery-step; NVIDIA H100 80GB HBM3,
+// 700 W):
+// - shipped: 21.0 and 19.2 us; the earlier design (a warp a ray, its sums
+//   in a second kernel) 25.8-26.5 and 24.2-24.4 us on the same inputs;
+// - the corners as K2 reads them (one float4 for z0 and z1 where aligned,
+//   else two scalar loads): 25.9 and 20.6 us, and 23.7 against 20.3 us on
+//   fans with noise; only where the whole warp can pair: 24.2 and 19.8 us
+//   (a warp whose lanes split between the two paths runs both, likely);
+// - other patches: 8 x 4 21.6 and 19.3 us, 2 x 16 22.6 and 21.0, a warp a
+//   ray (1 x 32) 28.7 and 24.4;
+// - the sums in the point kernel, by the last block of each pose to take a
+//   ticket (one launch): 0.1-0.5 us faster, within two runs' spread, for a
+//   ticket buffer kept between calls; the sums kernel in one block 23.5 and
+//   22.1 us;
+// - 2 or 4 samples in flight a lane, or a block's box of voxels staged in
+//   shared memory: slower on every input (PERF.md).
+// What bounds it now: not bytes (7.8 MB, 2.3 us).  The march alone (no
+// trees, no sums kernel) takes 17.6 and 15.6 us; without the corner
+// gathers 15.1 and 10.9 us, without the grad load either 10.2 us: ~170
+// instructions a sample (--fmad=false) from 16 warps an SM.
 
 #include <cfloat>
 
@@ -83,12 +111,6 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFullMask = 0xffffffffu;
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(kFullMask, v, o);
-  return v;
-}
 
 // The clamp's share of a fraction's gradient df at component p.
 __device__ __forceinline__ float clamp_pass(float p, float df, int dim) {
@@ -308,98 +330,214 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// One warp a ray (flat over pose, ray): the point gradient of each sample,
-// summed over the ray's samples as is (-> the source) and times k * step
-// (-> the direction).  src_part, dir_part: (p, n_rays, 3).
-__global__ void __launch_bounds__(kThreads)
+// --- the points' gradients: the sources' and the directions' -------------
+
+// A block is kRays adjacent rays of one pose x kLanes lanes a ray, which
+// march the rays to their ends.  Lane l of a ray adds the terms of samples
+// l, l + 32, l + 64, ... in turn, and a ray's 32 lanes meet in the halving
+// tree of a warp's shuffle-down sum: the order of the one-warp-a-ray design,
+// so the gradients are that design's bit for bit.  Threads run across kPatchRays
+// rays first, then the lanes, so a warp is a patch of 4 rays x 8
+// consecutive samples, as K2's ray form tiles them (trilinear.cu).
+constexpr int kRays = 8;
+constexpr int kLanes = 32;
+constexpr int kPatchRays = 4;       // the rays of a warp's patch
+constexpr int kSums = 6;            // a ray's source (3) and direction (3) sums
+// Blocks an SM must hold (at most 64 registers a thread): 4 x 132 SMs take
+// recovery's 8 x 32 blocks in one wave.
+constexpr int kPointBlocks = 4;
+static_assert(kRays == kWarps, "a warp sums each ray's lanes");
+
+// One sample's point, corners and fractions, as trilinear_at computes them.
+struct Sample {
+  float3 pt;
+  float fx, fy, fz, g, t;
+  int x0, x1, y0, y1, z0, z1;
+  bool in;
+};
+
+// Sample k of a ray from source s along direction dv: march_point's three
+// roundings, from the ray's source and direction held in registers.  A ray
+// past the last (`in` false) gets a point too, which no sum takes, and no
+// grad.
+__device__ __forceinline__ Sample make_sample(float3 s, float3 dv, const float* __restrict__ g_ray,
+                                              bool ray_in, int64_t k, float step, int d, int h,
+                                              int w) {
+  Sample c;
+  c.in = ray_in;
+  c.t = static_cast<float>(k) * step;
+  c.pt = make_float3(s.x + c.t * dv.x, s.y + c.t * dv.y, s.z + c.t * dv.z);
+  c.g = c.in ? __ldg(g_ray + k) : 0.0f;
+  corner_coords(c.pt.x, d, c.x0, c.x1, c.fx);
+  corner_coords(c.pt.y, h, c.y0, c.y1, c.fy);
+  corner_coords(c.pt.z, w, c.z0, c.z1, c.fz);
+  return c;
+}
+
+// The 8 corners of a sample from the volume: z0 and z1 of each (x, y)
+// column, 8 scalar loads.  Off: int where the volume's voxels fit in an int
+// (fewer instructions than 64-bit offsets), else int64_t.
+template <typename Off>
+__device__ __forceinline__ void load_corners(const float* __restrict__ vol, const Sample& c,
+                                             int h, int w, float* v) {
+  const Off hw = static_cast<Off>(h) * w;
+  const float* plane0 = vol + c.x0 * hw;
+  const float* plane1 = vol + c.x1 * hw;
+  const Off by0 = static_cast<Off>(c.y0) * w, by1 = static_cast<Off>(c.y1) * w;
+  const float* col[4] = {plane0 + by0, plane0 + by1, plane1 + by0, plane1 + by1};
+#pragma unroll
+  for (int q = 0; q < 4; ++q) v[2 * q] = __ldg(col[q] + c.z0), v[2 * q + 1] = __ldg(col[q] + c.z1);
+}
+
+// The point gradient of a sample through the clamp, from its 8 corners v
+// (v000, v001, v010, v011, v100, v101, v110, v111): the header's dfx, dfy,
+// dfz into t[0..2] (the source's terms) and times k * step into t[3..5]
+// (the direction's); +0.0 for a ray past the last (which changes no sum: a
+// sum from +0.0 is never -0.0).
+__device__ __forceinline__ void point_terms(const Sample& c, const float* v, int d, int h, int w,
+                                            float* t) {
+  const float gx = 1.0f - c.fx, gy = 1.0f - c.fy, gz = 1.0f - c.fz;
+  const float c00 = v[0] * gz + v[1] * c.fz, c01 = v[2] * gz + v[3] * c.fz;
+  const float c10 = v[4] * gz + v[5] * c.fz, c11 = v[6] * gz + v[7] * c.fz;
+  const float c0 = c00 * gy + c01 * c.fy, c1 = c10 * gy + c11 * c.fy;
+  const float dc0 = c.g * gx, dc1 = c.g * c.fx;
+  const float dc00 = dc0 * gy, dc01 = dc0 * c.fy, dc10 = dc1 * gy, dc11 = dc1 * c.fy;
+  const float dfx = c.g * (c1 - c0);
+  const float dfy = dc0 * (c01 - c00) + dc1 * (c11 - c10);
+  const float dfz = dc00 * (v[1] - v[0]) + dc01 * (v[3] - v[2]) + dc10 * (v[5] - v[4]) +
+                    dc11 * (v[7] - v[6]);
+  t[0] = c.in ? clamp_pass(c.pt.x, dfx, d) : 0.0f;
+  t[1] = c.in ? clamp_pass(c.pt.y, dfy, h) : 0.0f;
+  t[2] = c.in ? clamp_pass(c.pt.z, dfz, w) : 0.0f;
+  t[3] = c.in ? t[0] * c.t : 0.0f;
+  t[4] = c.in ? t[1] * c.t : 0.0f;
+  t[5] = c.in ? t[2] * c.t : 0.0f;
+}
+
+// The sum of x over a warp's lanes as a shuffle-down tree takes it (halving:
+// x[l] + x[l + 16], then + 8, 4, 2, 1); lane 0 holds it.
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_down_sync(kFullMask, x, o);
+  return x;
+}
+
+// The points' gradients, in a fixed order (no float atomics), the
+// one-warp-a-ray design's.  The point kernel: each lane of a ray adds its
+// samples' 6 terms in turn to 0, and a ray's 32 lanes meet in a halving
+// tree: each ray's direction gradient (-> ddir_pose) and source sum (->
+// ray_src).
+template <typename Off>
+__global__ void __launch_bounds__(kThreads, kPointBlocks)
     march_bwd_point_kernel(const float* __restrict__ vol, const float* __restrict__ src,
-                      const float* __restrict__ dirs, int64_t dir_pose_stride,
-                      const float* __restrict__ grad, float* __restrict__ src_part,
-                      float* __restrict__ dir_part, int64_t rays, int n_rays, int n, float step,
-                      int d, int h, int w) {
-  const int64_t ray = static_cast<int64_t>(blockIdx.x) * kWarps + threadIdx.x / 32;
-  if (ray >= rays) return;  // warp-uniform
-  const int lane = threadIdx.x % 32;
-  const int64_t p = ray / n_rays;
-  const float* s = src + 3 * p;
-  const float* dv = dirs + p * dir_pose_stride + 3 * (ray % n_rays);
-  const float* g_ray = grad + ray * n;
-  const int64_t hw = static_cast<int64_t>(h) * w;
-  float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f, t0 = 0.0f, t1 = 0.0f, t2 = 0.0f;
-  for (int k = lane; k < n; k += 32) {
-    const float t = static_cast<float>(k) * step;
-    const float3 pt = march_point(s, dv, k, step);
-    int x0, x1, y0, y1, z0, z1;
-    float fx, fy, fz;
-    corner_coords(pt.x, d, x0, x1, fx);
-    corner_coords(pt.y, h, y0, y1, fy);
-    corner_coords(pt.z, w, z0, z1, fz);
-    const float* c00p = vol + x0 * hw + static_cast<int64_t>(y0) * w;
-    const float* c01p = vol + x0 * hw + static_cast<int64_t>(y1) * w;
-    const float* c10p = vol + x1 * hw + static_cast<int64_t>(y0) * w;
-    const float* c11p = vol + x1 * hw + static_cast<int64_t>(y1) * w;
-    const float v000 = __ldg(c00p + z0), v001 = __ldg(c00p + z1);
-    const float v010 = __ldg(c01p + z0), v011 = __ldg(c01p + z1);
-    const float v100 = __ldg(c10p + z0), v101 = __ldg(c10p + z1);
-    const float v110 = __ldg(c11p + z0), v111 = __ldg(c11p + z1);
-    const float g = g_ray[k];
-    const float gx = 1.0f - fx, gy = 1.0f - fy, gz = 1.0f - fz;
-    const float c00 = v000 * gz + v001 * fz, c01 = v010 * gz + v011 * fz;
-    const float c10 = v100 * gz + v101 * fz, c11 = v110 * gz + v111 * fz;
-    const float c0 = c00 * gy + c01 * fy, c1 = c10 * gy + c11 * fy;
-    const float dc0 = g * gx, dc1 = g * fx;
-    const float dc00 = dc0 * gy, dc01 = dc0 * fy, dc10 = dc1 * gy, dc11 = dc1 * fy;
-    const float dfx = g * (c1 - c0);
-    const float dfy = dc0 * (c01 - c00) + dc1 * (c11 - c10);
-    const float dfz = dc00 * (v001 - v000) + dc01 * (v011 - v010) + dc10 * (v101 - v100) +
-                      dc11 * (v111 - v110);
-    const float dpx = clamp_pass(pt.x, dfx, d), dpy = clamp_pass(pt.y, dfy, h),
-                dpz = clamp_pass(pt.z, dfz, w);
-    s0 += dpx;
-    s1 += dpy;
-    s2 += dpz;
-    t0 += dpx * t;
-    t1 += dpy * t;
-    t2 += dpz * t;
+                           const float* __restrict__ dirs, int64_t dir_pose_stride,
+                           const float* __restrict__ grad, int n_rays, int n, float step, int d,
+                           int h, int w, float* __restrict__ ray_src,
+                           float* __restrict__ ddir_pose) {
+  constexpr int kGroup = kPatchRays * kLanes;  // the threads of kPatchRays rays
+  __shared__ float lane_sums[kRays][kLanes][kSums];
+  const int r_tiles = (n_rays + kRays - 1) / kRays;
+  const int64_t pose = blockIdx.x / r_tiles;
+  const int r0 = static_cast<int>(blockIdx.x % r_tiles) * kRays;
+  const int rr = threadIdx.x / kGroup * kPatchRays + threadIdx.x % kPatchRays;  // ray in block
+  const int lane_of_ray = threadIdx.x % kGroup / kPatchRays;
+  const int r = r0 + rr;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+
+  const bool ray_in = r < n_rays;
+  float3 s0 = make_float3(0.0f, 0.0f, 0.0f), dv = s0;
+  if (ray_in) {
+    const float* ray_dir = dirs + pose * dir_pose_stride + 3 * static_cast<int64_t>(r);
+    s0 = make_float3(__ldg(src + 3 * pose), __ldg(src + 3 * pose + 1), __ldg(src + 3 * pose + 2));
+    dv = make_float3(__ldg(ray_dir), __ldg(ray_dir + 1), __ldg(ray_dir + 2));
   }
-  s0 = warp_sum(s0);
-  s1 = warp_sum(s1);
-  s2 = warp_sum(s2);
-  t0 = warp_sum(t0);
-  t1 = warp_sum(t1);
-  t2 = warp_sum(t2);
-  if (lane == 0) {
-    src_part[3 * ray] = s0;
-    src_part[3 * ray + 1] = s1;
-    src_part[3 * ray + 2] = s2;
-    dir_part[3 * ray] = t0;
-    dir_part[3 * ray + 1] = t1;
-    dir_part[3 * ray + 2] = t2;
+  const float* g_ray = grad + (pose * n_rays + r) * n;
+  float acc[kSums] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  for (int64_t k = lane_of_ray; k < n; k += kLanes) {
+    const Sample c = make_sample(s0, dv, g_ray, ray_in, k, step, d, h, w);
+    float v[8] = {};
+    if (c.in) load_corners<Off>(vol, c, h, w, v);
+    float t[kSums];
+    point_terms(c, v, d, h, w, t);
+#pragma unroll
+    for (int q = 0; q < kSums; ++q) acc[q] += t[q];
+  }
+#pragma unroll
+  for (int q = 0; q < kSums; ++q) lane_sums[rr][lane_of_ray][q] = acc[q];
+  __syncthreads();
+  // warp w sums ray w's lanes (kRays == kWarps)
+  float x[kSums];
+#pragma unroll
+  for (int q = 0; q < kSums; ++q) x[q] = warp_sum(lane_sums[warp][lane][q]);
+  if (lane == 0 && r0 + warp < n_rays) {
+    const int64_t at = (pose * n_rays + r0 + warp) * 3;
+#pragma unroll
+    for (int q = 0; q < 3; ++q) ray_src[at + q] = x[q], ddir_pose[at + q] = x[3 + q];
   }
 }
 
-// out[o], o = a * n_c + c, = the sum over m < n_m of x[a sa + m sm + c sc],
-// one warp an output, in the ray sum's order.
+// The sums after the rays', the point kernel's second launch.  Warp t of
+// the grid takes pose t / 3's source component t % 3: lane l adds the
+// source sums of rays l, l + 32, ... in turn to 0, then a warp's halving
+// tree (-> dsrc_pose).  With dsrc_sum or ddir_sum the grid is one block,
+// which then sums over the poses the same way: lane l takes poses l, l + 32,
+// ..., then the tree.
 __global__ void __launch_bounds__(kThreads)
-    march_bwd_sum_kernel(const float* __restrict__ x, float* __restrict__ out, int64_t n_out,
-                       int n_c, int64_t n_m, int64_t sa, int64_t sm, int64_t sc) {
-  const int64_t o = static_cast<int64_t>(blockIdx.x) * kWarps + threadIdx.x / 32;
-  if (o >= n_out) return;  // warp-uniform
-  const int lane = threadIdx.x % 32;
-  const float* base = x + (o / n_c) * sa + (o % n_c) * sc;
-  float acc = 0.0f;
-  for (int64_t m = lane; m < n_m; m += 32) acc += base[m * sm];
-  acc = warp_sum(acc);
-  if (lane == 0) out[o] = acc;
+    march_bwd_point_sums_kernel(const float* __restrict__ ray_src, float* dsrc_pose,
+                                const float* __restrict__ ddir_pose, float* __restrict__ dsrc_sum,
+                                float* __restrict__ ddir_sum, int n_poses, int n_rays) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  for (int t = blockIdx.x * kWarps + warp; t < 3 * n_poses; t += kWarps * gridDim.x) {
+    const int64_t pose = t / 3;
+    const int c = t % 3;
+    float x = 0.0f;
+    for (int i = lane; i - lane < n_rays; i += 32)
+      x += i < n_rays ? ray_src[(pose * n_rays + i) * 3 + c] : 0.0f;
+    x = warp_sum(x);
+    if (lane == 0) dsrc_pose[pose * 3 + c] = x;
+  }
+  if (dsrc_sum == nullptr && ddir_sum == nullptr) return;
+  __syncthreads();  // one block: every pose's sums are written
+  if (dsrc_sum != nullptr && warp < 3) {
+    float x = 0.0f;
+    for (int q = lane; q - lane < n_poses; q += 32)
+      x += q < n_poses ? dsrc_pose[3 * q + warp] : 0.0f;
+    x = warp_sum(x);
+    if (lane == 0) dsrc_sum[warp] = x;
+  }
+  if (ddir_sum != nullptr) {
+    for (int64_t o = warp; o < 3LL * n_rays; o += kWarps) {  // one warp an output
+      float x = 0.0f;
+      for (int q = lane; q - lane < n_poses; q += 32)
+        x += q < n_poses ? ddir_pose[3LL * n_rays * q + o] : 0.0f;
+      x = warp_sum(x);
+      if (lane == 0) ddir_sum[o] = x;
+    }
+  }
 }
 
-cudaError_t strided_sum(const float* x, float* out, int64_t n_out, int n_c, int64_t n_m,
-                        int64_t sa, int64_t sm, int64_t sc, cudaStream_t stream) {
-  if (n_out == 0) return cudaSuccess;
-  const int64_t blocks = (n_out + kWarps - 1) / kWarps;
+cudaError_t launch_points(const float* vol, const float* src, const float* dirs,
+                          int64_t dir_pose_stride, const float* grad, int64_t p, int n_rays,
+                          int n, float step, int d, int h, int w, float* ray_src,
+                          float* dsrc_pose, float* ddir_pose, float* dsrc_sum, float* ddir_sum,
+                          cudaStream_t stream) {
+  const int64_t blocks = p * ((n_rays + kRays - 1) / kRays);
   if (blocks > INT_MAX) return cudaErrorInvalidConfiguration;
-  march_bwd_sum_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(x, out, n_out, n_c,
-                                                                            n_m, sa, sm, sc);
+  const unsigned grid = static_cast<unsigned>(blocks);
+  if (static_cast<int64_t>(d) * h * w <= INT_MAX) {
+    march_bwd_point_kernel<int><<<grid, kThreads, 0, stream>>>(
+        vol, src, dirs, dir_pose_stride, grad, n_rays, n, step, d, h, w, ray_src, ddir_pose);
+  } else {
+    march_bwd_point_kernel<int64_t><<<grid, kThreads, 0, stream>>>(
+        vol, src, dirs, dir_pose_stride, grad, n_rays, n, step, d, h, w, ray_src, ddir_pose);
+  }
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const unsigned sum_blocks = dsrc_sum != nullptr || ddir_sum != nullptr
+                                  ? 1u
+                                  : static_cast<unsigned>((3 * p + kWarps - 1) / kWarps);
+  march_bwd_point_sums_kernel<<<sum_blocks, kThreads, 0, stream>>>(
+      ray_src, dsrc_pose, ddir_pose, dsrc_sum, ddir_sum, static_cast<int>(p), n_rays);
   return cudaGetLastError();
 }
 
@@ -412,8 +550,9 @@ cudaError_t strided_sum(const float* x, float* out, int64_t n_out, int n_c, int6
 cudaError_t march_bwd(const float* vol, const float* src, const float* dirs,
                       int64_t dir_pose_stride, const float* grad, int64_t p, int n_rays, int n,
                       float step, int d, int h, int w, float* dvol, long long* acc,
-                      unsigned* masks, int base, float* src_part, float* dir_part,
-                      float* dsrc_pose, float* dsrc_sum, float* ddir_sum, cudaStream_t stream) {
+                      unsigned* masks, int base, float* dsrc_pose, float* ddir_pose,
+                      float* dsrc_sum, float* ddir_sum, float* ray_src,
+                      cudaStream_t stream) {
   const int64_t rays = p * n_rays, total = rays * n;
   if (dvol != nullptr) {
     const int64_t nvox = static_cast<int64_t>(d) * h * w, words = (nvox + 31) / 32;
@@ -440,24 +579,9 @@ cudaError_t march_bwd(const float* vol, const float* src, const float* dirs,
       RETURN_IF_FAILED(cudaGetLastError());
     }
   }
-  if (src_part != nullptr) {
-    if (rays > 0) {
-      const int64_t blocks = (rays + kWarps - 1) / kWarps;
-      if (blocks > INT_MAX) return cudaErrorInvalidConfiguration;
-      march_bwd_point_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-          vol, src, dirs, dir_pose_stride, grad, src_part, dir_part, rays, n_rays, n, step, d, h,
-          w);
-      RETURN_IF_FAILED(cudaGetLastError());
-    }
-    // each pose's source: over its rays; then, where asked, over the poses
-    RETURN_IF_FAILED(strided_sum(src_part, dsrc_pose, 3 * p, 3, n_rays, 3LL * n_rays, 3, 1,
-                                 stream));
-    if (dsrc_sum != nullptr)
-      RETURN_IF_FAILED(strided_sum(dsrc_pose, dsrc_sum, 3, 3, p, 0, 3, 1, stream));
-    // a fan shared by every pose: each ray's direction over the poses
-    if (ddir_sum != nullptr)
-      RETURN_IF_FAILED(strided_sum(dir_part, ddir_sum, 3LL * n_rays, 3, p, 3, 3LL * n_rays, 1,
-                                   stream));
+  if (dsrc_pose != nullptr && p > 0 && n_rays > 0 && n > 0) {
+    return launch_points(vol, src, dirs, dir_pose_stride, grad, p, n_rays, n, step, d, h, w,
+                         ray_src, dsrc_pose, ddir_pose, dsrc_sum, ddir_sum, stream);
   }
   return cudaSuccess;
 }
@@ -471,19 +595,19 @@ cudaError_t march_bwd(const float* vol, const float* src, const float* dirs,
 // non-null, and its scratch: acc (d h w) int64, neither zeroed nor read
 // outside the touched voxels; masks (2 ceil(d h w / 32) + 1) uint32: the
 // touched bitmap, the NaN mask and the max |g|, zeroed here; base = 61 -
-// ceil(log2(p n_rays n)).  The points' gradients with src_part
-// non-null: src_part and dir_part (p, n_rays, 3) f32 (dir_part: each pose's
-// direction gradient), dsrc_pose (p, 3) f32, and where non-null dsrc_sum (3)
-// f32, the source's summed over the poses, and ddir_sum (n_rays, 3) f32, the
-// directions' summed over the poses.  Launches on `stream`; returns the first
-// failing launch's or memset's cudaError_t, else cudaSuccess.
+// ceil(log2(p n_rays n)).  The points' gradients with dsrc_pose non-null:
+// dsrc_pose (p, 3) f32 and ddir_pose (p, n_rays, 3) f32, each pose's source
+// and direction gradients, and where non-null dsrc_sum (3) f32, the source's
+// summed over the poses, and ddir_sum (n_rays, 3) f32, the directions'
+// summed over the poses; their scratch: ray_src (p, n_rays, 3) f32, the
+// rays' source sums.  Launches on `stream`; returns the first failing launch's or memset's
+// cudaError_t, else cudaSuccess.
 extern "C" int diffus_trilinear_march_bwd(
     const float* vol, const float* src, const float* dirs, int64_t dir_pose_stride,
     const float* grad, int64_t p, int n_rays, int n, float step, int d, int h, int w, float* dvol,
-    long long* acc, unsigned* masks, int base, float* src_part, float* dir_part, float* dsrc_pose,
-    float* dsrc_sum, float* ddir_sum, void* stream) {
+    long long* acc, unsigned* masks, int base, float* dsrc_pose, float* ddir_pose,
+    float* dsrc_sum, float* ddir_sum, float* ray_src, void* stream) {
   return static_cast<int>(march_bwd(vol, src, dirs, dir_pose_stride, grad, p, n_rays, n, step, d,
-                                    h, w, dvol, acc, masks, base, src_part, dir_part,
-                                    dsrc_pose, dsrc_sum, ddir_sum,
-                                    static_cast<cudaStream_t>(stream)));
+                                    h, w, dvol, acc, masks, base, dsrc_pose, ddir_pose, dsrc_sum,
+                                    ddir_sum, ray_src, static_cast<cudaStream_t>(stream)));
 }

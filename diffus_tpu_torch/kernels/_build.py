@@ -53,7 +53,7 @@ _SIGNATURES = {
                                ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
                                ctypes.c_int, ctypes.c_int, _c),
     # vol, src, dirs, dir_pose_stride, grad, p, n_rays, n, step, d, h, w, dvol, acc, masks,
-    # base, src_part, dir_part, dsrc_pose, dsrc_sum, ddir_sum, stream
+    # base, dsrc_pose, ddir_pose, dsrc_sum, ddir_sum, ray_src, stream
     "diffus_trilinear_march_bwd": (_c, _c, _c, ctypes.c_int64, _c, ctypes.c_int64, ctypes.c_int,
                                    ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
                                    ctypes.c_int, _c, _c, _c, ctypes.c_int, _c, _c, _c, _c, _c,

@@ -31,7 +31,10 @@ asked, from the ray form's own inputs.  The volume gradient sums in
 integer fixed point, so it is deterministic by construction, over the
 voxels the rays touch only: their sums are zeroed and read, the rest of
 the dense gradient is written +0.0 (the scale, its error and the passes
-are in the source's header).
+are in the source's header).  The sources' and directions' gradients sum
+per ray, per pose and over the poses in a fixed order by index (a point
+kernel, then a launch for the sums), with no float atomics: deterministic
+by construction too.
 :func:`march_trilinear_backward_plain` is K2b's order in plain PyTorch.
 The points form's backward still runs autograd through
 :func:`~diffus_tpu_torch.ops.sampling.sample_trilinear`; no path of the
@@ -301,13 +304,18 @@ def _launch_march_bwd(volume: torch.Tensor, source: torch.Tensor, directions: to
         # touched and NaN bitmaps and the max, zeroed by the kernel's memset
         dvol, acc = empty(d, h, w), empty(vol.numel(), dtype=torch.int64)
         masks = empty(2 * -(-vol.numel() // 32) + 1, dtype=torch.int32)
-    src_part = dir_part = dsrc_pose = dsrc_sum = ddir_sum = None
+    dsrc_pose = ddir_pose = dsrc_sum = ddir_sum = ray_src = None
     sum_src = need_s and _pose_summed(source.shape[:-1], lead)
     sum_dirs = need_d and _pose_summed(directions.shape[:-2], lead)
     if need_s or need_d:
-        src_part, dir_part, dsrc_pose = empty(p, n_rays, 3), empty(p, n_rays, 3), empty(p, 3)
-        dsrc_sum = empty(3) if sum_src else None
-        ddir_sum = empty(n_rays, 3) if sum_dirs else None
+        # one allocation: the outputs are views of it, the rays' source sums its tail
+        sizes = (p * 3, p * n_rays * 3, 3 * sum_src, n_rays * 3 * sum_dirs, p * n_rays * 3)
+        buf = (empty(sum(sizes)) if g.numel() else
+               torch.zeros(sum(sizes), dtype=torch.float32, device=vol.device))
+        dsrc_pose, ddir_pose, dsrc_sum, ddir_sum, ray_src = buf.split(sizes)
+        dsrc_pose, ddir_pose = dsrc_pose.view(p, 3), ddir_pose.view(p, n_rays, 3)
+        dsrc_sum = dsrc_sum if sum_src else None
+        ddir_sum = ddir_sum.view(n_rays, 3) if sum_dirs else None
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -318,12 +326,12 @@ def _launch_march_bwd(volume: torch.Tensor, source: torch.Tensor, directions: to
         status = lib.diffus_trilinear_march_bwd(
             vol.data_ptr(), src.data_ptr(), dirs.data_ptr(), pose_stride, g.data_ptr(), p,
             n_rays, num_samples, step, d, h, w, ptr(dvol), ptr(acc), ptr(masks),
-            _fixed_point_base(g.numel()), ptr(src_part), ptr(dir_part), ptr(dsrc_pose),
-            ptr(dsrc_sum), ptr(ddir_sum), stream)
+            _fixed_point_base(g.numel()), ptr(dsrc_pose), ptr(ddir_pose), ptr(dsrc_sum),
+            ptr(ddir_sum), ptr(ray_src), stream)
     _build.check(status, "trilinear march backward")
     march_trilinear_fused.bwd_launches += 1
     dsrc = _as_input(dsrc_sum if sum_src else dsrc_pose, source.shape, lead) if need_s else None
-    ddir = (_as_input(ddir_sum if sum_dirs else dir_part, directions.shape, lead) if need_d
+    ddir = (_as_input(ddir_sum if sum_dirs else ddir_pose, directions.shape, lead) if need_d
             else None)
     return dvol, dsrc, ddir
 

@@ -100,10 +100,16 @@ def render_pose(volume, pose: TransducerPose, cfg: PoseRecoveryConfig) -> torch.
 
 
 def _edge_correlate(x: torch.Tensor, k: torch.Tensor, axis: int) -> torch.Tensor:
-    """Correlate along ``axis`` with taps ``k``, the edge value repeated."""
+    """Correlate along ``axis`` with taps ``k``, the edge value repeated.
+    The edges are expanded views, so the backward sums their gradients in a
+    fixed order (an ``index_select`` of repeated edge indices would add them
+    with atomics on CUDA, in another order from run to run)."""
     n, r = x.shape[axis], (k.shape[0] - 1) // 2
-    index = torch.clamp(torch.arange(-r, n + r, device=x.device), 0, n - 1)
-    windows = torch.index_select(x, axis, index).unfold(axis, k.shape[0], 1)
+    edge = list(x.shape)
+    edge[axis] = r
+    padded = torch.cat([x.narrow(axis, 0, 1).expand(edge), x,
+                        x.narrow(axis, n - 1, 1).expand(edge)], dim=axis)
+    windows = padded.unfold(axis, k.shape[0], 1)
     return (windows * k).sum(dim=-1)
 
 

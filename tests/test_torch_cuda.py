@@ -366,19 +366,70 @@ def test_march_kernel_gradients_match_plain(cuda):
 def test_march_backward_kernel_matches_its_twin_bit_for_bit(cuda, per_pose, need):
     """K2b and ``march_trilinear_backward_plain`` equal bit for bit, NaN
     where NaN, at P, R and N off every tile, a NaN source and a pose outside
-    the volume; a shared fan's direction gradient summed over the poses."""
+    the volume; a shared fan's direction gradient summed over the poses.
+    Each case is called twice back to back (no state between calls), with
+    rays along the faces x = 0 and x = dim - 1, and with per-pose fans from
+    one source (its gradient summed over the poses)."""
     rng = np.random.default_rng(12)
-    for p, r, n in ((1, 1, 1), (3, 37, 13), (5, 9, 130), (2, 33, 515)):
+    for p, r, n in ((1, 1, 1), (3, 37, 13), (5, 9, 130), (2, 33, 515), (4, 300, 70)):
         vol, src, dirs = _march_case(rng, cuda, p, r, per_pose, 12)
-        if not per_pose:
-            dirs = dirs[0]                      # (R, 3): summed over the poses
+        dirs = dirs.contiguous() if per_pose else dirs[0].clone()   # (R, 3): summed over poses
+        if p >= 4:                          # ray 0 along x = 0 and x = dim - 1 = 8
+            src[2], src[3] = torch.tensor([0.0, 2.0, 5.0]), torch.tensor([8.0, 1.0, 4.0])
+            dirs[..., 0, :] = torch.tensor([0.0, 1.0, 0.0])
         g = torch.from_numpy(rng.normal(size=(p, r, n)).astype(np.float32)).to(cuda)
-        got = k2._launch_march_bwd(vol, src, dirs, n, 0.5, g, need)
-        want = k2.march_trilinear_backward_plain(vol, src, dirs, n, 0.5, g, need)
-        torch.cuda.synchronize()
-        for a, w in zip(got, want):
-            assert (a is None) == (w is None)
-            assert a is None or _same(a, w), (p, r, n)
+        for s in (src, src[p - 1]) if per_pose else (src,):   # one source for every pose
+            want = k2.march_trilinear_backward_plain(vol, s, dirs, n, 0.5, g, need)
+            for call in range(2):
+                got = k2._launch_march_bwd(vol, s, dirs, n, 0.5, g, need)
+                torch.cuda.synchronize()
+                for a, w in zip(got, want):
+                    assert (a is None) == (w is None)
+                    assert a is None or _same(a, w), (p, r, n, s.shape, call)
+
+
+@pytest.mark.cuda
+def test_march_backward_points_sum_ignores_block_order(cuda):
+    """The rays' partials are summed in index order, so the order in which
+    the point kernel's blocks run changes no bit: recovery's 8 x 256 x 512
+    points gradient, launched while another stream keeps the SMs busy with
+    matrix products of changing sizes, equals the twin every time, for a
+    per-pose and a shared fan."""
+    rng = np.random.default_rng(16)
+    vol = torch.from_numpy(rng.uniform(0.5, 2.0, (64, 64, 64)).astype(np.float32)).to(cuda)
+    src = torch.from_numpy(rng.uniform(8.0, 56.0, (8, 3)).astype(np.float32)).to(cuda)
+    fans = torch.from_numpy(rng.normal(size=(8, 256, 3)).astype(np.float32) * 0.1).to(cuda)
+    g = torch.from_numpy(rng.normal(size=(8, 256, 512)).astype(np.float32)).to(cuda)
+    a = torch.from_numpy(rng.normal(size=(2048, 2048)).astype(np.float32)).to(cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    need = (False, True, True)
+    for dirs in (fans, fans[0]):
+        want = k2.march_trilinear_backward_plain(vol, src, dirs, 512, 0.25, g, need)
+        for i in range(12):
+            with torch.cuda.stream(side):
+                for _ in range(i % 4):
+                    a[: 512 * (1 + i % 4)] @ a
+            got = k2._launch_march_bwd(vol, src, dirs, 512, 0.25, g, need)
+            torch.cuda.synchronize()
+            assert all(_same(x, w) for x, w in zip(got[1:], want[1:])), i
+
+
+@pytest.mark.cuda
+def test_blur_gradient_repeats_bit_for_bit(cuda):
+    """The recovery blur's gradient on the card is the same bits every time
+    (its edge padding sums in a fixed order, not with atomics)."""
+    from diffus_tpu_torch.train.pose_recovery import gaussian_blur_frame
+
+    rng = np.random.default_rng(17)
+    frames = torch.from_numpy(rng.normal(size=(8, 256, 512)).astype(np.float32)).to(cuda)
+    g = torch.from_numpy(rng.normal(size=(8, 256, 512)).astype(np.float32)).to(cuda)
+    grads = []
+    for _ in range(5):
+        x = frames.clone().requires_grad_(True)
+        (gx,) = torch.autograd.grad(gaussian_blur_frame(x, 4.0), x, g)
+        grads.append(gx)
+    assert all(torch.equal(gx, grads[0]) for gx in grads[1:])
 
 
 @pytest.mark.cuda

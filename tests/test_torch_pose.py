@@ -162,6 +162,27 @@ def test_gaussian_blur_frame_matches_jax_per_frame(sigma):
         np.testing.assert_allclose(got[i].numpy(), want, rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("shape, taps", [((3, 8, 20), 9), ((2, 5, 7), 25), ((1, 1, 1), 3)])
+def test_edge_padding_matches_index_select_and_its_gradient(shape, taps):
+    """The blur's edge padding (expanded edge views, whose backward is a sum
+    in a fixed order) gives the values of an ``index_select`` of clamped
+    indices bit for bit, on both axes and with a radius past the frame, and
+    their gradient to float64 rounding."""
+    rng = seeded(4)
+    x = torch.from_numpy(rng.normal(size=shape)).requires_grad_(True)
+    k = torch.from_numpy(rng.uniform(0.0, 1.0, taps))
+    r = (taps - 1) // 2
+    for axis in (-1, -2):
+        n = shape[axis]
+        index = torch.clamp(torch.arange(-r, n + r), 0, n - 1)
+        want = (torch.index_select(x, axis, index).unfold(axis, taps, 1) * k).sum(dim=-1)
+        got = tpr._edge_correlate(x, k, axis)
+        assert torch.equal(got, want)
+        g = torch.from_numpy(rng.normal(size=tuple(got.shape)))
+        (dg,), (dw,) = torch.autograd.grad(got, x, g), torch.autograd.grad(want, x, g)
+        torch.testing.assert_close(dg, dw, rtol=1e-12, atol=1e-12)
+
+
 def test_cosine_group_adam_matches_optax():
     """optax's ``multi_transform`` of two cosine-decayed Adams against the
     port's two-group Adam, fed identical gradients (some below eps's scale)."""

@@ -325,6 +325,42 @@ def test_march_backward_matches_plain_autograd(source_shape, dirs_shape):
     assert float(got[1].nan_to_num(0).abs().sum()) > 0 and float(got[2].nan_to_num(0).abs().sum()) > 0
 
 
+@pytest.mark.parametrize("r, n", [(1, 13), (3, 130), (37, 515)])
+def test_march_backward_off_the_tiles_matches_plain_autograd(r, n):
+    """Ray and sample counts off the points path's tiles (blocks of 8 rays
+    x 32 lanes, a warp 4 rays x 8 samples): the twin's sources' and
+    directions' gradients (per-pose fans, a NaN source, a source outside the
+    volume) against autograd through the plain sampler, at
+    ``test_march_backward_matches_plain_autograd``'s tolerance."""
+    vol, src, dirs = _march_inputs(True, r=r)
+    g = torch.from_numpy(seeded(40).normal(size=(3, r, n)).astype(np.float32))
+    leaves = [t.detach().clone().requires_grad_(True) for t in (src, dirs)]
+    (ts.march_trilinear(vol, *leaves, n, 0.8)[1] * g).sum().backward()
+    got = march_trilinear_backward_plain(vol, src, dirs, n, 0.8, g, (False, True, True))
+    assert got[0] is None
+    for a, leaf in zip(got[1:], leaves):
+        w = leaf.grad
+        assert a.shape == w.shape and torch.equal(torch.isnan(a), torch.isnan(w))
+        torch.testing.assert_close(a.nan_to_num(0), w.nan_to_num(0), rtol=1e-5,
+                                   atol=1e-6 * float(w.nan_to_num(0).abs().max()))
+
+
+@pytest.mark.parametrize("r, n", [(1, 13), (3, 130), (37, 515)])
+def test_march_backward_off_the_tiles_matches_jax(r, n):
+    """The same counts against ``jax.grad`` through JAX's ``trace_rays``,
+    a shared fan (its gradient summed over the poses), at
+    ``test_march_backward_matches_jax``'s tolerances."""
+    vol, src, dirs = (t.numpy() for t in _march_inputs(False, r=r, nan_source=False))
+    g = seeded(41).normal(size=(3, r, n)).astype(np.float32)
+    want = jax.grad(lambda s, d: jnp.sum(_jax_values(jnp.asarray(vol), s, d, n, 0.8) * g),
+                    argnums=(0, 1))(jnp.asarray(src), jnp.asarray(dirs))
+    got = march_trilinear_backward_plain(*(torch.from_numpy(a) for a in (vol, src, dirs)), n, 0.8,
+                                         torch.from_numpy(g), (False, True, True))[1:]
+    for a, w in zip(got, want):
+        assert a.shape == w.shape
+        np.testing.assert_allclose(a.numpy(), np.asarray(w), rtol=1e-4, atol=1e-5)
+
+
 def test_march_backward_volume_sum_is_exact_to_f32():
     """The volume gradient's fixed-point sums are exact to far below f32's
     rounding: against autograd through the plain sampler in float64 on the
