@@ -6,6 +6,10 @@
     python3 chip_smoke.py --backward    # phases 1, 2 and phase 5's K1b and K2b readings only
     python3 chip_smoke.py --points-study   # phases 1, 2 and what K2b's points path spends on what
     python3 chip_smoke.py --recovery-step  # phases 1, 2 and phase 10's step and its K2b alone
+    python3 chip_smoke.py --recovery-horizon [N]  # phases 1, 2 and phase 10's trajectory check
+    python3 chip_smoke.py --training-horizon [N]  # phases 1, 2 and phase 7's trajectory check
+    python3 chip_smoke.py --horizon-study  # phase 10's trajectory check on edited copies of K2b
+    python3 chip_smoke.py --examples-study  # full_pipeline's stages 4 and 5 at each size, 3 ways
 
 ``--requests`` times the serving path alone (latency and device-time split
 per tier: K1, K2, ``ray_points`` and the rest), ``--backward`` the
@@ -22,7 +26,22 @@ K2b's points path in each (``--points-time``, in a process of its own).
 starts (the profiler's split), and K2b's points path alone on the inputs
 that step gives it, with L2 warm and after a write that evicts it, so a
 copy beside another checkout times that checkout's step on the same
-inputs.
+inputs.  ``--recovery-horizon`` and ``--training-horizon`` run phase 10's
+(phase 7's two) trajectory checks alone; with N they measure it over N
+steps, step by step, without failing past the horizon (how
+RECOVERY_HORIZON and TRAINING_HORIZON were chosen).
+``--training-study [N]`` measures phase 7's trajectory over N steps with
+one part of the kernel path swapped at a time (K1's pair or K2's for the
+plain versions, K1b or K2b for autograd through its plain version) and
+beside a witness of f32 rounding alone (the plain path from weights
+nudged one ulp), then the three ways at lower rates over the 50 epochs (how FALLS_LR and FALLS_STEPS were
+chosen).  ``--horizon-study`` runs phase 10's
+trajectory check in copies of the package built side by side under
+``diffus_tpu_torch/build/study/`` whose K2b sums the points' gradients in
+another correct order (64 slots a ray) or computes a wrong gradient (one
+corner weight's sign flipped): the first must pass, the second fail.
+``--examples-study`` runs full_pipeline's stages 4 and 5 at every size of
+PIPELINE_SIZES through the kernels, the plain path in f32 and in f64.
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -91,11 +110,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``RenderConfig(interp='trilinear_fused', use_pallas=True)`` on the 256^3
    T1 phantom, 256 rays from apex [128, 4, 128], against the splatted frame
    of the 256^3 impedance phantom; K1's and K2's launches must rise (K2
-   with idx, which the splat reads), and K1b's and K2b's, the
-   losses be finite and the last below the first; one step's parameter
-   gradients through the kernels are held against the plain path in
-   float64 on the CPU, no further from it than max(1e-3, 2x) the plain
-   path's in float32 on the card;
+   with idx, which the splat reads), and K1b's and K2b's, and the losses
+   be finite (not that they fall: at lr 0.01 this run is chaotic); one
+   step's parameter gradients through the kernels are held against the
+   plain path in float64 on the CPU, no further from it than max(1e-3,
+   2x) the plain path's in float32 on the card; then the first
+   TRAINING_HORIZON steps of ``train_step`` from the same initial weights
+   three ways on the card (kernels f32, plain f32, plain f64, deterministic
+   algorithms): after every step the parameters, their gradients and the
+   loss through the kernels no further from f64 than max(1e-3, 2x) the
+   plain f32 path's, as in phase 10; then the same check over FALLS_STEPS
+   steps at FALLS_LR, where this scene's descent is not chaotic: there the
+   loss must fall on each path, and does in f64;
 8. times: the median training step (CUDA events), and its forward,
    backward and optimizer device time from ``torch.profiler``, with K1's,
    K2's, K1b's and K2b's part of each; no ``indexing_backward_kernel`` may
@@ -113,17 +139,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    annealed schedule's default 600 steps, 8 starts drawn like JAX's
    acceptance test, radius 1.5 and rot 0.03, around a ``render_pose``
    target at apex [128, 4, 128]); K1's, K2's (without idx), K1b's and
-   K2b's launches must rise, every
-   final loss be finite and the best start's exact-frame loss fall; the
+   K2b's launches must rise and every final loss be finite (at 512 samples
+   the descent does not converge on this phantom, in either package, and
+   is chaotic: whether its loss falls is not asserted there); the
    frames of the target, the starts and the ends through the kernels, and
    the starts' losses, are held against the float64 CPU plain path like
-   phase 3's K1; the position errors are printed (at 512 samples the
-   descent does not converge on this phantom, in either package: PERF.md);
+   phase 3's K1; the position errors are printed (PERF.md);
    one step's pose gradient through the kernels is held against the
-   float64 CPU plain path like phase 7's;
+   float64 CPU plain path like phase 7's; the first RECOVERY_HORIZON steps
+   of the schedule's first phase from the same starts and blurred target,
+   three ways on the card (kernels f32, plain f32, plain f64): after every
+   step the positions and rotvecs (floor 1e-3 of the f64 path's largest
+   move), their gradients (floor 1e-3 of the start's largest f64
+   component) and the starts' losses (floor 1e-4) through the kernels no
+   further from f64 than max(floor, 2x) the plain f32 path's (a start
+   leaves the check where the plain f32 or f64 path is not finite, or the
+   plain f32 path's states or gradient are not within NEAR of f64);
    the step's times and profiler split as in phase 8; then the same entry
    point on a service of the JAX tests' 64 x 128 geometry over the same
-   volume must bring the best start and half the starts within 1 voxel;
+   volume, where it converges: the best start's loss must fall and the
+   best start and half the starts end within 1 voxel;
 11. serving surface: the 256^3 phantom written with the port's
    ``io.save_nifti`` (uncompressed, 64 MiB) and read back with
    ``load_volume`` (equal to what was written); a ``VolumePrefetcher`` stages
@@ -162,7 +197,25 @@ Phases, in order; any failure raises and the script exits non-zero:
    launches on the meshed paths go on the ``kernels`` line
    (``mesh_launches``, K2's ``mesh_idx_launches``); K1b and K2b must
    launch on the driver, the masked step and sharded recovery, and on no
-   render path.
+   render path;
+13. the examples (``examples/torch/``), each in a subprocess with
+   ``--device cuda --pallas --interp trilinear_fused`` at full width:
+   ``ct_render`` at ``--size 256`` for every modality and for every
+   ``--view`` (CT), ``sweep_animation`` at 256^3 with 33 poses x 256 rays x
+   512 samples, ``full_pipeline`` at ``--size 256 --rays 256`` and
+   ``serve_client`` at 256^3 with 256 x 512; outputs in
+   ``diffus_tpu_torch/build/examples/``.  Each must exit 0 and print its last line,
+   the PNGs exist, every ``ct_render`` frame but the side and third views'
+   (their echoes are all <= 0 and the artifact stage clips them, as in the
+   reference) holds an echo, and the GIF has 33 frames; K1 and K2 must launch in each
+   run, and K1b and K2b in ``full_pipeline`` and ``serve_client``
+   (``/recover``).  ``full_pipeline``'s stages 4 and 5 run at TRAIN_SIZE
+   and POSE_SIZE (stages 1-3 at 256): at 256 its training loss rises from
+   the seed-0 weights in float64 too, and its recovery ends elsewhere in
+   f32 than in f64 (PERF.md); at those sizes each stage's own assertion
+   must first hold on the plain path in float64 and in float32, with the
+   f32 run ending near the f64 one.  Wall times beside the card's name
+   and limit.
 
 TF32 is off for matmuls and cuDNN (``torch.backends``), so no comparison
 depends on those defaults.  The line before the last is a JSON object of
@@ -176,6 +229,7 @@ import argparse
 import copy
 import dataclasses
 import json
+import math
 import os
 import shutil
 import statistics
@@ -215,6 +269,17 @@ TRAIN_SEED = 1
 PULSE = 16                          # even: the pulse's N + 1 output is cropped
 STARTS, RADIUS, ROT_SCALE, RECOVERY_SEED = 8, 1.5, 0.03, 0   # JAX's acceptance distribution
 ROOT = os.path.dirname(os.path.abspath(__file__))
+# The horizons of the trajectory checks of phases 10 and 7, each the last
+# step at which the check still keeps a start (:func:`_trajectory_check`:
+# the plain f32 path finite, its states and gradient within NEAR of f64),
+# measured with `--recovery-horizon 12`, `--training-horizon 8` and
+# `--training-study` (PERF.md, Findings): the recovery 2 (one start leaves
+# at step 1, three at step 2, the rest at step 3); the training at lr 0.01
+# 5 (step 6 is the SSIM collapse: the plain f32 gradient 0.57 from f64's);
+# and at FALLS_LR, where the same scene's descent is not chaotic and its
+# f64 loss falls, 35
+RECOVERY_HORIZON, TRAINING_HORIZON = 2, 5
+FALLS_LR, FALLS_STEPS = 1e-3, 35
 
 
 def _card() -> str:
@@ -799,15 +864,16 @@ def _param_grads(model, *args) -> dict:
     return {n: p.grad.detach().double().cpu() for n, p in model.named_parameters()}
 
 
-def _training_phase(dev, vol) -> dict:
-    """``train_impedance`` at full width through K1 and K2; the three-way
-    gradient check."""
+def _training_inputs(dev, vol) -> tuple:
+    """Phase 7's configuration at ``ImpedanceTrainConfig``'s defaults through
+    K1 and K2, the 256^3 T1 phantom, the fan from APEX and the target (the
+    splatted frame of the impedance phantom ``vol``, as tests/test_train.py
+    makes it): ``(cfg, t1, src, dirs, target)``."""
     from diffus_tpu_torch.geometry import fan_directions_2d
-    from diffus_tpu_torch.impedance.mlp import init_params
     from diffus_tpu_torch.ops.splat import differentiable_splat
     from diffus_tpu_torch.phantoms import t1_phantom_3d
     from diffus_tpu_torch.render.renderer import render_frame
-    from diffus_tpu_torch.train import ImpedanceTrainConfig, train_impedance
+    from diffus_tpu_torch.train import ImpedanceTrainConfig
     from diffus_tpu_torch.types import RenderConfig
 
     cfg = ImpedanceTrainConfig(render=RenderConfig(
@@ -815,11 +881,26 @@ def _training_phase(dev, vol) -> dict:
     t1 = torch.from_numpy(t1_phantom_3d(SHAPE)).to(dev)
     dirs = fan_directions_2d([0.0, 1.0], np.radians(45.0), N_RAYS, device=dev)
     src = torch.tensor(APEX, dtype=torch.float32, device=dev)
-    # the target: the splatted frame of the impedance phantom (tests/test_train.py)
     x, y, _, frame = render_frame(vol, src, dirs, cfg.num_samples, cfg.render)
     target = differentiable_splat(x.float(), y.float(), frame, *cfg.image_shape,
                                   cfg.splat_sigma)
     torch.cuda.synchronize()
+    return cfg, t1, src, dirs, target
+
+
+def _normalized(target: torch.Tensor) -> tuple:
+    """``train_impedance``'s min-max normalized target and all-True mask."""
+    us_norm = (target - target.min()) / (target.max() - target.min() + 1e-8)
+    return us_norm, torch.ones_like(us_norm, dtype=torch.bool)
+
+
+def _training_phase(dev, vol) -> dict:
+    """``train_impedance`` at full width through K1 and K2; the three-way
+    gradient check; the trajectory held to f64 over a horizon."""
+    from diffus_tpu_torch.impedance.mlp import init_params
+    from diffus_tpu_torch.train import train_impedance
+
+    cfg, t1, src, dirs, target = _training_inputs(dev, vol)
 
     _counts_reset()
     # Deterministic algorithms (the splat's and the sampler backward's
@@ -839,8 +920,10 @@ def _training_phase(dev, vol) -> dict:
     losses = losses.cpu()
     if tuple(losses.shape) != (cfg.epochs,) or not bool(torch.isfinite(losses).all()):
         raise AssertionError(f"training losses: shape {tuple(losses.shape)}, {losses}")
-    if not losses[-1] < losses[0]:
-        raise AssertionError(f"training loss did not fall: {losses.tolist()}")
+    # Whether the loss falls over the 50 steps is not asserted here: the run
+    # is chaotic (above), so that would pin the last bits of every gradient.
+    # The trajectory is held to f64 over a horizon below; phase 13's
+    # full_pipeline asserts a fall where f64 falls too.
     print(f"training: {cfg.epochs} steps at {SHAPE[0]}^3, {N_RAYS} rays x {cfg.num_samples} "
           f"samples, SSIM, image {cfg.image_shape}, seed {TRAIN_SEED}: {train_s:.2f} s "
           f"(first step included); launches {launches}; loss {losses[0].item():.6f} -> "
@@ -852,8 +935,7 @@ def _training_phase(dev, vol) -> dict:
     # Near a resonance of the echo scan f32 is off from f64 in any
     # evaluation order, so the kernel path is held to the plain f32 path's
     # own distance from f64 (at most 2x it, or 1e-3).
-    us_norm = (target - target.min()) / (target.max() - target.min() + 1e-8)
-    mask = torch.ones_like(us_norm, dtype=torch.bool)
+    us_norm, mask = _normalized(target)
     cfg_plain = dataclasses.replace(cfg, render=dataclasses.replace(
         cfg.render, interp="trilinear", use_pallas=False))
     model0 = init_params(torch.Generator().manual_seed(TRAIN_SEED), cfg.hidden)
@@ -873,8 +955,81 @@ def _training_phase(dev, vol) -> dict:
         report.append(f"{name} {e_k:.2e}/{e_p:.2e}")
     print("training gradients vs float64 CPU (max abs err / max |f64|, kernel/plain f32): "
           + ", ".join(report), flush=True)
-    return {"cfg": cfg, "t1": t1, "us_norm": us_norm, "mask": mask, "src": src, "dirs": dirs,
-            "launches": launches}
+    train = {"cfg": cfg, "t1": t1, "us_norm": us_norm, "mask": mask, "src": src, "dirs": dirs,
+             "launches": launches}
+    print(_training_horizon_check(train), flush=True)
+    print(_training_horizon_check(train, FALLS_STEPS, lr=FALLS_LR), flush=True)
+    return train
+
+
+def _train_trajectory(model0, train: dict, cfg, steps: int, dtype) -> dict:
+    """``steps`` of ``train_step`` from ``model0``'s weights in ``dtype`` on
+    the card: the :func:`_trajectory_check` record, each parameter tensor a
+    state of one start and its gradient at each step (``grad <name>``)."""
+    from diffus_tpu_torch.train import make_optimizer, train_step
+
+    dev = train["t1"].device
+    model = copy.deepcopy(model0).to(dev, dtype)
+    opt = make_optimizer(model, cfg)
+    args = [train[k].to(dtype) for k in ("t1", "us_norm")] + [train["mask"]] + [
+        train[k].to(dtype) for k in ("src", "dirs")]
+
+    def flat(x):
+        return x.detach().clone().double().cpu().reshape(1, -1)
+
+    rec = {n: [flat(p)] for n, p in model.named_parameters()}
+    rec.update({f"grad {n}": [] for n in list(rec)}, loss=[])
+    for _ in range(steps):
+        rec["loss"].append(train_step(model, opt, *args, cfg).double().cpu().reshape(1))
+        for n, p in model.named_parameters():
+            rec[n].append(flat(p))
+            rec[f"grad {n}"].append(flat(p.grad))
+    return {k: torch.stack(v) for k, v in rec.items()}
+
+
+def _training_horizon_check(train: dict, steps: int = TRAINING_HORIZON,
+                            strict: bool = True, lr: float | None = None) -> str:
+    """The first ``steps`` steps of ``train_step`` from
+    ``init_params(TRAIN_SEED)`` (at ``lr``, if given), three ways: through
+    the kernels in f32, the plain path in f32 and the plain path in
+    float64, all on the card under deterministic algorithms.  After every
+    step the MLP's parameters (each tensor in units of the f64 path's
+    largest move of it), their gradients and the loss (relative) are held
+    to max(1e-3, 2x) the plain f32 path's distance from f64
+    (:func:`_trajectory_check`).  At a given ``lr`` the loss must fall, by
+    the last step, on each path, where it falls in f64 (else the
+    configuration is not one for this check)."""
+    from diffus_tpu_torch.impedance.mlp import init_params
+
+    cfg = train["cfg"] if lr is None else dataclasses.replace(train["cfg"], lr=lr)
+    plain = dataclasses.replace(cfg, render=dataclasses.replace(
+        cfg.render, interp="trilinear", use_pallas=False))
+    model0 = init_params(torch.Generator().manual_seed(TRAIN_SEED), cfg.hidden)
+    torch.use_deterministic_algorithms(True)
+    try:
+        t0 = time.perf_counter()
+        traj = {"kernel": _train_trajectory(model0, train, cfg, steps, torch.float32),
+                "plain": _train_trajectory(model0, train, plain, steps, torch.float32),
+                "f64": _train_trajectory(model0, train, plain, steps, torch.float64)}
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        torch.use_deterministic_algorithms(False)
+    what = f"training horizon (lr {cfg.lr:g})"
+    out = _trajectory_check(what, traj, 1e-3, 1e-3, strict)
+    falls = ""
+    if lr is not None:
+        ends = {p: (float(t["loss"][0]), float(t["loss"][-1])) for p, t in traj.items()}
+        falls = "loss " + ", ".join(f"{p} {a:.6f} -> {b:.6f}" for p, (a, b) in ends.items())
+        if strict and not ends["f64"][1] < ends["f64"][0]:
+            raise AssertionError(f"{what}: the f64 loss does not fall, so this is no "
+                                 f"configuration for a loss-falls check: {falls}")
+        if strict and not all(b < a for a, b in ends.values()):
+            raise AssertionError(f"{what}: the loss falls in f64 but not on every path: {falls}")
+        falls = f"{falls} (falls on each path); "
+    return (f"{what}: {steps} steps of train_step from init_params(seed {TRAIN_SEED}), kernels "
+            f"f32 vs plain f32 vs plain f64 (all on the card), {secs:.2f} s: "
+            f"{'ok' if strict else 'measured'}; {falls}" + _horizon_summary(out))
 
 
 def _training_times(dev, train: dict, card: str) -> dict:
@@ -1191,11 +1346,13 @@ def _pose_grads(volume, target_b, position, rotvec, cfg, sigma: float):
             "rotvec": pose.rotvec.grad.double().cpu()}
 
 
-def _recover(dev, svc, label: str) -> dict:
+def _recover(dev, svc, label: str, falls: bool = True) -> dict:
     """``svc.recover_pose`` from STARTS starts around a ``render_pose`` target
     at APEX, between a reset and a read of K1's and K2's counts; prints the
     outcome and checks what every run must show: launches, finite losses,
-    and the best start's exact-frame loss below its starting value."""
+    the frames against f64 (:func:`_recovery_frame_check`), and with
+    ``falls`` the best start's exact-frame loss below its starting value
+    (only where the descent converges: elsewhere it is chaotic)."""
     from diffus_tpu_torch.train.pose_recovery import pose_loss, render_pose, sample_init_poses
     from diffus_tpu_torch.types import TransducerPose
 
@@ -1225,7 +1382,7 @@ def _recover(dev, svc, label: str) -> dict:
     init_err = np.linalg.norm(init.position.cpu().numpy() - APEX, axis=1)
     if not np.all(np.isfinite(finals)):
         raise AssertionError(f"recovery ({label}): non-finite final losses {finals.tolist()}")
-    if not finals[b] < first[b]:
+    if falls and not finals[b] < first[b]:
         raise AssertionError(f"recovery ({label}): best start's loss {first[b]:.4e} -> "
                              f"{finals[b]:.4e}")
     frames = _recovery_frame_check(dev, svc, init, fit, first, label)
@@ -1357,6 +1514,219 @@ def _recovery_grad_check(dev, svc, run: dict, label: str) -> None:
           f"kernel/plain f32): " + ", ".join(report), flush=True)
 
 
+# A start's trajectory is near the f64 one while the plain f32 path's
+# states are within this share of the f64 path's move and its gradient
+# within this share of the f64 gradient (beyond it, Adam's sign-like steps
+# have taken another way, or the update is rounding's: at phase 7's step 6
+# one ulp of the initial weights moves the gradient by 95%; the 2x rule
+# then holds nothing)
+NEAR = 1e-2
+
+
+def _trajectory_distances(traj: dict) -> dict:
+    """Per quantity, the kernel path's and the plain f32 path's distance
+    from the f64 path at each step and start, ``(T, S)`` each: a state's
+    ``max |x - x64|`` over its components, in units of the largest distance
+    the f64 path has moved any start from row 0 by then; a gradient's
+    (``grad <name>``, ``(T, S, C)``, each step's before its update) in
+    units of that start's largest f64 component at that step; a loss's
+    relative to the f64 loss."""
+    out = {}
+    steps = traj["f64"]["loss"].shape[0]
+    for name in traj["f64"]:
+        ref = traj["f64"][name]
+        if name == "loss":
+            out[name] = {p: (traj[p]["loss"] - ref).abs() / ref.abs() for p in ("kernel", "plain")}
+            continue
+        if name.startswith("grad "):
+            unit = torch.clamp(ref.abs().amax(dim=-1), min=1e-30)
+            out[name] = {p: (traj[p][name] - ref).abs().amax(dim=-1) / unit
+                         for p in ("kernel", "plain")}
+            continue
+        moved = (ref[1:] - ref[0]).abs().amax(dim=(1, 2))
+        unit = torch.clamp(torch.cummax(moved, dim=0).values, min=1e-30)[:, None]
+        out[name] = {p: (traj[p][name][1:] - ref[1:]).abs().amax(dim=-1) / unit
+                     for p in ("kernel", "plain")}
+        if out[name]["plain"].shape[0] != steps:
+            raise AssertionError(f"trajectory of {name}: {out[name]['plain'].shape[0]} steps")
+    return out
+
+
+def _trajectory_check(what: str, traj: dict, floor_state: float, floor_loss: float,
+                      strict: bool = True) -> dict:
+    """Holds the kernel path's trajectory to the float64 plain path's, step by
+    step and start by start, as far as the plain float32 path's own distance
+    from it allows.
+
+    ``traj[path]`` for ``path`` in ``kernel``, ``plain`` (f32) and ``f64``:
+    ``loss`` ``(T, S)`` (each start's loss before update t), named states
+    ``(T + 1, S, C)`` (row 0 the start, row t after update t) and their
+    gradients ``grad <name>`` ``(T, S, C)`` (row t - 1 the one update t
+    took), float64 on the CPU.  Distances as :func:`_trajectory_distances`
+    takes them; each of the kernel path's must be at most max(floor, 2x the
+    plain f32 path's), ``floor_state`` for states and gradients.
+    A start leaves the check from the first step at which the plain f32
+    path there is not finite (near a resonance f32 can overflow where f64
+    does not, in any evaluation order) or the f64 path is not, or its
+    states or its gradient are no longer NEAR the f64 path's (the gradient
+    at step t is the one update t takes): from there on the plain f32
+    path has no distance from f64 that could bound the kernel path's, and
+    the kernel path may be anything, non-finite included.  Fails where the
+    kernel path is not finite at a start that is kept, and when no start is
+    kept to the end.  Returns per-step rows for printing (the plain f32
+    path's and the kernel path's worst distance per quantity over the kept
+    starts, the starts kept) and per start the last step it was kept.  Not
+    ``strict`` (a measurement), a step where the kernel path is beyond its
+    limit is marked, not raised."""
+    names = [k for k in traj["f64"] if k != "loss"]
+    steps, starts = traj["f64"]["loss"].shape
+    dist = _trajectory_distances(traj)
+
+    def finite(path):
+        ok = torch.isfinite(traj[path]["loss"])
+        for name in names:
+            rows = traj[path][name] if name.startswith("grad ") else traj[path][name][1:]
+            ok &= torch.isfinite(rows).all(dim=-1)
+        return ok
+
+    near = torch.ones((steps, starts), dtype=torch.bool)
+    for name in names:
+        near &= dist[name]["plain"] <= NEAR
+    kept = torch.cumprod((finite("plain") & finite("f64") & near).to(torch.int64), dim=0).bool()
+    bad_kernel = kept & ~finite("kernel")
+    if strict and bool(bad_kernel.any()):
+        t, s = (int(i) for i in torch.nonzero(bad_kernel)[0])
+        raise AssertionError(f"{what}: the kernel path is not finite at step {t + 1}, start {s}, "
+                             f"where the plain f32 and f64 paths are")
+    if strict and not bool(kept[-1].any()):
+        raise AssertionError(f"{what}: every start left the check (the plain f32 path not "
+                             f"finite or not near f64, or f64 not finite) before step {steps}")
+    rows = []
+    for t in range(steps):
+        k = kept[t]
+        row = {"step": t + 1, "kept": int(k.sum()), "kernel_beyond": bool(bad_kernel[t].any())}
+        for name, floor in [(n, floor_state) for n in names] + [("loss", floor_loss)]:
+            e_k, e_p = dist[name]["kernel"][t][k], dist[name]["plain"][t][k]
+            if not k.any():
+                continue
+            bad = ~(e_k <= torch.clamp(2.0 * e_p, min=floor))
+            if strict and bool(bad.any()):
+                s = int(torch.nonzero(k)[int(torch.nonzero(bad)[0])])
+                raise AssertionError(
+                    f"{what}: step {t + 1}, start {s}, {name}: the kernel path is "
+                    f"{float(dist[name]['kernel'][t][s]):.3e} from f64, the plain f32 path "
+                    f"{float(dist[name]['plain'][t][s]):.3e} (limit max({floor:g}, 2x))")
+            row["kernel_beyond"] |= bool(bad.any())
+            row[name] = (float(e_p.max()), float(e_k.max()))
+        rows.append(row)
+    last = kept.to(torch.int64).sum(dim=0)   # kept is a prefix of the steps, per start
+    return {"rows": rows, "kept_until": [int(v) for v in last]}
+
+
+def _horizon_summary(out: dict) -> str:
+    """:func:`_trajectory_check`'s record as text: per start the last step
+    it was kept, then per step the plain f32 path's and the kernel path's
+    worst distance from f64 over the states, over the gradients and of the
+    loss."""
+    def worst(row, group):
+        pairs = [v for k, v in row.items() if k not in ("step", "kept", "kernel_beyond")
+                 and group(k)]
+        return f"{max(p for p, _ in pairs):.1e}/{max(k for _, k in pairs):.1e}"
+
+    groups = {"states": lambda k: k != "loss" and not k.startswith("grad "),
+              "gradients": lambda k: k.startswith("grad "), "loss": lambda k: k == "loss"}
+    steps = "; ".join(
+        f"{r['step']}: " + (", ".join(f"{g} {worst(r, f)}" for g, f in groups.items())
+                            if r["kept"] else "-")
+        + (" (kernel beyond its limit)" if r["kernel_beyond"] else "")
+        + f" ({r['kept']} kept)" for r in out["rows"])
+    return (f"each start kept (plain f32 finite, its states and gradient within {NEAR:g} of "
+            f"f64) through step {out['kept_until']}; by step (plain f32/kernel distance from "
+            f"f64): {steps}")
+
+
+def _pose_trajectory(volume, target_b, init, base, render, sigma: float, lrs: tuple,
+                     phase_steps: int, steps: int, dtype) -> dict:
+    """``steps`` of ``pose_step`` from ``init`` in ``dtype`` on ``volume``'s
+    device, with ``render`` and the phase's cosine-decayed two-group Adam:
+    the :func:`_trajectory_check` record, with each step's raw gradients
+    (before Adam's update)."""
+    from diffus_tpu_torch.train.pose_recovery import (
+        make_pose_optimizer,
+        pose_step,
+        set_cosine_lr,
+    )
+    from diffus_tpu_torch.types import TransducerPose
+
+    dev = volume.device
+    cfg = dataclasses.replace(base, render=render)
+    pose = TransducerPose(init.position.to(dev, dtype).clone().requires_grad_(True),
+                          init.rotvec.to(dev, dtype).clone().requires_grad_(True))
+    opt = make_pose_optimizer(pose, *lrs)
+    target = target_b.to(dev, dtype)
+
+    def state(x):   # a copy: in f64 on the CPU .double().cpu() would alias the leaf
+        return x.detach().clone().double().cpu()
+
+    rec = {"position": [state(pose.position)], "rotvec": [state(pose.rotvec)],
+           "grad position": [], "grad rotvec": [], "loss": []}
+    for t in range(steps):
+        set_cosine_lr(opt, lrs, t, phase_steps)
+        rec["loss"].append(pose_step(volume, target, pose, opt, cfg, sigma).double().cpu())
+        for name in ("position", "rotvec"):
+            leaf = getattr(pose, name)
+            rec[name].append(state(leaf))
+            rec[f"grad {name}"].append(state(leaf.grad))
+    return {k: torch.stack(v) for k, v in rec.items()}
+
+
+def _recovery_horizon_check(dev, svc, run: dict, label: str, steps: int = RECOVERY_HORIZON,
+                            strict: bool = True) -> str:
+    """The first ``steps`` steps of the recovery's descent (the annealed
+    schedule's first phase: its blur, its position and rotation rates and
+    their cosine decay) from the STARTS starts and the same blurred target,
+    three ways: through the kernels in f32, through the plain path in f32,
+    and through the plain path in float64 (on the card: the plain path
+    launches no kernel), under deterministic algorithms.  After every step
+    the kernel path's positions, rotvecs (floor 1e-3 of the f64 path's
+    largest move, phase 7's floor), their raw gradients before Adam's
+    update (floor 1e-3 of the start's largest f64 component: Adam's steps
+    see only the gradients' signs and ratios, these their size) and
+    per-start losses (floor 1e-4, relative, phase 3's) are held to
+    max(floor, 2x) the plain f32 path's distance from f64
+    (:func:`_trajectory_check`)."""
+    from diffus_tpu_torch.train.pose_recovery import gaussian_blur_frame
+
+    cfg, init = run["cfg"], run["init"]
+    base = cfg.as_base()
+    sigma, lr_pos, lr_rot, phase_steps = cfg.phases[0]
+    target_b = gaussian_blur_frame(run["target"], sigma)
+    plain = dataclasses.replace(base.render, interp="trilinear", use_pallas=False)
+    vol64 = svc.volume.double()
+    args = (target_b, init, base)
+    torch.use_deterministic_algorithms(True)
+    try:
+        t0 = time.perf_counter()
+        traj = {
+            "kernel": _pose_trajectory(svc.volume, *args, base.render, sigma, (lr_pos, lr_rot),
+                                       phase_steps, steps, torch.float32),
+            "plain": _pose_trajectory(svc.volume, *args, plain, sigma, (lr_pos, lr_rot),
+                                      phase_steps, steps, torch.float32),
+            "f64": _pose_trajectory(vol64, *args, plain, sigma, (lr_pos, lr_rot), phase_steps,
+                                    steps, torch.float64),
+        }
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        torch.use_deterministic_algorithms(False)
+    del vol64
+    out = _trajectory_check(f"recovery horizon ({label})", traj, 1e-3, 1e-4, strict)
+    return (f"recovery horizon ({label}): {steps} steps of the first phase (sigma {sigma}, lr "
+            f"{lr_pos}/{lr_rot}, cosine over {phase_steps}) from the {STARTS} starts, kernels f32 "
+            f"vs plain f32 vs plain f64 (all on the card), {secs:.2f} s: "
+            f"{'ok' if strict else 'measured'}; " + _horizon_summary(out))
+
+
 def _recovery_phase(dev, svc, vol, card: str) -> dict:
     """Phase 10: ``svc.recover_pose`` at full width through K1 and K2, one
     step's pose gradient three ways and the step's times; then the same
@@ -1369,11 +1739,14 @@ def _recovery_phase(dev, svc, vol, card: str) -> dict:
     )
     from diffus_tpu_torch.types import BeamGeometry, TransducerPose
 
-    full = _recover(dev, svc, "full width")
-    # Not asserted: at 512 samples the annealed descent does not converge on
-    # this phantom, in float32 or float64 (PERF.md, Findings: near-resonant
-    # echoes at depth make the loss rough at the half-voxel scale).
+    # At 512 samples the annealed descent does not converge on this phantom,
+    # in float32 or float64 (PERF.md, Findings: near-resonant echoes at depth
+    # make the loss rough at the half-voxel scale), and it is chaotic: whether
+    # its loss falls over 600 steps rides the last bits of every gradient.
+    # So at full width the trajectory is held to f64 over a horizon instead.
+    full = _recover(dev, svc, "full width", falls=False)
     _recovery_grad_check(dev, svc, full, "full width")
+    print(_recovery_horizon_check(dev, svc, full, "full width"), flush=True)
     cfg, init = full["cfg"], full["init"]
     base = cfg.as_base()
     sigma = cfg.phases[0][0]
@@ -2124,14 +2497,7 @@ def _mesh_phase(dev, vol, svc, card: str) -> dict:
 def _requests_only(dev, card: str) -> int:
     """``--requests``: the phase-4 service's request latency and device-time
     split at each tier, nothing else."""
-    from diffus_tpu_torch.phantoms import brain_phantom_3d
-    from diffus_tpu_torch.serve import RendererService
-    from diffus_tpu_torch.types import BeamGeometry, RenderConfig
-
-    vol = torch.from_numpy(brain_phantom_3d(SHAPE)).to(dev)
-    cfg = RenderConfig(attenuation_coeff=ATT, interp="trilinear_fused", use_pallas=True)
-    svc = RendererService(vol, BeamGeometry(N_RAYS, N_SAMPLES), cfg, batch_tiers=TIERS,
-                          device=dev, coalesce=False)
+    svc = _phase4_service(dev)[1]
     svc.warmup()
     rng = np.random.default_rng(0)
     _tier_latencies(svc, rng, card, "request")
@@ -2143,16 +2509,11 @@ def _backward_only(dev, card: str) -> int:
     """``--backward``: phase 5's K1b and K2b readings on phase 3's inputs
     (the 256^3 phantom, the service's fan, 32 sources, their trilinear
     reflections), nothing else."""
-    from diffus_tpu_torch.phantoms import brain_phantom_3d
     from diffus_tpu_torch.render.renderer import simulate_rays
-    from diffus_tpu_torch.serve import RendererService
-    from diffus_tpu_torch.types import BeamGeometry, RenderConfig
 
     rng = np.random.default_rng(0)
-    vol = torch.from_numpy(brain_phantom_3d(SHAPE)).to(dev)
-    cfg = RenderConfig(attenuation_coeff=ATT, interp="trilinear_fused", use_pallas=True)
-    dirs = RendererService(vol, BeamGeometry(N_RAYS, N_SAMPLES), cfg, batch_tiers=TIERS,
-                           device=dev, coalesce=False).directions
+    vol, svc = _phase4_service(dev)
+    dirs = svc.directions
     src32 = _sources(rng, 32).to(dev)
     _, r = simulate_rays(vol, src32, dirs.expand(32, -1, -1), N_SAMPLES, "trilinear_fused")
     _backward_times(dev, vol, r.reshape(-1, N_SAMPLES - 1).contiguous(), src32, dirs, rng, card)
@@ -2229,15 +2590,11 @@ def _recovery_inputs(dev):
     ``recover_pose``'s kind of fans, the service's fan rotated by each pose
     (rotvecs ~ N(0, ROT_SCALE))."""
     from diffus_tpu_torch.geometry.fan import pose_fan_directions
-    from diffus_tpu_torch.phantoms import brain_phantom_3d
-    from diffus_tpu_torch.serve import RendererService
-    from diffus_tpu_torch.types import BeamGeometry, RenderConfig, TransducerPose
+    from diffus_tpu_torch.types import BeamGeometry, TransducerPose
 
     rng = np.random.default_rng(0)
-    vol = torch.from_numpy(brain_phantom_3d(SHAPE)).to(dev)
-    cfg = RenderConfig(attenuation_coeff=ATT, interp="trilinear_fused", use_pallas=True)
-    dirs = RendererService(vol, BeamGeometry(N_RAYS, N_SAMPLES), cfg, batch_tiers=TIERS,
-                           device=dev, coalesce=False).directions
+    vol, svc = _phase4_service(dev)
+    dirs = svc.directions
     src8 = _sources(rng, 8).to(dev)
     noise = torch.from_numpy(rng.normal(size=(8, N_RAYS, 3)).astype(np.float32)).to(dev)
     noisy = (dirs[None] + 0.02 * noise).contiguous()
@@ -2311,33 +2668,10 @@ def _points_study(card: str, only: list) -> int:
     copy first and last)."""
     from diffus_tpu_torch.kernels import _build
 
-    base = _build.BUILD_DIR / "study"
-    shutil.rmtree(base, ignore_errors=True)
-    roots = {}
     study = {name: edits for name, edits in _POINTS_STUDY.items()
              if name == "shipped" or not only or any(word in name for word in only)}
-    for i, (name, edits) in enumerate(study.items()):
-        root = base / str(i)
-        shutil.copytree(_build.SRC_DIR.parent, root / "diffus_tpu_torch",
-                        ignore=shutil.ignore_patterns("build", "__pycache__"))
-        shutil.copy(os.path.join(ROOT, "chip_smoke.py"), root)
-        src = root / "diffus_tpu_torch" / "csrc" / "trilinear_bwd.cu"
-        text = src.read_text()
-        for old, new in edits:
-            if text.count(old) != 1:
-                raise AssertionError(f"points study, {name}: an edit's anchor is not in "
-                                     f"trilinear_bwd.cu once")
-            text = text.replace(old, new)
-        src.write_text(text)
-        roots[name] = root
-    build = "from diffus_tpu_torch.kernels import _build; _build.library()"
-    procs = {name: subprocess.Popen([sys.executable, "-c", build], cwd=root,
-                                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for name, root in roots.items()}
-    for name, proc in procs.items():
-        out = proc.communicate(timeout=600)[0]
-        if proc.returncode != 0:
-            raise RuntimeError(f"points study, {name}: build failed\n{out[-3000:]}")
+    base = _build.BUILD_DIR / "study"
+    roots = _study_copies(base, study, "trilinear_bwd.cu")
     for name in [*roots, "shipped"]:
         run = subprocess.run([sys.executable, "chip_smoke.py", "--points-time"], cwd=roots[name],
                              capture_output=True, text=True, timeout=600)
@@ -2355,8 +2689,6 @@ def _recovery_step_setup(dev):
     kernels the same inputs, up to the last bits of the gradients) and
     ``args`` the arguments that one step gave K2b (``_launch_march_bwd``)."""
     from diffus_tpu_torch.kernels import trilinear_cuda as k2
-    from diffus_tpu_torch.phantoms import brain_phantom_3d
-    from diffus_tpu_torch.serve import RendererService
     from diffus_tpu_torch.train.pose_recovery import (
         gaussian_blur_frame,
         make_pose_optimizer,
@@ -2364,12 +2696,9 @@ def _recovery_step_setup(dev):
         render_pose,
         sample_init_poses,
     )
-    from diffus_tpu_torch.types import BeamGeometry, RenderConfig, TransducerPose
+    from diffus_tpu_torch.types import TransducerPose
 
-    vol = torch.from_numpy(brain_phantom_3d(SHAPE)).to(dev)
-    cfg = RenderConfig(attenuation_coeff=ATT, interp="trilinear_fused", use_pallas=True)
-    svc = RendererService(vol, BeamGeometry(N_RAYS, N_SAMPLES), cfg, batch_tiers=TIERS,
-                          device=dev, coalesce=False)
+    svc = _phase4_service(dev)[1]
     rcfg = svc._recovery_config()
     base, sigma = rcfg.as_base(), rcfg.phases[0][0]
     with torch.no_grad():
@@ -2441,6 +2770,473 @@ def _recovery_step_only(dev, card: str) -> int:
     return 0
 
 
+# -- 13. the examples ------------------------------------------------------------
+
+EXAMPLES = os.path.join(ROOT, "examples", "torch")
+OUT = os.path.join(ROOT, "diffus_tpu_torch", "build", "examples")   # git-ignored
+MODALITIES = ("ct", "ct-crude", "transcranial", "mri", "heart")
+VIEWS = ("front", "side", "third")
+# the sizes at which --examples-study runs full_pipeline's stages 4 and 5,
+# largest first; phase 13 runs them at the largest where each stage's own
+# assertion holds on the plain path in f64 and f32 and f32 ends near f64
+# (measured with --examples-study on the H100: PERF.md, Findings)
+PIPELINE_SIZES = (256, 192, 128, 96, 64, 48)
+TRAIN_SIZE, POSE_SIZE = 48, 128
+# Runs an example script (argv[1:]) in this process, then prints the kernels'
+# launch counts on a line of their own, after the script's own lines
+_EXAMPLE_RUNNER = """
+import json, runpy, sys
+from diffus_tpu_torch.kernels.propagation_cuda import echo_fused
+from diffus_tpu_torch.kernels.trilinear_cuda import march_trilinear_fused
+sys.argv = sys.argv[1:]
+# the splat's and the samplers' scatter-adds without atomics: a run repeats
+import torch
+torch.use_deterministic_algorithms(True, warn_only=True)
+try:
+    runpy.run_path(sys.argv[0], run_name="__main__")
+finally:
+    print("launches " + json.dumps({
+        "echo_scan": echo_fused.launches, "trilinear_sample": march_trilinear_fused.launches,
+        "trilinear_idx": march_trilinear_fused.idx_launches,
+        "echo_scan_bwd": echo_fused.bwd_launches,
+        "trilinear_bwd": march_trilinear_fused.bwd_launches}), flush=True)
+"""
+
+
+def _load_example(name: str):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(f"{name}_example",
+                                                  os.path.join(EXAMPLES, f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _pipeline_stage(fp, stage: int, n: int, rays: int, path: str, dev) -> tuple:
+    """full_pipeline's stage 4 (``(first loss, last loss)``) or 5 (``(position
+    error before, after)``) on its scene and phantom of size ``n`` with
+    ``rays``, ``path`` ``kernel`` (f32, ``trilinear_fused`` and
+    ``use_pallas``: the script's run), ``plain`` (f32 ``trilinear``) or
+    ``f64`` (the plain path in float64), on ``dev``.  The f64 stages are
+    the script's own steps in float64: ``train_impedance_scan`` from the
+    same initial weights, and ``pose_step`` under ``recover_pose``'s Adam."""
+    import diffus_tpu_torch.train.impedance_train as ti
+    from diffus_tpu_torch.impedance.mlp import init_params
+    from diffus_tpu_torch.train.pose_recovery import pose_step, render_pose
+    from diffus_tpu_torch.types import RenderConfig, TransducerPose
+
+    render = RenderConfig(attenuation_coeff=ATT, interp="trilinear_fused", use_pallas=True) \
+        if path == "kernel" else RenderConfig(attenuation_coeff=ATT, interp="trilinear")
+    scene = fp.calibrate(n, rays)
+    t1, z_true = fp.impedance(n, dev)
+    if stage == 4:
+        target = fp.render_target(scene, z_true, render)[1]
+        if path != "f64":
+            losses = fp.train(scene, t1, target, 25, render)
+        else:
+            cfg = fp.train_config(scene, n, 25, render)
+            t1_, us, mask, src, dirs = ti._inputs(t1, target, torch.ones(
+                fp.IMAGE, dtype=torch.bool, device=dev), scene.source, scene.directions)
+            model = init_params(torch.Generator().manual_seed(0), cfg.hidden, dev).double()
+            losses = ti.train_impedance_scan(model, t1_.double(), us.double(), mask,
+                                             src.double(), dirs.double(), cfg)[1]
+        return float(losses[0]), float(losses[-1])
+    if path != "f64":
+        return fp.recover(scene, z_true, rays, 100, render)
+    cfg, true, inits = fp.recovery_problem(scene, rays, 100, render, dev)
+    true = TransducerPose(true.position.double(), true.rotvec.double())
+    pose = TransducerPose(inits.position.double().requires_grad_(True),
+                          inits.rotvec.double().requires_grad_(True))
+    z64 = z_true.double()
+    with torch.no_grad():
+        target = render_pose(z64, true, cfg)
+    opt = torch.optim.Adam([pose.position, pose.rotvec], lr=cfg.lr)
+    losses = [pose_step(z64, target, pose, opt, cfg) for _ in range(cfg.steps)]
+    best = int(torch.argmin(losses[-1]))
+    return (float(np.linalg.norm(fp.OFFSET)),
+            float(torch.linalg.norm(pose.position[best].detach() - true.position)))
+
+
+def _pipeline_check(fp, dev, rays: int, card: str) -> None:
+    """full_pipeline's stage 4 at TRAIN_SIZE and stage 5 at POSE_SIZE on the
+    plain path in float64 and in float32: each stage's own assertion (the
+    loss falls; the position error falls) must hold in both, and the f32
+    run must end near the f64 one (within a tenth of the f64 run's change),
+    so that the script's run through the kernels at those sizes rides no
+    chaotic trajectory (ROADMAP queue C; ``--examples-study`` measures
+    every size)."""
+    for stage, n in ((4, TRAIN_SIZE), (5, POSE_SIZE)):
+        t0 = time.perf_counter()
+        torch.use_deterministic_algorithms(True)
+        try:
+            got = {p: _pipeline_stage(fp, stage, n, rays, p, dev) for p in ("f64", "plain")}
+        finally:
+            torch.use_deterministic_algorithms(False)
+        ok = {p: after < before for p, (before, after) in got.items()}
+        (b64, a64), a32 = got["f64"], got["plain"][1]
+        tracks = abs(a32 - a64) <= 0.1 * abs(b64 - a64)
+        line = (f"full_pipeline stage {stage} at size {n}, {rays} rays "
+                f"({'loss' if stage == 4 else 'position error'} before -> after): " + ", ".join(
+                    f"{p} {b:.5f} -> {a:.5f} ({'holds' if ok[p] else 'fails'})"
+                    for p, (b, a) in got.items())
+                + f"; f32 {'ends' if tracks else 'does not end'} near f64")
+        if not (all(ok.values()) and tracks):
+            raise AssertionError(line)
+        print(f"examples [{card}]: {line}; {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def _run_example(name: str, args: list, card: str, final: str) -> dict:
+    """``examples/torch/<name>.py`` in a subprocess on the card with the
+    kernels (``--device cuda --pallas --interp trilinear_fused``); it must
+    exit 0 and print a line starting with ``final``.  Prints its wall time
+    and its last line; returns its launch counts."""
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    argv = [os.path.join(EXAMPLES, f"{name}.py"), *args, "--device", "cuda", "--pallas",
+            "--interp", "trilinear_fused"]
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", _EXAMPLE_RUNNER, *argv], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or len(lines) < 2 or not lines[-2].startswith(final):
+        raise AssertionError(f"example {name} {' '.join(args)}: exit {proc.returncode}\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+    launches = json.loads(lines[-1].split(" ", 1)[1])
+    print(f"examples [{card}]: {name} {' '.join(args)}: exit 0 in {wall:.2f} s (a new process); "
+          f"launches {launches}; {lines[-2]}", flush=True)
+    return {"launches": launches, "wall_s": wall, "stdout": lines}
+
+
+def _examples_phase(dev, card: str) -> dict:
+    """Phase 13: the four ported examples at full width on the card, each in a
+    subprocess through the kernels; K1 and K2 must launch in each, K1b and
+    K2b in full_pipeline and serve_client (``/recover``)."""
+    from PIL import Image
+
+    shutil.rmtree(OUT, ignore_errors=True)
+    os.makedirs(OUT)
+    runs = {}
+    size = str(SHAPE[0])
+    for m in MODALITIES:
+        png = os.path.join(OUT, f"ct_render_{m}.png")
+        runs[f"ct_render {m}"] = _run_example(
+            "ct_render", ["--modality", m, "--size", size, "--out", png], card, f"{m}: frame")
+    for view in VIEWS:
+        png = os.path.join(OUT, f"ct_render_ct_{view}.png")
+        runs[f"ct_render ct --view {view}"] = _run_example(
+            "ct_render", ["--modality", "ct", "--view", view, "--size", size, "--out", png], card,
+            "ct: frame")
+    pngs = [f for f in sorted(os.listdir(OUT)) if f.endswith(".png")]
+    if len(pngs) != len(MODALITIES) + len(VIEWS):
+        raise AssertionError(f"ct_render wrote {pngs}")
+    # Every frame without the artifact stage must hold an echo.  The side and
+    # third views run the artifacts, whose speckle clips negative echoes to 0
+    # as the reference does; from the phantom's source every echo of those two
+    # fans is <= 0, so their frames are (near) 0 in both packages (PERF.md).
+    for name, run in runs.items():
+        echo = float(run["stdout"][-2].split("|echo| max ")[1].split()[0])
+        if not name.endswith(("side", "third")) and not echo > 0.0:
+            raise AssertionError(f"{name}: an empty frame ({run['stdout'][-2]})")
+    gif = os.path.join(OUT, "sweep.gif")
+    runs["sweep_animation"] = _run_example(
+        "sweep_animation", ["--size", size, "--poses", "33", "--rays", str(N_RAYS), "--samples",
+                            str(N_SAMPLES), "--out", gif], card, f"wrote {gif}: 33 frames")
+    frames = Image.open(gif).n_frames
+    if frames != 33:
+        raise AssertionError(f"sweep.gif has {frames} frames, not 33")
+
+    _pipeline_check(_load_example("full_pipeline"), dev, N_RAYS, card)
+    runs["full_pipeline"] = _run_example(
+        "full_pipeline", ["--size", size, "--rays", str(N_RAYS), "--train-size",
+                          str(TRAIN_SIZE), "--pose-size", str(POSE_SIZE)],
+        card, "full pipeline OK")
+    runs["serve_client"] = _run_example(
+        "serve_client", ["--size", size, "--rays", str(N_RAYS), "--samples", str(N_SAMPLES)],
+        card, "serve client demo OK")
+    for name, run in runs.items():
+        n = run["launches"]
+        backward = name in ("full_pipeline", "serve_client")
+        if min(n["echo_scan"], n["trilinear_sample"]) < 1 or backward and min(
+                n["echo_scan_bwd"], n["trilinear_bwd"]) < 1:
+            raise AssertionError(f"example {name}: a kernel of its path never launched: {n}")
+    totals = {k: sum(run["launches"][k] for run in runs.values())
+              for k in next(iter(runs.values()))["launches"]}
+    print(f"examples [{card}]: {len(runs)} runs, {sum(r['wall_s'] for r in runs.values()):.2f} s "
+          f"in all; {len(pngs)} PNGs and a GIF of {frames} frames in {OUT}; "
+          f"full_pipeline's stage 4 at size {TRAIN_SIZE}, stage 5 at size {POSE_SIZE}; "
+          f"launches {totals}", flush=True)
+    return {"launches": totals,
+            "wall_s": {name: run["wall_s"] for name, run in runs.items()}}
+
+
+def _examples_study(dev, card: str) -> int:
+    """``--examples-study``: full_pipeline's stages 4 and 5 at every size of
+    PIPELINE_SIZES and 256 rays, through the kernels, the plain path in f32
+    and in f64, without stopping at the first size that holds; and the
+    first parameter sums of the initial MLP (the CPU generator's draw)."""
+    from diffus_tpu_torch.impedance.mlp import init_params
+
+    fp = _load_example("full_pipeline")
+    model = init_params(torch.Generator().manual_seed(0), (32, 32))
+    print(f"examples study [{card}]: torch {torch.__version__}; init_params(seed 0) parameter "
+          f"sums {[float(p.detach().double().sum()) for p in model.parameters()]}", flush=True)
+    for stage in (4, 5):
+        for n in PIPELINE_SIZES:
+            row = []
+            for path in ("kernel", "plain", "f64"):
+                t0 = time.perf_counter()
+                torch.use_deterministic_algorithms(True)
+                try:
+                    before, after = _pipeline_stage(fp, stage, n, N_RAYS, path, dev)
+                finally:
+                    torch.use_deterministic_algorithms(False)
+                row.append(f"{path} {before:.5f} -> {after:.5f} "
+                           f"({'holds' if after < before else 'fails'}, "
+                           f"{time.perf_counter() - t0:.1f} s)")
+            print(f"examples study [{card}]: stage {stage}, size {n}: " + "; ".join(row),
+                  flush=True)
+    return 0
+
+
+def _phase4_service(dev):
+    """``(volume, service)``: phase 4's service on the 256^3 phantom, nothing
+    rendered yet; ``coalesce=False``: phases 4-5 time a request's render path
+    at each tier, as before the service coalesced (phase 11 times the
+    coalescing window)."""
+    from diffus_tpu_torch.phantoms import brain_phantom_3d
+    from diffus_tpu_torch.serve import RendererService
+    from diffus_tpu_torch.types import BeamGeometry, RenderConfig
+
+    vol = torch.from_numpy(brain_phantom_3d(SHAPE)).to(dev)
+    cfg = RenderConfig(attenuation_coeff=ATT, interp="trilinear_fused", use_pallas=True)
+    return vol, RendererService(vol, BeamGeometry(N_RAYS, N_SAMPLES), cfg, batch_tiers=TIERS,
+                                device=dev, coalesce=False)
+
+
+def _horizon_only(dev, recovery: int | None, training: int | None) -> int:
+    """``--recovery-horizon [N]`` / ``--training-horizon [N]``: phase 10's
+    (phase 7's) trajectory check alone, at its horizon (strict, as the full
+    run checks it) or over N steps, measured and printed step by step
+    without failing past the horizon."""
+    from diffus_tpu_torch.train.pose_recovery import render_pose, sample_init_poses
+    from diffus_tpu_torch.types import TransducerPose
+
+    vol, svc = _phase4_service(dev)
+    if recovery is not None:
+        cfg = svc._recovery_config()
+        with torch.no_grad():
+            target = render_pose(svc.volume, TransducerPose.create(APEX, device=dev),
+                                 cfg.as_base())
+        init = sample_init_poses(torch.Generator(device=dev).manual_seed(RECOVERY_SEED), APEX,
+                                 RADIUS, ROT_SCALE, STARTS)
+        run = {"cfg": cfg, "init": init, "target": target}
+        print(_recovery_horizon_check(dev, svc, run, "full width", recovery or RECOVERY_HORIZON,
+                                      strict=not recovery), flush=True)
+    if training is not None:
+        cfg, t1, src, dirs, target = _training_inputs(dev, vol)
+        us_norm, mask = _normalized(target)
+        train = {"cfg": cfg, "t1": t1, "us_norm": us_norm, "mask": mask, "src": src,
+                 "dirs": dirs}
+        print(_training_horizon_check(train, training or TRAINING_HORIZON,
+                                      strict=not training), flush=True)
+        if not training:
+            print(_training_horizon_check(train, FALLS_STEPS, lr=FALLS_LR), flush=True)
+    return 0
+
+
+def _k1b_autograd(r, grad, mode, att, *_):
+    """K1b's stand-in for ``--training-study``: autograd through the plain
+    scan at the same ``r``."""
+    from diffus_tpu_torch.kernels.propagation_cuda import echo_plain
+
+    with torch.enable_grad():
+        x = r.detach().requires_grad_(True)
+        return torch.autograd.grad(echo_plain(x, mode, att), x, grad)[0]
+
+
+def _k2b_autograd(volume, source, directions, num_samples, step, grad, need):
+    """K2b's stand-in for ``--training-study``: autograd through
+    ``march_trilinear`` at the same inputs."""
+    from diffus_tpu_torch.ops.sampling import march_trilinear
+
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(bool(n)) for t, n in zip((volume, source, directions),
+                                                                   need)]
+        values = march_trilinear(*ins, num_samples, step, False)[1]
+        grads = iter(torch.autograd.grad(values, [t for t in ins if t.requires_grad], grad))
+    return tuple(next(grads) if t.requires_grad else None for t in ins)
+
+
+def _training_study(dev, card: str, steps: int) -> int:
+    """``--training-study``: phase 7's trajectory (``init_params(TRAIN_SEED)``,
+    lr 0.01) over ``steps`` steps, each way's distance from the f64 plain
+    path by step: the kernels, the plain path, one kernel pair at a time
+    (the other pair's plain version), K1b or K2b swapped for autograd
+    through its plain version, and a witness of f32 rounding alone (the
+    plain path from weights nudged one ulp).  Then the three ways at lower
+    rates over the 50 epochs."""
+    from diffus_tpu_torch.impedance.mlp import init_params
+    from diffus_tpu_torch.kernels import propagation_cuda, trilinear_cuda
+
+    vol, _ = _phase4_service(dev)
+    cfg, t1, src, dirs, target = _training_inputs(dev, vol)
+    del vol
+    us_norm, mask = _normalized(target)
+    train = {"t1": t1, "us_norm": us_norm, "mask": mask, "src": src, "dirs": dirs}
+    plain = dataclasses.replace(cfg, render=dataclasses.replace(
+        cfg.render, interp="trilinear", use_pallas=False))
+    k1 = dataclasses.replace(cfg, render=dataclasses.replace(cfg.render, interp="trilinear"))
+    k2 = dataclasses.replace(cfg, render=dataclasses.replace(cfg.render, use_pallas=False))
+    model0 = init_params(torch.Generator().manual_seed(TRAIN_SEED), cfg.hidden)
+    nudged = copy.deepcopy(model0)
+    with torch.no_grad():
+        for prm in nudged.parameters():
+            prm.copy_(torch.nextafter(prm, torch.full_like(prm, math.inf)))
+    swap_k1b = (propagation_cuda, "_launch_bwd", _k1b_autograd)
+    swap_k2b = (trilinear_cuda, "_launch_march_bwd", _k2b_autograd)
+    ways = {   # name: (initial weights, config, swap)
+        "kernels": (model0, cfg, None),
+        "plain": (model0, plain, None),
+        "K1 + K1b only": (model0, k1, None),
+        "K2 + K2b only": (model0, k2, None),
+        "kernels, K1b as plain autograd": (model0, cfg, swap_k1b),
+        "kernels, K2b as plain autograd": (model0, cfg, swap_k2b),
+        "plain, weights nudged one ulp": (nudged, plain, None),
+    }
+
+    def run(model, c, swap, n, dtype=torch.float32):
+        torch.use_deterministic_algorithms(True)
+        old = None
+        if swap is not None:
+            old = getattr(swap[0], swap[1])
+            setattr(swap[0], swap[1], swap[2])
+        try:
+            return _train_trajectory(model, train, c, n, dtype)
+        finally:
+            torch.use_deterministic_algorithms(False)
+            if old is not None:
+                setattr(swap[0], swap[1], old)
+
+    f64 = run(model0, plain, None, steps, torch.float64)
+    for name, way in ways.items():
+        # this way's distances from f64 (read as the "kernel" path's)
+        dist = _trajectory_distances({"kernel": run(*way, steps), "plain": f64, "f64": f64})
+
+        def worst(t, keep):
+            return max(float(d["kernel"][t].max()) for k, d in dist.items() if keep(k))
+
+        rows = [f"{t + 1}: " + "/".join(f"{worst(t, keep):.2e}" for keep in (
+            lambda k: k != "loss" and not k.startswith("grad "),
+            lambda k: k.startswith("grad "),
+            lambda k: k.startswith("grad ") and k.endswith("bias"),
+            lambda k: k == "loss")) for t in range(steps)]
+        print(f"training study [{card}], {name}: by step, distance from f64 (parameters/"
+              f"gradients/bias gradients/loss): " + "; ".join(rows), flush=True)
+
+    for lr in (1e-3, 3e-3):
+        at = {k: dataclasses.replace(c, lr=lr) for k, c in (("kernel", cfg), ("plain", plain))}
+        traj = {"kernel": run(model0, at["kernel"], None, cfg.epochs),
+                "plain": run(model0, at["plain"], None, cfg.epochs),
+                "f64": run(model0, at["plain"], None, cfg.epochs, torch.float64)}
+        losses = "; ".join(f"{k} {float(v['loss'][0]):.6f} -> {float(v['loss'][-1]):.6f} (min "
+                           f"{float(v['loss'].min()):.6f}, rises "
+                           f"{int((v['loss'][1:] > v['loss'][:-1]).sum())})"
+                           for k, v in traj.items())
+        out = _trajectory_check(f"training at lr {lr:g}", traj, 1e-3, 1e-3, strict=False)
+        print(f"training study [{card}], lr {lr:g}, {cfg.epochs} steps: {losses}; "
+              + _horizon_summary(out), flush=True)
+    return 0
+
+
+# Edits of csrc/trilinear_bwd.cu that --horizon-study checks phase 10's
+# trajectory check with, each anchor found once: a correct order of K2b's
+# points sums that differs from the shipped one in its last bits (B12's 64
+# slots a ray: lane l sums samples l, l + 64, ... in one slot and l + 32,
+# l + 96, ... in another, the two slots added before the warp's tree), and
+# two wrong gradients: the weight of one corner pair of dfz with its sign
+# flipped, and every point gradient doubled (Adam's first steps, lr times
+# the sign, and its second, see no constant factor: only the gradients'
+# own check sees it)
+_ACC = "  float acc[kSums] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};\n"
+_ACC_ADD = "#pragma unroll\n    for (int q = 0; q < kSums; ++q) acc[q] += t[q];\n  }\n"
+_HORIZON_STUDY = {
+    "shipped": [],
+    "64 slots a ray (B12)": [
+        (_ACC, _ACC + "  float acc2[kSums] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};\n"),
+        (_ACC_ADD,
+         "    if ((k / kLanes) & 1) {\n#pragma unroll\n"
+         "      for (int q = 0; q < kSums; ++q) acc2[q] += t[q];\n"
+         "    } else {\n#pragma unroll\n"
+         "      for (int q = 0; q < kSums; ++q) acc[q] += t[q];\n    }\n  }\n"
+         "#pragma unroll\n  for (int q = 0; q < kSums; ++q) acc[q] += acc2[q];\n")],
+    "a wrong gradient (one corner weight's sign flipped)": [
+        ("dc11 = dc1 * c.fy;\n  const float dfx", "dc11 = -(dc1 * c.fy);\n  const float dfx")],
+    "a wrong gradient (twice the points' gradients: Adam's steps the same)": [
+        ("  t[5] = c.in ? t[2] * c.t : 0.0f;\n}",
+         "  t[5] = c.in ? t[2] * c.t : 0.0f;\n#pragma unroll\n"
+         "  for (int q = 0; q < 6; ++q) t[q] *= 2.0f;\n}")],
+}
+
+
+def _study_copies(base, edits: dict, source: str) -> dict:
+    """A copy of the package and this script under ``base`` for each entry
+    of ``edits`` (``{name: [(anchor, replacement), ...]}``, applied to
+    ``csrc/<source>``), built together (one process each): ``{name: root}``."""
+    shutil.rmtree(base, ignore_errors=True)
+    from diffus_tpu_torch.kernels import _build
+
+    roots = {}
+    for i, (name, pairs) in enumerate(edits.items()):
+        root = base / str(i)
+        shutil.copytree(_build.SRC_DIR.parent, root / "diffus_tpu_torch",
+                        ignore=shutil.ignore_patterns("build", "__pycache__"))
+        shutil.copy(os.path.join(ROOT, "chip_smoke.py"), root)
+        src = root / "diffus_tpu_torch" / "csrc" / source
+        text = src.read_text()
+        for old, new in pairs:
+            if text.count(old) != 1:
+                raise AssertionError(f"study, {name}: an edit's anchor is not in {source} once")
+            text = text.replace(old, new)
+        src.write_text(text)
+        roots[name] = root
+    build = "from diffus_tpu_torch.kernels import _build; _build.library()"
+    procs = {name: subprocess.Popen([sys.executable, "-c", build], cwd=root,
+                                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for name, root in roots.items()}
+    for name, proc in procs.items():
+        out = proc.communicate(timeout=600)[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"study, {name}: build failed\n{out[-3000:]}")
+    return roots
+
+
+def _horizon_study(card: str) -> int:
+    """``--horizon-study``: phase 10's trajectory check (``--recovery-horizon``)
+    in copies of the package whose K2b is edited (``_HORIZON_STUDY``): the
+    shipped source and the 64-slot order must pass, the wrong gradient must
+    fail."""
+    from diffus_tpu_torch.kernels import _build
+
+    base = _build.BUILD_DIR / "study"
+    roots = _study_copies(base, _HORIZON_STUDY, "trilinear_bwd.cu")
+    failed = []
+    for name, root in roots.items():
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, "chip_smoke.py", "--recovery-horizon"], cwd=root,
+                             capture_output=True, text=True, timeout=600)
+        last = (run.stdout.strip().splitlines() or [""])[-1]
+        why = last if run.returncode == 0 else (run.stderr.strip().splitlines() or [""])[-1]
+        print(f"horizon study [{card}], {name}: exit {run.returncode} in "
+              f"{time.perf_counter() - t0:.1f} s; {why}", flush=True)
+        if (run.returncode == 0) != name.startswith(("shipped", "64 slots")):
+            failed.append(name)
+    shutil.rmtree(base, ignore_errors=True)
+    if failed:
+        raise AssertionError(f"horizon study: the check's verdict is wrong for {failed}")
+    return 0
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--requests", action="store_true",
@@ -2454,7 +3250,20 @@ def main(argv=None) -> int:
                         help="time K2b's points path and K2 alone at recovery's shape (one line)")
     parser.add_argument("--recovery-step", action="store_true",
                         help="time only phase 10's recovery step and K2b on its inputs")
+    parser.add_argument("--recovery-horizon", type=int, nargs="?", const=0, metavar="N",
+                        help="only phase 10's trajectory check; with N, measure it over N steps")
+    parser.add_argument("--training-horizon", type=int, nargs="?", const=0, metavar="N",
+                        help="only phase 7's trajectory check; with N, measure it over N steps")
+    parser.add_argument("--training-study", type=int, nargs="?", const=8, metavar="N",
+                        help="phase 7's trajectory over N steps with one part of the kernel "
+                             "path swapped at a time, and at lower rates")
+    parser.add_argument("--horizon-study", action="store_true",
+                        help="phase 10's trajectory check on copies with K2b's points sums in "
+                             "another order and with a wrong gradient")
+    parser.add_argument("--examples-study", action="store_true",
+                        help="full_pipeline's stages 4 and 5 at every candidate size, three ways")
     args = parser.parse_args(argv)
+    t_start = time.perf_counter()
     # -- 1. device ---------------------------------------------------------
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs an "
@@ -2487,6 +3296,14 @@ def main(argv=None) -> int:
         return _points_study(card, args.points_study)
     if args.recovery_step:
         return _recovery_step_only(dev, card)
+    if args.recovery_horizon is not None or args.training_horizon is not None:
+        return _horizon_only(dev, args.recovery_horizon, args.training_horizon)
+    if args.training_study is not None:
+        return _training_study(dev, card, args.training_study)
+    if args.horizon_study:
+        return _horizon_study(card)
+    if args.examples_study:
+        return _examples_study(dev, card)
 
     import torch.nn.functional as F
 
@@ -2503,17 +3320,12 @@ def main(argv=None) -> int:
     from diffus_tpu_torch.ops.sampling import march_trilinear, ray_points, sample_trilinear
     from diffus_tpu_torch.phantoms import brain_phantom_3d
     from diffus_tpu_torch.render.renderer import render_bmode, render_frame, simulate_rays
-    from diffus_tpu_torch.serve import RendererService
-    from diffus_tpu_torch.types import BeamGeometry, RenderConfig
+    from diffus_tpu_torch.types import RenderConfig
 
     # -- 3. kernels against their plain versions ---------------------------
     rng = np.random.default_rng(0)
-    vol = torch.from_numpy(brain_phantom_3d(SHAPE)).to(dev)
-    cfg = RenderConfig(attenuation_coeff=ATT, interp="trilinear_fused", use_pallas=True)
-    # coalesce=False: phases 4-5 time a request's render path at each tier, as
-    # before the service coalesced; phase 11 times the coalescing window
-    svc = RendererService(vol, BeamGeometry(N_RAYS, N_SAMPLES), cfg, batch_tiers=TIERS,
-                          device=dev, coalesce=False)
+    vol, svc = _phase4_service(dev)
+    cfg = svc.config
     dirs = svc.directions
     src32 = _sources(rng, 32).to(dev)
     # K1's inputs: the reflection coefficients of a 32-pose batch of the main
@@ -2789,6 +3601,11 @@ def main(argv=None) -> int:
     meshed = _mesh_phase(dev, vol, svc, card)
     print(f"times [{card}]: phase 12 {time.perf_counter() - t0:.2f} s", flush=True)
 
+    # -- 13. the examples, each in a subprocess -------------------------------------
+    t0 = time.perf_counter()
+    examples = _examples_phase(dev, card)
+    print(f"times [{card}]: phase 13 {time.perf_counter() - t0:.2f} s", flush=True)
+
     kernels = [
         {"name": "echo_scan", "route": "cuda", "source": "diffus_tpu_torch/csrc/echo_scan.cu",
          "replaces": "diffus_tpu/kernels/propagation_pallas.py:45",
@@ -2850,10 +3667,13 @@ def main(argv=None) -> int:
         k["image_formation_launches"] = bmode["launches"][k["name"]]
         k["recovery_launches"] = recovery["launches"][k["name"]]
         k["serving_surface_launches"] = surface["launches"][k["name"]]
+        k["examples_launches"] = examples["launches"][k["name"]]
     kernels[2]["mesh_launches"] = meshed["launches"]["gather_probe"]
     for path, run in (("training", train), ("image_formation", bmode), ("recovery", recovery),
-                      ("serving_surface", surface), ("mesh", meshed)):
+                      ("serving_surface", surface), ("mesh", meshed), ("examples", examples)):
         kernels[1][f"{path}_idx_launches"] = run["launches"]["trilinear_idx"]
+    print(f"times [{card}]: the whole run {time.perf_counter() - t_start:.1f} s (build "
+          f"included)", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

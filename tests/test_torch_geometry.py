@@ -58,10 +58,41 @@ def test_pose_fan_gradient_matches():
                                rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("fn", ["brain_phantom_3d", "t1_phantom_3d"])
+# (phantom, keyword arguments); the ids are the names of the test's cases
+PHANTOMS = [pytest.param((name, kwargs), id=name + "".join(f"-{k}={v}" for k, v in kwargs.items()))
+            for name, kwargs in [
+                ("brain_phantom_3d", {}), ("t1_phantom_3d", {}), ("ct_lung_phantom_3d", {}),
+                ("transcranial_phantom_3d", {}), ("transcranial_phantom_3d", {"skull_scale": 1.7}),
+                ("heart_phantom_3d", {}), ("heart_phantom_3d", {"infarct": False})]]
+
+
+@pytest.mark.parametrize("fn", PHANTOMS)
 @pytest.mark.parametrize("shape", [(20, 24, 22), (17, 17, 17)])
 def test_phantoms_identical(fn, shape):
-    np.testing.assert_array_equal(getattr(tph, fn)(shape), getattr(jph, fn)(shape))
+    """Byte for byte: the same dtype, shape and bits."""
+    name, kwargs = fn
+    got, want = getattr(tph, name)(shape, **kwargs), getattr(jph, name)(shape, **kwargs)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert got.tobytes() == want.tobytes()
+
+
+@pytest.mark.parametrize("rows,cols", [(20, 10), (33, 17), (8, 31)])
+def test_brain_phantom_2d_identical(rows, cols):
+    got, want = tph.brain_phantom_2d(rows, cols), jph.brain_phantom_2d(rows, cols)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert got.tobytes() == want.tobytes()
+    assert tph.brain_phantom_2d().tobytes() == jph.brain_phantom_2d().tobytes()
+
+
+def test_phantoms_have_every_public_name_and_constant():
+    """Every public function and constant of ``diffus_tpu.phantoms`` is in
+    the port's copy; the constants are equal."""
+    public = {n for n in vars(jph) if not n.startswith("_") and n not in ("annotations", "np")}
+    assert public <= set(vars(tph)), sorted(public - set(vars(tph)))
+    for name in public:
+        if isinstance(getattr(jph, name), float):
+            assert getattr(tph, name) == getattr(jph, name), name
+    assert {"BLOOD_Z", "MYOCARDIUM_Z", "INFARCT_Z", "LUNG_Z", "FAT_Z", "BONE_Z"} <= public
 
 
 def test_tissue_table_and_points_match():

@@ -37,12 +37,14 @@ MODULES = [
     "diffus_tpu_torch.io.datasets", "diffus_tpu_torch.io.pipeline", "diffus_tpu_torch.utils",
     "diffus_tpu_torch.utils.debug", "diffus_tpu_torch.utils.profiling",
     "diffus_tpu_torch.utils.timing", "diffus_tpu_torch.viz", "diffus_tpu_torch.viz.plots",
-    "diffus_tpu_torch.viz.video", "diffus_tpu_torch.viz.isosurface", "diffus_tpu_torch.cli",
+    "diffus_tpu_torch.viz.video", "diffus_tpu_torch.viz.isosurface",
+    "diffus_tpu_torch.viz.images", "diffus_tpu_torch.cli",
     "diffus_tpu_torch.parallel", "diffus_tpu_torch.parallel.mesh",
     "diffus_tpu_torch.parallel.shard", "diffus_tpu_torch.parallel.depth_scan",
     "diffus_tpu_torch.parallel.tp", "diffus_tpu_torch.train.driver",
 ]
-# an import statement of the JAX package, in the port's sources or chip_smoke.py
+# an import statement of the JAX package, in the port's sources, its examples or
+# chip_smoke.py
 JAX_PACKAGE_IMPORT = re.compile(r"^\s*(from|import)\s+diffus_tpu(\.|\s|$)", re.MULTILINE)
 
 
@@ -74,7 +76,10 @@ def test_unmeshed_service_leaves_the_mesh_layer_unloaded():
 
 
 def test_sources_import_nothing_of_the_jax_package():
+    examples = sorted((ROOT / "examples" / "torch").glob("*.py"))
+    assert len(examples) == 4
     sources = sorted((ROOT / "diffus_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    sources += examples
     assert len(sources) > 40
     bad = [str(p.relative_to(ROOT)) for p in sources if JAX_PACKAGE_IMPORT.search(p.read_text())]
     assert bad == []

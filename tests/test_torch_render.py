@@ -235,3 +235,74 @@ def test_correlate1d_matches_jax(mode, axis):
     assert_parity(lambda a: jfilt.correlate1d(a, k, axis, mode),
                   lambda a: tfilt.correlate1d(a, k, axis, mode), x, rtol=1e-6, atol=1e-6)
     assert to_numpy(tfilt.correlate1d(torch.from_numpy(x), k, axis, mode)).dtype == np.float32
+
+
+# The cross-modality scenes of tests/test_render.py (CT thorax through both
+# Hounsfield models, the transcranial skull, the EMIDEC heart) at 32^3: each
+# package maps its own copy of the phantom, and the frames are compared at
+# this file's render_frame tolerances (nearest 1e-5, trilinear 1e-4).
+MODALITY_SRC = np.array([16.0, 8.0, 16.0], np.float32)
+MODALITY_DIRS = np.array(fan_directions_2d([0.0, 1.0], np.radians(40), 8))
+HEART_SRC = np.array([16.0, 1.0, 16.0], np.float32)
+HEART_DIRS = np.array(fan_directions_2d([0.0, 1.0], np.radians(50), 16))
+
+
+def _modality_volumes(name):
+    """``(jax volume, torch volume)`` of a modality at 32^3."""
+    import diffus_tpu.impedance as jimp
+    import diffus_tpu.phantoms as jph
+    import diffus_tpu_torch.impedance as timp
+    import diffus_tpu_torch.phantoms as tph
+
+    shape = (32, 32, 32)
+    if name.startswith("ct"):
+        model = "schneider_webb_impedance" if name == "ct" else "crude_ct_impedance"
+        hu = jph.ct_lung_phantom_3d(shape)
+        return (getattr(jimp, model)(jnp.asarray(hu)),
+                getattr(timp, model)(torch.from_numpy(tph.ct_lung_phantom_3d(shape))))
+    fn = {"transcranial": "transcranial_phantom_3d", "heart": "heart_phantom_3d"}[name]
+    return jnp.asarray(getattr(jph, fn)(shape)), torch.from_numpy(getattr(tph, fn)(shape))
+
+
+@pytest.mark.parametrize("name", ["ct", "ct-crude", "transcranial", "heart"])
+@pytest.mark.parametrize("fields,tol", [({}, 1e-5), ({"interp": "trilinear"}, 1e-4),
+                                        ({"interp": "trilinear_fused", "use_pallas": True},
+                                         1e-4)],
+                         ids=["nearest", "trilinear", "trilinear_fused+pallas"])
+def test_cross_modality_frames_match_jax(name, fields, tol):
+    """The frames of ``test_cross_modality_phantoms_render`` and
+    ``test_heart_phantom_renders``: finite, non-zero, and JAX's."""
+    jvol, tvol = _modality_volumes(name)
+    src, dirs, n = ((HEART_SRC, HEART_DIRS, 28) if name == "heart"
+                    else (MODALITY_SRC, MODALITY_DIRS, 24))
+    cfg = dict({"attenuation_coeff": 1e-4}, **fields)
+    want = np.asarray(jr.render_frame(jvol, jnp.asarray(src), jnp.asarray(dirs), n,
+                                      JConfig(**cfg))[3])
+    got = tr.render_frame(tvol, torch.from_numpy(src), torch.from_numpy(dirs), n,
+                          RenderConfig(**cfg))[3].numpy()
+    assert got.shape == want.shape and got.shape[0] == dirs.shape[0]
+    assert np.all(np.isfinite(got)) and float(np.abs(got).max()) > 0
+    assert frame_rel_err(got, want) < tol
+    if name == "heart":
+        assert float(np.abs(got).max()) > 0.05   # strong cardiac interfaces
+
+
+def test_transcranial_skull_shadows_as_in_jax():
+    """The skull's near-field echo is at least the open phantom's, in the port
+    as in ``test_transcranial_skull_shadows``, and both frames are JAX's."""
+    from diffus_tpu.phantoms import brain_phantom_3d as jbrain, transcranial_phantom_3d as jtc
+    from diffus_tpu_torch.phantoms import brain_phantom_3d as tbrain
+    from diffus_tpu_torch.phantoms import transcranial_phantom_3d as ttc
+
+    src = np.array([16.0, 1.0, 16.0], np.float32)
+    dirs = np.array(fan_directions_2d([0.0, 1.0], np.radians(30), 8))
+    cfg = {"attenuation_coeff": 1e-4}
+    frames = {}
+    for what, jfn, tfn in (("skull", jtc, ttc), ("open", jbrain, tbrain)):
+        want = np.asarray(jr.render_frame(jnp.asarray(jfn((32, 32, 32))), jnp.asarray(src),
+                                          jnp.asarray(dirs), 28, JConfig(**cfg))[3])
+        got = tr.render_frame(torch.from_numpy(tfn((32, 32, 32))), torch.from_numpy(src),
+                              torch.from_numpy(dirs), 28, RenderConfig(**cfg))[3].numpy()
+        assert frame_rel_err(got, want) < 1e-5
+        frames[what] = got
+    assert np.abs(frames["skull"][:, :12]).max() >= np.abs(frames["open"][:, :12]).max()

@@ -1,6 +1,6 @@
 """The port's ``viz`` copies against ``diffus_tpu.viz``: the same text, the
 import lines mapped, and the same numbers from ``sector_points`` and
-``marching_tetrahedra``."""
+``marching_tetrahedra``; and the port's own ``viz.images``."""
 
 from pathlib import Path
 
@@ -46,3 +46,28 @@ def test_marching_tetrahedra_match(field, level, step):
     assert len(got[1]) > 0
     for g_, w in zip(got, want):
         np.testing.assert_array_equal(g_, w)
+
+
+@pytest.mark.parametrize("matplotlib_installed", [True, False])
+def test_images_write_png_and_gif_with_or_without_matplotlib(tmp_path, monkeypatch,
+                                                            matplotlib_installed):
+    """``viz.images`` (the port's own): a PNG of the array's shape and a GIF
+    of one frame a frame, through matplotlib or, without it, Pillow, whose
+    pixels are the array scaled to its min..max in 8-bit gray."""
+    import sys
+
+    from PIL import Image
+
+    from diffus_tpu_torch.viz.images import save_frames_gif, save_image
+
+    if not matplotlib_installed:
+        monkeypatch.setitem(sys.modules, "matplotlib", None)   # its import raises
+    img = np.linspace(-2.0, 6.0, 12 * 20).reshape(12, 20)
+    save_image(img, str(tmp_path / "a.png"))
+    png = Image.open(tmp_path / "a.png")
+    assert png.size == (20, 12)
+    if not matplotlib_installed:
+        np.testing.assert_array_equal(np.asarray(png), np.round((img + 2.0) / 8.0 * 255.0))
+    frames = [img * k for k in (1.0, -1.0, 0.5)]
+    save_frames_gif(frames, str(tmp_path / "a.gif"), fps=10)
+    assert Image.open(tmp_path / "a.gif").n_frames == 3
