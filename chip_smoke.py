@@ -10,6 +10,7 @@
     python3 chip_smoke.py --training-horizon [N]  # phases 1, 2 and phase 7's trajectory check
     python3 chip_smoke.py --horizon-study  # phase 10's trajectory check on edited copies of K2b
     python3 chip_smoke.py --examples-study  # full_pipeline's stages 4 and 5 at each size, 3 ways
+    python3 chip_smoke.py --probe  # phases 1, 2 and 6: K3 against float64, beside its earlier design
 
 ``--requests`` times the serving path alone (latency and device-time split
 per tier: K1, K2, ``ray_points`` and the rest), ``--backward`` the
@@ -80,7 +81,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    (1, 8, 32), each request rendered as it comes (``coalesce=False``), answers requests of 1, 5 and 32 poses; K1's and K2's ray
    form's launch counters must rise, and K2 must write no idx; one frame
    is held against the plain path in float64 on the CPU, plus a B-mode
-   splat and a nearest frame;
+   splat and a nearest frame; then a nearest frame through K1 at full depth
+   (ORACLE_RAYS of the served fan x 512 samples from APEX) is held against
+   the float64 dense-solve oracle (``ops/reference_oracle.py``) on the
+   host, frame-max relative per ray: the card's frame equal bit for bit
+   to K1's twin on the same reflections, the port's plain float64 path
+   within 1e-9 of the oracle, the card's f32 frame within max(1e-4, 2x)
+   the plain f32 path's distance (a ray beyond 1e-4 is printed), and K1's
+   scan (its f32 attenuation table, the Pallas kernel's recurrence,
+   replaced by ``exp(-a j)``) within max(1e-6, 2x) of it;
 5. times (CUDA events, after warm-up): K1 against its plain version at
    the 1-, 8- and 32-pose batches (256, 2048, 8192 rays x 511) and its
    device time per launch from ``torch.profiler`` there and at 8, 16 and
@@ -99,9 +108,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    kernel), the plain autograd they replace, ``F.grid_sample``'s backward
    for K2b, and the bound; every "with the wrapper" time beside the
    wrapper's host microseconds a call in the same runs;
-6. K3 row-gather probe against its plain version and a float64 sum, at
-   the probe's own shapes (M = 131072 rows of 128 floats, 2^20 rows,
-   n_buf 8, offsets 0, 5065, -7, M + 3) and one small case; then its entry
+6. K3 row-gather probe against its plain versions (``take_probe``, and
+   ``distinct_probe``, its schedule) and a float64 sum, at the probe's own
+   shapes (M = 131072 rows of 128 floats, 2^20 rows, n_buf 8, offsets 0,
+   5065, -7, M + 3; and 100000 rows, fewer than the period), on an
+   M = 97 x 1024 table (period 1024) at 1000003 rows (not a whole number
+   of periods) and one small case, each call equal bit for bit to a
+   repeat; the shipped kernel and the earlier design (every gathered row
+   fetched; ``csrc/study/gather_probe_every_row.cu``, built beside the
+   library in phase 2) timed in turns, alone (back to back and after an
+   L2 flush) and with the wrapper, beside the bound; then its entry
    point ``diffus_tpu_torch.kernels.gather_probe.main`` (K3's path), whose
    launches must rise;
 7. training path: ``train_impedance`` at ``ImpedanceTrainConfig``'s full
@@ -787,35 +803,113 @@ def _backward_times(dev, vol, r_tri, src32, dirs, rng, card: str) -> dict:
     return out
 
 
-def _gather_probe_phase(dev) -> dict:
-    """K3 against its plain version and a float64 sum, then its entry point."""
+# K3's earlier design (every gathered row fetched), timed beside the
+# shipped kernel in phase 6: the parent's csrc/gather_probe.cu, kept with the
+# same C entry as diffus_tpu_torch/csrc/study/gather_probe_every_row.cu and
+# built alone into a library of its own; its wrapper launched 8-warp blocks,
+# 4 an SM
+PARENT_PROBE, PARENT_BLOCKS_PER_SM = "gather_probe_every_row", 4
+K3_KERNELS = ("gather_rows_kernel", "sum_partials_kernel")
+
+
+def _start_parent_probe_build() -> tuple:
+    """Start the ``nvcc`` of K3's earlier design into
+    ``diffus_tpu_torch/build/study/`` (phase 2 starts it beside the main
+    build; :func:`_parent_probe` collects it)."""
+    from diffus_tpu_torch.kernels import _build
+
+    out_dir = _build.BUILD_DIR / "study"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    lib = out_dir / f"lib{PARENT_PROBE}.so"
+    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(lib),
+           str(_build.SRC_DIR / "study" / f"{PARENT_PROBE}.cu")]
+    return lib, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                 text=True)
+
+
+def _parent_probe(build: tuple):
+    """The started build of K3's earlier design, loaded: a function
+    ``(offset, table, n_rows, n_buf) -> (1, 128)`` that launches it on its own
+    grid (not through K3's wrapper, so ``gather_probe.launches`` does not
+    count it); a failed build or launch raises."""
+    import ctypes
+
+    from diffus_tpu_torch.kernels import _build
+
+    path, proc = build
+    log = proc.communicate(timeout=600)[0]
+    if proc.returncode != 0:
+        raise RuntimeError(f"build of K3's earlier design failed:\n{log[-3000:]}")
+    lib = ctypes.CDLL(str(path))
+    lib.diffus_gather_probe.argtypes = _build._SIGNATURES["diffus_gather_probe"]
+    lib.diffus_gather_probe.restype = ctypes.c_int
+    print("K3's earlier design, build: " + " | ".join(_ptxas_report(log)), flush=True)
+    grid = PARENT_BLOCKS_PER_SM * torch.cuda.get_device_properties(0).multi_processor_count
+
+    def launch(off: int, table: torch.Tensor, n_rows: int, n_buf: int) -> torch.Tensor:
+        partial = torch.empty((grid, 128), dtype=torch.float32, device=table.device)
+        out = torch.empty((1, 128), dtype=torch.float32, device=table.device)
+        stream = torch.cuda.current_stream(table.device).cuda_stream
+        _build.check(lib.diffus_gather_probe(table.data_ptr(), partial.data_ptr(),
+                                             out.data_ptr(), off, n_rows, table.shape[0],
+                                             n_buf, grid, stream), "K3's earlier design")
+        return out
+
+    return launch
+
+
+def _k3_us(fn, what: str, flush: torch.Tensor | None = None) -> dict:
+    """K3's two kernels' device microseconds a call of ``fn``, by kernel
+    (profiler, 20 calls): back to back, or after a read of ``flush`` (128
+    MiB, more than L2's 50 MB) before each call (a write would leave dirty
+    lines whose write-back K3's reads then wait on: 8 us more)."""
+    def cold():
+        flush.sum()
+        fn()
+
+    split = _device_split(fn if flush is None else cold, 20, what)
+    return {k: us for k, us in split.items() if k in K3_KERNELS}
+
+
+def _gather_probe_phase(dev, parent) -> dict:
+    """K3 against its plain versions and a float64 sum, bit for bit on
+    repeat; the shipped kernel and ``parent``, its earlier design
+    (:func:`_parent_probe`), timed in turns; then its entry point."""
     from diffus_tpu_torch.kernels import gather_probe as probe
 
+    rng = np.random.default_rng(0)
     m, n_rows = 131072, 1 << 20
-    table_np = np.random.default_rng(0).normal(size=(m, 128)).astype(np.float32)
-    table = torch.from_numpy(table_np).to(dev)
-    t64, a64 = table_np.astype(np.float64), np.abs(table_np.astype(np.float64))
-    # The kernel and the plain version sum in different orders; both are held
+    m97, n97 = 97 * 1024, 1_000_003      # P = 1024 rows; n97 = 976 P + 579
+    tables = {m: rng.normal(size=(m, 128)).astype(np.float32),
+              m97: rng.normal(size=(m97, 128)).astype(np.float32)}
+    on_card = {k: torch.from_numpy(v).to(dev) for k, v in tables.items()}
+    # The kernel and the plain versions sum in different orders; each is held
     # against the float64 sum of the same rows, per lane within
     # 1e-6 * sum |x_i|, a bound any summation order meets at these sizes.
-    worst = {"kernel": 0.0, "plain": 0.0}
+    cases = [(m, off, n_rows) for off in (0, 5065, -7, m + 3)] + [(m, 5065, 100_000)]
+    cases += [(m97, off, n97) for off in (0, -7, m97 + 3)]
+    worst = {"kernel": 0.0, "take_probe": 0.0, "distinct_probe": 0.0}
     k3_err = 0.0
-    distinct = 0
-    for off in (0, 5065, -7, m + 3):
-        rows = np.remainder(off + 97 * np.arange(n_rows, dtype=np.int64), m)
-        counts = np.bincount(rows, minlength=m).astype(np.float64)
-        distinct = max(distinct, int(np.count_nonzero(counts)))
-        want, bound = counts @ t64, 1e-6 * (counts @ a64)
-        got = probe.gather_probe(off, table, n_rows, 8)
-        plain = probe.take_probe(off, table, n_rows)
+    for tm, off, rows_n in cases:
+        t_np, table = tables[tm], on_card[tm]
+        rows = np.remainder(off + 97 * np.arange(rows_n, dtype=np.int64), tm)
+        counts = np.bincount(rows, minlength=tm).astype(np.float64)
+        want = counts @ t_np.astype(np.float64)
+        bound = 1e-6 * (counts @ np.abs(t_np.astype(np.float64)))
+        got = probe.gather_probe(off, table, rows_n, 8)
+        again = probe.gather_probe(off, table, rows_n, 8)
+        plain = probe.take_probe(off, table, rows_n)
+        counted = probe.distinct_probe(off, table, rows_n)
         torch.cuda.synchronize()
         if tuple(got.shape) != (1, 128) or tuple(plain.shape) != (128,):
             raise AssertionError(f"K3 shapes {tuple(got.shape)}, plain {tuple(plain.shape)}")
-        for name, x in (("kernel", got[0]), ("plain", plain)):
+        if not torch.equal(got, again):
+            raise AssertionError(f"K3 at M {tm}, offset {off}, {rows_n} rows: a repeat differs")
+        for name, x in (("kernel", got[0]), ("take_probe", plain), ("distinct_probe", counted)):
             ratio = float(np.max(np.abs(x.double().cpu().numpy() - want) / bound))
             if not ratio <= 1.0:
-                raise AssertionError(f"K3 {name} at offset {off}: {ratio:.3g} x the float64 "
-                                     f"bound 1e-6 * sum |x|")
+                raise AssertionError(f"K3 {name} at M {tm}, offset {off}, {rows_n} rows: "
+                                     f"{ratio:.3g} x the float64 bound 1e-6 * sum |x|")
             worst[name] = max(worst[name], ratio)
         k3_err = max(k3_err, float((got[0] - plain).abs().max()))
     small_np = np.random.default_rng(1).normal(size=(64, 128)).astype(np.float32)
@@ -827,10 +921,39 @@ def _gather_probe_phase(dev) -> dict:
     bad = (got - plain).abs() > 1e-5 * plain.abs() + atol
     if bool(bad.any()):
         raise AssertionError(f"K3 small case: {int(bad.sum())} lanes beyond rtol 1e-5")
-    print(f"K3 gather probe vs plain and float64 at ({m}, 128), {n_rows} rows, n_buf 8, "
-          f"offsets 0, 5065, -7, M+3: ok, worst error in units of the bound: kernel "
-          f"{worst['kernel']:.3e}, plain {worst['plain']:.3e}; max_abs_err {k3_err:.3e}; "
-          f"small (64, 128) x 48 rows ok", flush=True)
+    print(f"K3 gather probe vs take_probe, distinct_probe and float64 at ({m}, 128) x {n_rows} "
+          f"rows, n_buf 8, offsets 0, 5065, -7, M+3, and 100000 rows (fewer than the period) "
+          f"at 5065; at ({m97}, 128) (period 1024) x {n97} rows, offsets 0, -7, M+3: ok, each "
+          f"equal bit for bit on repeat; worst error in units of the bound: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+          + f"; max_abs_err {k3_err:.3e}; small (64, 128) x 48 rows ok", flush=True)
+
+    table = on_card[m]
+    distinct = probe._schedule(m, n_rows)[0]
+    rows = np.remainder(5065 + 97 * np.arange(n_rows, dtype=np.int64), m)
+    counts = np.bincount(rows, minlength=m).astype(np.float64)
+    want = counts @ tables[m].astype(np.float64)
+    bound64 = 1e-6 * (counts @ np.abs(tables[m].astype(np.float64)))
+    x = parent(5065, table, n_rows, 8)[0]
+    ratio = float(np.max(np.abs(x.double().cpu().numpy() - want) / bound64))
+    if not ratio <= 1.0:
+        raise AssertionError(f"K3's earlier design: {ratio:.3g} x the float64 bound")
+    # the shipped kernel and the earlier design in turns (shipped first and
+    # last): their two kernels' device time a call, L2 warm and flushed, and
+    # the wrapper's time back to back (CUDA events)
+    flush = torch.empty(32 << 20, dtype=torch.float32, device=dev)
+    designs = {"shipped": lambda: probe._launch(5065, table, n_rows, 8),
+               "every_row": lambda: parent(5065, table, n_rows, 8)}
+    times = {name: {"us": [], "us_cold": [], "ms": [], "split": []} for name in designs}
+    for name in ("shipped", "every_row", "every_row", "shipped"):
+        fn = designs[name]
+        warm, cold = _k3_us(fn, f"K3 {name}"), _k3_us(fn, f"K3 {name}, L2 flushed", flush)
+        times[name]["us"].append(sum(warm.values()))
+        times[name]["us_cold"].append(sum(cold.values()))
+        times[name]["split"].append(cold)
+        times[name]["ms"].append(_event_ms(fn, 20))
+    variants = {name: {k: statistics.mean(t[k]) for k in ("us", "us_cold", "ms")} | {"runs": t}
+                for name, t in times.items()}
 
     # the library's way, index_select + sum over precomputed row ids
     idx = torch.remainder(97 * torch.arange(n_rows, device=dev), m)
@@ -842,18 +965,126 @@ def _gather_probe_phase(dev) -> dict:
     if launches < 1:
         raise AssertionError("K3's entry point never launched the kernel")
     per_call = n_rows * 1e-6
-    # each distinct row read once (all M rows: 97 and M are coprime), one row out
-    bound = _bound(512.0 * (distinct + 1), float(n_rows) * 128)
-    print(f"K3 bound: {distinct} distinct rows of 512 B read once -> {bound['bound_ms']:.6f} ms "
-          f"({bound['bound_by']}); the probe's own measure, every gathered row from HBM, is "
-          f"{512 / HBM_BYTES_PER_S * 1e9:.4f} ns/row; index_select + sum {library_ms:.4f} ms",
-          flush=True)
+    # each distinct row read once (all M rows: 97 and M are coprime), one row
+    # out; a multiply and an add a float of each distinct row
+    bound = _bound(512.0 * (distinct + 1), 2.0 * 128 * distinct)
+    ship = variants["shipped"]
+    print(f"K3 [{_card()}] at ({m}, 128) x {n_rows} rows, {distinct} distinct, n_buf 8: "
+          + "; ".join(f"{name} {v['us']:.2f} us alone back to back, {v['us_cold']:.2f} us "
+                      f"after an L2 flush, {v['ms']:.4f} ms with the wrapper (runs: "
+                      + ", ".join(f"{u:.2f}/{c:.2f}" for u, c in zip(v["runs"]["us"],
+                                                                     v["runs"]["us_cold"]))
+                      + "; flushed by kernel: "
+                      + ", ".join(f"{k} {us:.2f}" for k, us in v["runs"]["split"][-1].items())
+                      + ")" for name, v in variants.items())
+          + f"; bound {bound['bound_ms'] * 1e3:.2f} us ({bound['bound_by']}): the shipped "
+          f"kernel {bound['bound_ms'] * 1e3 / ship['us']:.1%} of it back to back, "
+          f"{bound['bound_ms'] * 1e3 / ship['us_cold']:.1%} after a flush, "
+          f"{bound['bound_ms'] / ship['ms']:.1%} with the wrapper; the entry point "
+          f"{record['cuda_gather_ns_per_row'] * per_call:.4f} ms a call with the wrapper "
+          f"({record['cuda_gather_ns_per_distinct_row']:.4f} ns a distinct row); "
+          f"index_select + sum {library_ms:.4f} ms", flush=True)
     return {"launches": launches, "max_abs_err": k3_err,
             "ns_per_row": record["cuda_gather_ns_per_row"],
+            "ns_per_distinct_row": record["cuda_gather_ns_per_distinct_row"],
+            "distinct_rows": distinct,
             "plain_ns_per_row": record["torch_take_ns_per_row"],
             "ms": record["cuda_gather_ns_per_row"] * per_call,
             "plain_ms": record["torch_take_ns_per_row"] * per_call,
-            "library_ms": library_ms, **bound}
+            "device_us": ship["us"], "device_us_cold": ship["us_cold"],
+            "variants": variants, "library_ms": library_ms, **bound}
+
+
+# rays of the served fan held to the float64 dense-solve oracle at full depth;
+# the oracle's N + 1 dense solves take ~4.5 s a ray at 512 samples (8 CPU cores)
+ORACLE_RAYS = (0, 85, 170, 255)
+
+
+def _oracle_check(dev, vol, dirs) -> dict:
+    """A nearest frame through K1 on the card (``use_pallas=True``) at full
+    depth, ORACLE_RAYS of the served fan from APEX on the 256^3 phantom,
+    against the float64 dense-solve oracle (``ops/reference_oracle.py``) on
+    the host, each distance frame-max relative and per ray.  K1 must launch,
+    and its frame be its twin's (``echo_chunked_plain``) bit for bit on the
+    same reflections.  The port's plain path in float64 within 1e-9 of the
+    oracle; the card within max(1e-4, 2x) the plain f32 path's distance (a
+    ray beyond 1e-4, near a resonance, is printed).  K1 attenuates by the
+    Pallas kernel's f32 recurrence ``att_{j+1} = att_j * f32(exp(-a))``
+    (``propagation_pallas.py:56,79``), whose own error grows with depth; so
+    K1's scan alone, its frame with that table replaced by ``exp(-a j)`` in
+    float64, is held to max(1e-6, 2x) plain f32's distance.  The distances
+    of the table, of the twin's sequential order (the Pallas kernel's) and
+    of an exact scan of the f32 reflections are printed beside them."""
+    from diffus_tpu_torch.kernels.propagation_cuda import (
+        LANES,
+        _att_table,
+        echo_chunked_plain,
+        echo_fused,
+        echo_plain,
+    )
+    from diffus_tpu_torch.ops.reference_oracle import render_frame_dense
+    from diffus_tpu_torch.render.renderer import render_frame, simulate_rays
+    from diffus_tpu_torch.types import RenderConfig
+
+    rays = dirs[list(ORACLE_RAYS)].contiguous()
+    src = torch.tensor(APEX, dtype=torch.float32, device=dev)
+    cfg = RenderConfig(attenuation_coeff=ATT, interp="nearest", use_pallas=True)
+    if cfg.start_index(N_SAMPLES) or cfg.pulse_length or cfg.envelope:
+        raise AssertionError("the oracle check's config is no longer a raw echo frame")
+    plain = dataclasses.replace(cfg, use_pallas=False)
+    before = echo_fused.launches
+    card = render_frame(vol, src, rays, N_SAMPLES, cfg)[3]
+    if echo_fused.launches == before:
+        raise AssertionError("oracle check: the card's frame did not launch K1")
+    plain32 = render_frame(vol, src, rays, N_SAMPLES, plain)[3]
+    r = simulate_rays(vol, src, rays, N_SAMPLES, "nearest")[1]
+    mode = cfg.reflection_mode
+    if not torch.equal(echo_chunked_plain(r, mode, ATT, LANES), card):
+        raise AssertionError(f"oracle check: the card's frame is not K1's twin at {LANES} "
+                             f"lanes on the same reflections")
+    table = _att_table(N_SAMPLES - 1, ATT, dev).double()
+    exact_att = torch.exp(-ATT * torch.arange(N_SAMPLES, dtype=torch.float64, device=dev))
+    scan = card.double() / table * exact_att
+    sequential = echo_chunked_plain(r, mode, ATT, 1)
+    exact_scan = echo_plain(r.double(), mode, ATT)
+    vol64, src64, rays64 = vol.double().cpu(), src.double().cpu(), rays.double().cpu()
+    plain64 = render_frame(vol64, src64, rays64, N_SAMPLES, plain)[3]
+    t0 = time.perf_counter()
+    oracle = render_frame_dense(vol64.numpy(), src64.numpy(), rays64.numpy(), N_SAMPLES, ATT,
+                                0)[3]
+    oracle_s = time.perf_counter() - t0
+    if oracle.shape != tuple(card.shape) or not np.isfinite(oracle).all():
+        raise AssertionError(f"oracle frame {oracle.shape} vs the card's {tuple(card.shape)}")
+    scale = np.abs(oracle).max()
+
+    def per_ray(x):
+        return np.abs(x.double().cpu().numpy() - oracle).max(axis=1) / scale
+
+    e64, e32, ek, e_scan = per_ray(plain64), per_ray(plain32), per_ray(card), per_ray(scan)
+    if not e64.max() <= 1e-9:
+        raise AssertionError(f"the plain float64 path vs the oracle: {e64.max():.3e} > 1e-9")
+    for i in np.flatnonzero(~(ek <= 1e-4)):
+        print(f"oracle check: ray {ORACLE_RAYS[i]} on the card {ek[i]:.3e} from the oracle "
+              f"(> 1e-4), plain f32 {e32[i]:.3e}", flush=True)
+    for what, e, floor in (("the card", ek, 1e-4), ("K1's scan", e_scan, 1e-6)):
+        bad = np.flatnonzero(~(e <= np.maximum(floor, 2.0 * e32)))
+        if bad.size:
+            raise AssertionError(f"oracle check, rays {[ORACLE_RAYS[i] for i in bad]}: {what} "
+                                 f"{e[bad].tolist()} from the oracle, beyond max({floor:g}, 2x) "
+                                 f"plain f32's {e32[bad].tolist()}")
+    table_err = float((table / exact_att - 1.0).abs().max())
+    print(f"oracle: nearest frame through K1, rays {list(ORACLE_RAYS)} of the served fan x "
+          f"{N_SAMPLES} samples on the {SHAPE} phantom, against the float64 dense-solve oracle "
+          f"({oracle_s:.1f} s on the host), frame-max relative, worst ray (per ray): the card "
+          f"{ek.max():.3e} {ek.tolist()} (limit max(1e-4, 2x plain f32)), equal to K1's twin "
+          f"bit for bit; K1's scan with exp(-a j) for its f32 attenuation table "
+          f"{e_scan.max():.3e} {e_scan.tolist()} (limit max(1e-6, 2x plain f32)); the table's "
+          f"relative error at depth {N_SAMPLES - 1} {table_err:.3e}; the twin's sequential "
+          f"order {per_ray(sequential).max():.3e}; an exact scan of the f32 reflections "
+          f"{per_ray(exact_scan).max():.3e}; plain f32 {e32.max():.3e} {e32.tolist()}; plain "
+          f"f64 {e64.max():.3e} (limit 1e-9)", flush=True)
+    return {"card": float(ek.max()), "scan": float(e_scan.max()), "table": table_err,
+            "plain32": float(e32.max()), "plain64": float(e64.max()), "oracle_s": oracle_s}
 
 
 def _param_grads(model, *args) -> dict:
@@ -3262,7 +3493,10 @@ def main(argv=None) -> int:
                              "another order and with a wrong gradient")
     parser.add_argument("--examples-study", action="store_true",
                         help="full_pipeline's stages 4 and 5 at every candidate size, three ways")
+    parser.add_argument("--probe", action="store_true",
+                        help="only phase 6: K3 against float64, beside its earlier design")
     args = parser.parse_args(argv)
+    any_only = any(v is not None and v is not False for v in vars(args).values())
     t_start = time.perf_counter()
     # -- 1. device ---------------------------------------------------------
     if not torch.cuda.is_available():
@@ -3281,6 +3515,7 @@ def main(argv=None) -> int:
     # -- 2. build ----------------------------------------------------------
     stale = _build._stale()
     t0 = time.perf_counter()
+    parent_build = _start_parent_probe_build() if args.probe or not any_only else None
     _build.library()
     build_s = time.perf_counter() - t0
     regs = _ptxas_report(_build.LOG_PATH.read_text())
@@ -3304,6 +3539,9 @@ def main(argv=None) -> int:
         return _horizon_study(card)
     if args.examples_study:
         return _examples_study(dev, card)
+    if args.probe:
+        _gather_probe_phase(dev, _parent_probe(parent_build))
+        return 0
 
     import torch.nn.functional as F
 
@@ -3485,6 +3723,7 @@ def main(argv=None) -> int:
     print(f"main path: warmup {warm_s:.2f} s; requests of 1, 5, 32 poses ok; "
           f"launches {launches}; stats {stats}; trilinear frame vs f64 CPU "
           f"{err_tri:.3e}, nearest {err_near:.3e}; bmode (256, 256) finite", flush=True)
+    _oracle_check(dev, vol, dirs)
 
     # -- 5. times ------------------------------------------------------------
     # K1 at the 1-, 8- and 32-pose batches of the main path, wrapper included
@@ -3579,7 +3818,7 @@ def main(argv=None) -> int:
     _request_profiles(svc, rng, card, "request")
 
     # -- 6. K3 against its plain version, then its path ----------------------
-    k3 = _gather_probe_phase(dev)
+    k3 = _gather_probe_phase(dev, _parent_probe(parent_build))
 
     # -- 7. training path -----------------------------------------------------
     train = _training_phase(dev, vol)
@@ -3635,7 +3874,10 @@ def main(argv=None) -> int:
          "launches": k3["launches"], "max_abs_err": k3["max_abs_err"],
          "ms": k3["ms"], "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
          "bound_by": k3["bound_by"], "library_ms": k3["library_ms"],
-         "ns_per_row": k3["ns_per_row"], "plain_ns_per_row": k3["plain_ns_per_row"]},
+         "device_us": k3["device_us"], "device_us_cold": k3["device_us_cold"],
+         "distinct_rows": k3["distinct_rows"], "ns_per_row": k3["ns_per_row"],
+         "ns_per_distinct_row": k3["ns_per_distinct_row"],
+         "plain_ns_per_row": k3["plain_ns_per_row"], "variants": k3["variants"]},
     ]
     # the backward kernels' path is training's (phase 7): launches there
     k1b_rec, k2b_vol = bwd_times["k1b_recovery"], bwd_times["k2b_volume"]

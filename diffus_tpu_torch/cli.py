@@ -387,8 +387,10 @@ def cmd_serve(args):
 
 def cmd_selftest(args):
     """Small end-to-end smoke: phantom -> render on ``--device`` -> parity
-    with the port's plain path in float64 on the CPU (limit 1e-3)."""
+    with the float64 dense-solve oracle (``ops/reference_oracle.py``), as
+    JAX's ``selftest`` (limit 1e-3)."""
     from diffus_tpu_torch.geometry import fan_directions_2d
+    from diffus_tpu_torch.ops.reference_oracle import render_frame_dense
     from diffus_tpu_torch.phantoms import brain_phantom_3d
     from diffus_tpu_torch.render import render_frame
     from diffus_tpu_torch.types import RenderConfig
@@ -397,12 +399,11 @@ def cmd_selftest(args):
     vol = brain_phantom_3d((32, 32, 32))
     src = np.array([16.0, 1.0, 16.0], np.float32)
     dirs = fan_directions_2d([0.0, 1.0], np.radians(45.0), 8)
-    cfg = RenderConfig(attenuation_coeff=1e-4)
     got = render_frame(torch.from_numpy(vol).to(device), torch.from_numpy(src).to(device),
-                       dirs.to(device), 24, cfg)[3].cpu().double()
-    want = render_frame(torch.from_numpy(vol).double(), torch.from_numpy(src), dirs, 24,
-                        cfg)[3]
-    err = float((got - want).abs().max() / (want.abs().max() + 1e-12))
+                       dirs.to(device), 24, RenderConfig(attenuation_coeff=1e-4))[3]
+    _, _, _, want = render_frame_dense(vol, src, dirs.numpy(), 24, 1e-4, 0)
+    got = got.double().cpu().numpy()
+    err = float(np.max(np.abs(got - want)) / (np.max(np.abs(want)) + 1e-12))
     ok = err < 1e-3
     print(json.dumps({"parity_max_rel_err": err, "ok": ok}))
     return 0 if ok else 1

@@ -14,6 +14,10 @@ the same question for threads that load device memory directly.
   CUDA table through ``csrc/gather_probe.cu``, or raises; it counts its
   launches in ``gather_probe.launches``.
 - :func:`take_probe` is the plain version: ``index_select`` and ``sum``.
+- :func:`period_counts` is the kernel's schedule in plain PyTorch: the
+  walk's distinct rows (its ids repeat with period ``M / gcd(97, M)``)
+  and how often each comes up; :func:`distinct_probe` sums each distinct
+  row times its count, as the kernel does.
 - ``python -m diffus_tpu_torch.kernels.gather_probe`` times both on the
   card at the JAX probe's sizes (:func:`main`).
 
@@ -22,6 +26,8 @@ What bounds the kernel, and its design, are in the source's header note.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from diffus_tpu_torch.kernels import _build
@@ -29,8 +35,8 @@ from diffus_tpu_torch.kernels import _build
 _INT32 = (-(1 << 31), (1 << 31) - 1)
 _STRIDE = 97
 _MAX_BUF = 16           # row loads in flight per warp that the kernel is built for
-_WARPS_PER_BLOCK = 8    # csrc/gather_probe.cu kWarpsPerBlock
-_BLOCKS_PER_SM = 4
+_WARPS_PER_BLOCK = 16   # csrc/gather_probe.cu kWarpsPerBlock
+_BLOCKS_PER_SM = 2      # 32 warps an SM
 
 
 def _offset(offset) -> int:
@@ -64,16 +70,48 @@ def take_probe(offset, table: torch.Tensor, n_rows: int = 1 << 20) -> torch.Tens
     return torch.index_select(table, 0, idx).sum(dim=0)
 
 
+def _schedule(m: int, n_rows: int) -> tuple:
+    """``(D, q, r)``: the ids ``(off + 97 i) mod m`` repeat with period
+    ``P = m / gcd(97, m)`` in ``i``, so the walk visits ``D = min(P, n_rows)``
+    distinct rows, and with ``n_rows = q P + r`` row ``j < D`` of one period
+    comes up ``q + (j < r)`` times (``csrc/gather_probe.cu`` ``schedule``)."""
+    period = m // math.gcd(_STRIDE, m)
+    q, r = divmod(n_rows, period)
+    return min(period, n_rows), q, r
+
+
+def period_counts(offset, m: int, n_rows: int) -> tuple:
+    """The kernel's schedule: ``(ids, counts)``, ``(D,)`` int64 each, the
+    distinct row ids of the walk in the order of its first period, ``ids[j]
+    = (off + 97 j) mod m`` (floor modulo), and how many of the ``n_rows``
+    gathered rows are ``ids[j]``."""
+    off = _offset(offset)
+    _check_rows(off, n_rows)
+    distinct, q, r = _schedule(m, n_rows)
+    j = torch.arange(distinct, dtype=torch.int64)
+    return torch.remainder(off + _STRIDE * j, m), q + (j < r).long()
+
+
+def distinct_probe(offset, table: torch.Tensor, n_rows: int = 1 << 20) -> torch.Tensor:
+    """The plain version of the kernel's schedule: ``(128,)`` sum over the
+    walk's distinct rows of each row times its count (one multiply and one
+    sum, in the table's type)."""
+    ids, counts = period_counts(offset, table.shape[0], n_rows)
+    ids, counts = ids.to(table.device), counts.to(table.device, table.dtype)
+    return (counts[:, None] * torch.index_select(table, 0, ids)).sum(dim=0)
+
+
 def _launch(off: int, table: torch.Tensor, n_rows: int, n_buf: int) -> torch.Tensor:
     if table.dtype != torch.float32:
         raise TypeError(f"gather probe kernel takes a float32 table, got {table.dtype}")
     if table.dim() != 2 or table.shape[1] != 128 or not 1 <= table.shape[0] <= _INT32[1]:
         raise ValueError(f"need an (M, 128) table, got {tuple(table.shape)}")
-    if not table.is_contiguous():
-        raise ValueError("gather probe kernel takes a contiguous table")
+    if not table.is_contiguous() or table.data_ptr() % 16:
+        raise ValueError("gather probe kernel takes a contiguous, 16-byte aligned table")
     dev = table.device
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    grid = max(1, min(_BLOCKS_PER_SM * sms, -(-n_rows // _WARPS_PER_BLOCK)))
+    distinct = _schedule(table.shape[0], n_rows)[0]
+    grid = max(1, min(_BLOCKS_PER_SM * sms, -(-distinct // _WARPS_PER_BLOCK)))
     partial = torch.empty((grid, 128), dtype=torch.float32, device=dev)
     out = torch.empty((1, 128), dtype=torch.float32, device=dev)
     lib = _build.library()
@@ -89,7 +127,8 @@ def _launch(off: int, table: torch.Tensor, n_rows: int, n_buf: int) -> torch.Ten
 def gather_probe(offset, table: torch.Tensor, n_rows: int = 1 << 20,
                  n_buf: int = 8) -> torch.Tensor:
     """``(1, 128)`` sum of ``n_rows`` rows of ``table`` at ``(off + 97 i) mod M``,
-    gathered by kernel K3 with ``n_buf`` row loads in flight per warp.
+    by kernel K3: each distinct row fetched once and added times its count
+    (:func:`period_counts`), with ``n_buf`` row loads in flight per warp.
 
     Args:
       offset: the starting row, an int or a one-element integer tensor.
@@ -128,7 +167,11 @@ def main() -> dict:
     """Time K3 and the plain version at the JAX probe's sizes (M = 131072
     rows of 128 floats, 64 MiB; 2^20 rows a call; ``n_buf`` 8), a fresh
     offset ``i * 1013`` on each call, with CUDA events over five calls after
-    one warm-up call.  Prints the record as one JSON line and returns it."""
+    one warm-up call (wrapper included).  The kernel's time is given per
+    gathered row (``cuda_gather_ns_per_row``, as before it fetched each
+    distinct row once) and per distinct row, the row it fetches
+    (``cuda_gather_ns_per_distinct_row``).  Prints the record as one JSON
+    line and returns it."""
     import json
 
     import numpy as np
@@ -154,10 +197,13 @@ def main() -> dict:
         return start.elapsed_time(end) / (len(offs) - 1) * 1e6 / n_rows
 
     name, limit = _card()
+    distinct = _schedule(m, n_rows)[0]
+    kernel_ns = ns_per_row(lambda o: gather_probe(o, table, n_rows, 8))
     record = {
-        "cuda_gather_ns_per_row": ns_per_row(lambda o: gather_probe(o, table, n_rows, 8)),
+        "cuda_gather_ns_per_row": kernel_ns,
+        "cuda_gather_ns_per_distinct_row": kernel_ns * n_rows / distinct,
         "torch_take_ns_per_row": ns_per_row(lambda o: take_probe(o, table, n_rows)),
-        "n_rows": n_rows, "table_rows": m, "n_buf": 8,
+        "n_rows": n_rows, "distinct_rows": distinct, "table_rows": m, "n_buf": 8,
         "card": name, "power_limit": limit,
     }
     print(json.dumps(record), flush=True)

@@ -64,12 +64,49 @@ def test_render_image_and_sweep_gif(tmp_path, t1_path):
 
 
 def test_selftest_matches(capsys):
+    """Both selftests hold their render to the float64 dense-solve oracle on
+    the same inputs; the port's error is its render's distance from JAX's
+    oracle (``diffus_tpu.ops.reference_oracle``), and the two packages'
+    renders are within 1e-6 of each other on that scale."""
+    from diffus_tpu.ops.reference_oracle import render_frame_dense
+    from diffus_tpu_torch.geometry import fan_directions_2d
+    from diffus_tpu_torch.phantoms import brain_phantom_3d
+    from diffus_tpu_torch.render import render_frame
+    from diffus_tpu_torch.types import RenderConfig
+
     assert jcli.main(["selftest"]) == 0
     want = _last_json(capsys)
     assert tcli.main(["selftest", *CPU]) == 0
     got = _last_json(capsys)
     assert set(got) == set(want) == {"parity_max_rel_err", "ok"}
     assert got["ok"] and got["parity_max_rel_err"] < 1e-3
+    vol = brain_phantom_3d((32, 32, 32))
+    src = np.array([16.0, 1.0, 16.0], np.float32)
+    dirs = fan_directions_2d([0.0, 1.0], np.radians(45.0), 8)
+    frame = render_frame(torch.from_numpy(vol), torch.from_numpy(src), dirs, 24,
+                         RenderConfig(attenuation_coeff=1e-4))[3].double().numpy()
+    oracle = render_frame_dense(vol, src, dirs.numpy(), 24, 1e-4, 0)[3]
+    err = float(np.max(np.abs(frame - oracle)) / (np.max(np.abs(oracle)) + 1e-12))
+    assert got["parity_max_rel_err"] == err
+    assert abs(got["parity_max_rel_err"] - want["parity_max_rel_err"]) < 1e-6
+
+
+def test_selftest_catches_a_fault_of_the_render(monkeypatch, capsys):
+    """A fault in the port's render that every path shares (here a frame
+    scaled by 1.01) fails the selftest: it is held to the oracle, not to the
+    port's own plain path, which would carry the same fault."""
+    import diffus_tpu_torch.render as trender
+
+    render_frame = trender.render_frame
+
+    def scaled(*args, **kwargs):
+        *coords, frame = render_frame(*args, **kwargs)
+        return (*coords, frame * 1.01)
+
+    monkeypatch.setattr(trender, "render_frame", scaled)
+    assert tcli.main(["selftest", *CPU]) == 1
+    got = _last_json(capsys)
+    assert not got["ok"] and got["parity_max_rel_err"] > 5e-3
 
 
 @pytest.mark.parametrize("starts", [1, 2])

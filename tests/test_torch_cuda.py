@@ -605,6 +605,9 @@ def _f64_bound_ratio(x, table_np, off, n_rows):
 @pytest.mark.parametrize("m,n_rows,n_buf,off", [
     (64, 48, 4, 5), (64, 48, 4, -7), (64, 48, 4, 67), (1000, 5000, 1, 12345),
     (4099, 100000, 16, -123456), (131072, 1 << 18, 8, 5065), (7, 3, 3, 0),
+    # 97 divides M: period M / 97, n_rows a whole number of periods or not
+    (97, 5, 4, 3), (97 * 1024, 1_000_003, 8, -7), (97 * 1024, 3 * 1024, 16, 97 * 1024 + 3),
+    (97 * 64, 40, 2, 11),
 ])
 def test_gather_probe_kernel_matches_plain_and_f64(cuda, m, n_rows, n_buf, off):
     table_np = np.random.default_rng(m).normal(size=(m, 128)).astype(np.float32)
@@ -617,6 +620,15 @@ def test_gather_probe_kernel_matches_plain_and_f64(cuda, m, n_rows, n_buf, off):
     assert got.shape == (1, 128) and plain.shape == (128,)
     assert _f64_bound_ratio(got, table_np, off, n_rows) <= 1.0
     assert _f64_bound_ratio(plain, table_np, off, n_rows) <= 1.0
+
+
+@pytest.mark.cuda
+def test_gather_probe_kernel_repeats_bit_for_bit(cuda):
+    """The partials are summed in an order fixed by the grid: no atomics."""
+    table = torch.from_numpy(np.random.default_rng(3).normal(size=(131072, 128))
+                             .astype(np.float32)).to(cuda)
+    first = gather_probe(-7, table, 1 << 20, 8)
+    assert all(torch.equal(first, gather_probe(-7, table, 1 << 20, 8)) for _ in range(3))
 
 
 @pytest.mark.cuda
@@ -635,6 +647,8 @@ def test_gather_probe_kernel_rejects(cuda):
         gather_probe(0, table.double(), 8, 4)
     with pytest.raises(ValueError, match="contiguous"):
         gather_probe(0, torch.zeros((128, 64), device=cuda).t(), 8, 4)
+    with pytest.raises(ValueError, match="aligned"):
+        gather_probe(0, torch.zeros(65 * 128 + 1, device=cuda)[1:].view(65, 128), 8, 4)
     with pytest.raises(ValueError, match=r"\(M, 128\)"):
         gather_probe(0, torch.zeros((64, 64), device=cuda), 8, 4)
     with pytest.raises(ValueError, match="CUDA"):

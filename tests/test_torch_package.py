@@ -42,6 +42,7 @@ MODULES = [
     "diffus_tpu_torch.parallel", "diffus_tpu_torch.parallel.mesh",
     "diffus_tpu_torch.parallel.shard", "diffus_tpu_torch.parallel.depth_scan",
     "diffus_tpu_torch.parallel.tp", "diffus_tpu_torch.train.driver",
+    "diffus_tpu_torch.ops.reference_oracle",
 ]
 # an import statement of the JAX package, in the port's sources, its examples or
 # chip_smoke.py
