@@ -231,7 +231,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    f32 than in f64 (PERF.md); at those sizes each stage's own assertion
    must first hold on the plain path in float64 and in float32, with the
    f32 run ending near the f64 one.  Wall times beside the card's name
-   and limit.
+   and limit;
+14. the benches: ``bench_torch.py`` and ``bench_apps_torch.py`` at their
+   full sizes, each in a subprocess; each must exit 0 with ``pass`` and
+   every gate true (parity and the K2 guard below 1e-5, each timed
+   workload's first call through the kernels held to float64 at its
+   own shapes as phases 7 and 10 hold theirs, every kernel named for a
+   workload launched in it); their JSON lines and wall times are
+   printed, and their launches go on the ``kernels`` line
+   (``bench_launches``, K3's read too; K2's ``bench_idx_launches``).
 
 TF32 is off for matmuls and cuDNN (``torch.backends``), so no comparison
 depends on those defaults.  The line before the last is a JSON object of
@@ -260,9 +268,9 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 import numpy as np
 import torch
 
-# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM3 bytes/s, and
-# f32 and f64 FLOP/s outside the tensor cores
-HBM_BYTES_PER_S, F32_FLOPS, F64_FLOPS = 3.35e12, 67e12, 34e12
+from diffus_tpu_torch.kernels.trilinear_cuda import corner_sectors
+from diffus_tpu_torch.utils.timing import F32_FLOPS, F64_FLOPS, HBM_BYTES_PER_S
+
 # operations per K1 step (k, the 2x2 left-multiply, 4 abs and 4 max, the
 # reciprocal and 4 multiplies, -c/d, nan_to_num, att): ~35; per K2 point
 # (clamp, floor and fraction per axis, 7 lerps, 3 rounded indices): ~45,
@@ -323,19 +331,6 @@ def _bound(n_bytes: float, ops: float, flops: float = F32_FLOPS) -> dict:
 def _k1_bound(b: int, n: int) -> dict:
     """r read once, the echo written once, the N+1 attenuation factors."""
     return _bound(4.0 * b * n + 4.0 * b * (n + 1) + 4.0 * (n + 1), K1_OPS_PER_STEP * b * n)
-
-
-def _k2_sectors(vol: torch.Tensor, pts: torch.Tensor) -> int:
-    """Distinct 32-byte sectors of the f32 volume that the 8 corners of the
-    points touch, with the kernel's clamp (no NaN points)."""
-    d, h, w = vol.shape
-    hi = torch.tensor([d - 1, h - 1, w - 1], device=pts.device)
-    p = torch.minimum(torch.clamp(pts.reshape(-1, 3), min=0.0), hi.to(pts.dtype))
-    i0 = torch.floor(p).long()
-    i1 = torch.minimum(i0 + 1, hi)
-    x, y, z = (torch.stack([i0[:, k], i1[:, k]]) for k in range(3))
-    lin = x[:, None, None] * (h * w) + y[None, :, None] * w + z[None, None, :]
-    return int(torch.unique(lin.reshape(-1) // 8).numel())
 
 
 def _k2b_touches(vol: torch.Tensor, pts: torch.Tensor) -> tuple:
@@ -785,7 +780,7 @@ def _backward_times(dev, vol, r_tri, src32, dirs, rng, card: str) -> dict:
         gs_ms = _event_ms(lambda: torch.autograd.grad(
             gs_out, vol5 if need[0] else grid, g5, retain_graph=True), 10)
         bound = (_k2b_bound(pts[..., 0].numel(), p, N_RAYS, vol.numel(), 0) if need[0] else
-                 _k2b_bound(pts[..., 0].numel(), p, N_RAYS, 0, _k2_sectors(vol, pts)))
+                 _k2b_bound(pts[..., 0].numel(), p, N_RAYS, 0, corner_sectors(vol, pts)))
         out[f"k2b_{label.split(',')[0]}"] = {
             "poses": p, "ms": ms, "plain_ms": plain_ms, "host_us": host_us,
             "device_us": alone_us, "split_us": split, "library_ms": gs_ms, "touches": touches,
@@ -3230,6 +3225,47 @@ def _examples_study(dev, card: str) -> int:
     return 0
 
 
+BENCHES = ("bench_torch.py", "bench_apps_torch.py")
+
+
+def _run_bench(script: str, card: str) -> dict:
+    """``script`` (a bench at the repository's root) in a subprocess on the
+    card at its full sizes: it must exit 0 with one JSON line, ``pass`` and
+    every gate true (parity and the K2 guard below 1e-5, the timed
+    workloads' first calls held to float64, each named kernel launched).
+    Prints the line and the wall time; returns the record."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.join(ROOT, script)], cwd=ROOT,
+                          capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    lines = [line for line in proc.stdout.splitlines() if line.startswith("{")]
+    if proc.returncode != 0 or len(lines) != 1:
+        raise AssertionError(f"{script}: exit {proc.returncode}\n{proc.stdout[-3000:]}\n"
+                             f"{proc.stderr[-3000:]}")
+    record = json.loads(lines[0])
+    if not (record["pass"] and all(record["gates"].values())):
+        raise AssertionError(f"{script}: a gate failed: {lines[0]}")
+    notes = [line for line in proc.stderr.splitlines() if line.startswith("#")]
+    print(f"bench [{card}]: {script}: exit 0 in {wall:.2f} s (a new process); "
+          f"{' | '.join(notes) or 'every loop queued ahead of the card'}", flush=True)
+    print(lines[0], flush=True)
+    return {"record": record, "wall_s": wall}
+
+
+def _bench_phase(card: str) -> dict:
+    """Phase 14: ``bench_torch.py`` and ``bench_apps_torch.py`` at full width
+    on the card, each in a subprocess; returns each kernel's launches summed
+    over both benches' workloads."""
+    runs = {script: _run_bench(script, card) for script in BENCHES}
+    names = ("echo_scan", "trilinear_sample", "trilinear_idx", "echo_scan_bwd", "trilinear_bwd",
+             "gather_probe")
+    totals = {k: sum(counts[k] for run in runs.values()
+                     for counts in run["record"]["launches"].values()) for k in names}
+    print(f"bench [{card}]: launches over both benches {totals}; "
+          + ", ".join(f"{s} {r['wall_s']:.2f} s" for s, r in runs.items()), flush=True)
+    return {"launches": totals, "wall_s": {s: r["wall_s"] for s, r in runs.items()}}
+
+
 def _phase4_service(dev):
     """``(volume, service)``: phase 4's service on the 256^3 phantom, nothing
     rendered yet; ``coalesce=False``: phases 4-5 time a request's render path
@@ -3790,7 +3826,7 @@ def main(argv=None) -> int:
     if not gs_err <= gs_tol:
         raise AssertionError(f"grid_sample vs K2: max abs {gs_err:.4e} > {gs_tol:.4e}")
     n_pts = pts_main[..., 0].numel()
-    sectors = _k2_sectors(vol, pts_main)
+    sectors = corner_sectors(vol, pts_main)
     k2_bound = _k2_march_bound(n_pts, sectors, 32, N_RAYS, False)
     k2_idx_bound = _k2_march_bound(n_pts, sectors, 32, N_RAYS, True)
     points_bound = _bound(28.0 * n_pts + 32.0 * sectors, K2_OPS_PER_POINT * n_pts)
@@ -3844,6 +3880,11 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     examples = _examples_phase(dev, card)
     print(f"times [{card}]: phase 13 {time.perf_counter() - t0:.2f} s", flush=True)
+
+    # -- 14. the benches, each in a subprocess --------------------------------------
+    t0 = time.perf_counter()
+    benches = _bench_phase(card)
+    print(f"times [{card}]: phase 14 {time.perf_counter() - t0:.2f} s", flush=True)
 
     kernels = [
         {"name": "echo_scan", "route": "cuda", "source": "diffus_tpu_torch/csrc/echo_scan.cu",
@@ -3910,9 +3951,12 @@ def main(argv=None) -> int:
         k["recovery_launches"] = recovery["launches"][k["name"]]
         k["serving_surface_launches"] = surface["launches"][k["name"]]
         k["examples_launches"] = examples["launches"][k["name"]]
+        k["bench_launches"] = benches["launches"][k["name"]]
     kernels[2]["mesh_launches"] = meshed["launches"]["gather_probe"]
+    kernels[2]["bench_launches"] = benches["launches"]["gather_probe"]
     for path, run in (("training", train), ("image_formation", bmode), ("recovery", recovery),
-                      ("serving_surface", surface), ("mesh", meshed), ("examples", examples)):
+                      ("serving_surface", surface), ("mesh", meshed), ("examples", examples),
+                      ("bench", benches)):
         kernels[1][f"{path}_idx_launches"] = run["launches"]["trilinear_idx"]
     print(f"times [{card}]: the whole run {time.perf_counter() - t_start:.1f} s (build "
           f"included)", flush=True)

@@ -414,6 +414,20 @@ def march_trilinear_fused(volume: torch.Tensor, source: torch.Tensor, directions
     return _launch_march(volume, source, directions, num_samples, step, with_idx)
 
 
+def corner_sectors(volume: torch.Tensor, points: torch.Tensor) -> int:
+    """Distinct 32-byte sectors (8 f32 along the last axis) of the f32
+    ``volume`` that the 8 corners of ``points`` touch, with K2's clamp (no
+    NaN points): the volume bytes a launch must read, for its bound."""
+    d, h, w = volume.shape
+    hi = torch.tensor([d - 1, h - 1, w - 1], device=points.device)
+    p = torch.minimum(torch.clamp(points.reshape(-1, 3), min=0.0), hi.to(points.dtype))
+    i0 = torch.floor(p).long()
+    i1 = torch.minimum(i0 + 1, hi)
+    x, y, z = (torch.stack([i0[:, k], i1[:, k]]) for k in range(3))
+    lin = x[:, None, None] * (h * w) + y[None, :, None] * w + z[None, None, :]
+    return int(torch.unique(lin.reshape(-1) // 8).numel())
+
+
 sample_trilinear_fused.launches = 0  # kernel launches so far; reset it to count a run
 march_trilinear_fused.launches = 0
 march_trilinear_fused.idx_launches = 0  # of those, the launches that wrote an idx

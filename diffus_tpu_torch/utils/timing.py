@@ -16,6 +16,10 @@ import time
 
 import torch
 
+# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM3 bytes/s, and
+# f32 and f64 FLOP/s outside the tensor cores; a bound divides by these
+HBM_BYTES_PER_S, F32_FLOPS, F64_FLOPS = 3.35e12, 67e12, 34e12
+
 
 def _leaves(x) -> list:
     """The leaves of nested tuples, lists and dicts, in order."""

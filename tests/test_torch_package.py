@@ -44,8 +44,8 @@ MODULES = [
     "diffus_tpu_torch.parallel.tp", "diffus_tpu_torch.train.driver",
     "diffus_tpu_torch.ops.reference_oracle",
 ]
-# an import statement of the JAX package, in the port's sources, its examples or
-# chip_smoke.py
+# an import statement of the JAX package, in the port's sources, its examples,
+# chip_smoke.py or the bench scripts
 JAX_PACKAGE_IMPORT = re.compile(r"^\s*(from|import)\s+diffus_tpu(\.|\s|$)", re.MULTILINE)
 
 
@@ -80,7 +80,7 @@ def test_sources_import_nothing_of_the_jax_package():
     examples = sorted((ROOT / "examples" / "torch").glob("*.py"))
     assert len(examples) == 4
     sources = sorted((ROOT / "diffus_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    sources += examples
+    sources += examples + [ROOT / "bench_torch.py", ROOT / "bench_apps_torch.py"]
     assert len(sources) > 40
     bad = [str(p.relative_to(ROOT)) for p in sources if JAX_PACKAGE_IMPORT.search(p.read_text())]
     assert bad == []
