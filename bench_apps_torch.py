@@ -20,8 +20,8 @@ card), ``bench_torch.py``'s two guards on this volume
 held to float64, as ``bench_torch.py`` holds its own), ``pass`` and
 ``gates``; ``device`` is the card's name and power limit.
 
-Every echo scan runs through K1, and every loop JAX runs as ``trilinear``
-runs ``trilinear_fused`` (K2's ray form): the kernels that
+Every echo scan runs through K1, and every loop names ``trilinear`` where
+JAX's does, which runs K2's ray form (and K2b) on the card: the kernels that
 :data:`REQUIRED` names must launch in each workload on the card.  There
 is no fallback; on any exception the script prints a ``"pass": false``
 line and exits 1.  The sizes are module constants, read at call time.

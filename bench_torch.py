@@ -36,10 +36,11 @@ Prints ONE JSON line with ``bench.py``'s keys, except:
 
 Every workload takes ``bench.py``'s inputs (``np.random.default_rng(0)``
 drawn in its order, :func:`draw_inputs`) and names the kernels it runs.
-JAX upgrades ``interp="trilinear"`` to its TPU sampler; the port's
-``trilinear`` is the plain sampler, so every loop that JAX runs as
-``trilinear`` runs ``trilinear_fused`` here (K2's ray form), and every
-echo scan runs through K1 (``use_pallas=True``).  Where JAX reads only the
+JAX upgrades ``interp="trilinear"`` to its TPU sampler, and the port runs
+it through K2's ray form on the card (K2b backward), so every loop names
+``trilinear`` where JAX's does; every echo scan runs through K1
+(``use_pallas=True``).  The held check's plain reference names
+``trilinear_plain``.  Where JAX reads only the
 intensities, K2 writes no idx.  There is no fallback: a kernel that fails
 fails the bench, which then prints a ``"pass": false`` line and exits 1.
 
@@ -82,7 +83,7 @@ from diffus_tpu_torch.impedance.mlp import init_params
 from diffus_tpu_torch.kernels import gather_probe, propagation_cuda, trilinear_cuda
 from diffus_tpu_torch.kernels.trilinear_cuda import corner_sectors, march_trilinear_fused
 from diffus_tpu_torch.ops.reference_oracle import render_frame_dense
-from diffus_tpu_torch.ops.sampling import march_trilinear, ray_points
+from diffus_tpu_torch.ops.sampling import SAMPLER_KINDS, march_trilinear, ray_points
 from diffus_tpu_torch.ops.splat import splat_frame
 from diffus_tpu_torch.phantoms import brain_phantom_3d, t1_phantom_3d
 from diffus_tpu_torch.render.renderer import _render, render_frame, trace_rays
@@ -122,8 +123,7 @@ POSE_RAYS, POSE_SAMPLES, POSE_ITERS = 64, 128, 144
 HELD_FLOOR_VALUE, HELD_FLOOR_GRAD = 1e-4, 1e-3
 
 NEAREST = RenderConfig(attenuation_coeff=ATTENUATION, use_pallas=True)
-KERNELS = RenderConfig(attenuation_coeff=ATTENUATION, interp="trilinear_fused",
-                       use_pallas=True)
+KERNELS = RenderConfig(attenuation_coeff=ATTENUATION, interp="trilinear", use_pallas=True)
 BF16 = RenderConfig(attenuation_coeff=ATTENUATION, interp="trilinear_bf16", use_pallas=True)
 
 # the kernels each workload must launch on the card
@@ -503,9 +503,10 @@ def pose_step(volume: torch.Tensor, srcs: list, clock: Clock, launches: dict, wo
 
 
 def plain(cfg: RenderConfig) -> RenderConfig:
-    """``cfg`` on the plain versions: the plain trilinear sampler for K2's ray
-    form, the plain scan for K1 (and their autograd for K1b and K2b)."""
-    interp = "trilinear" if cfg.interp == "trilinear_fused" else cfg.interp
+    """``cfg`` on the plain versions: ``trilinear_plain`` for every
+    exact-trilinear name (K2's ray form), the plain scan for K1 (and their
+    autograd for K1b and K2b)."""
+    interp = "trilinear_plain" if SAMPLER_KINDS[cfg.interp] == "exact" else cfg.interp
     return dataclasses.replace(cfg, interp=interp, use_pallas=False)
 
 
@@ -522,9 +523,15 @@ def held(run) -> dict:
     of ``chip_smoke.py``'s gradient checks: near a resonance of the echo
     scan f32 is off from f64 in any order; the floor alone where the plain
     path's is inf).  The floor is HELD_FLOOR_GRAD for a ``grad ...``,
-    HELD_FLOOR_VALUE for the rest."""
-    kernel, plain_f32 = run(False, torch.float32), run(True, torch.float32)
+    HELD_FLOOR_VALUE for the rest.  The plain paths must launch neither K2
+    nor K2b (else this raises)."""
+    kernel = run(False, torch.float32)
+    k2 = trilinear_cuda.march_trilinear_fused
+    before = (k2.launches, k2.bwd_launches)
+    plain_f32 = run(True, torch.float32)
     f64 = {k: v.double() for k, v in run(True, torch.float64).items()}
+    if (k2.launches, k2.bwd_launches) != before:
+        raise AssertionError("the held check's plain paths launched K2 or K2b")
     out = {}
     for name, ref in f64.items():
         finite = torch.isfinite(ref)

@@ -11,6 +11,7 @@
     python3 chip_smoke.py --horizon-study  # phase 10's trajectory check on edited copies of K2b
     python3 chip_smoke.py --examples-study  # full_pipeline's stages 4 and 5 at each size, 3 ways
     python3 chip_smoke.py --probe  # phases 1, 2 and 6: K3 against float64, beside its earlier design
+    python3 chip_smoke.py --entry-points  # phases 1, 2 and 15, beside the parent's route
 
 ``--requests`` times the serving path alone (latency and device-time split
 per tier: K1, K2, ``ray_points`` and the rest), ``--backward`` the
@@ -239,7 +240,30 @@ Phases, in order; any failure raises and the script exits non-zero:
    own shapes as phases 7 and 10 hold theirs, every kernel named for a
    workload launched in it); their JSON lines and wall times are
    printed, and their launches go on the ``kernels`` line
-   (``bench_launches``, K3's read too; K2's ``bench_idx_launches``).
+   (``bench_launches``, K3's read too; K2's ``bench_idx_launches``);
+15. the entry points that name ``interp="trilinear"``, in process at full
+   width: the CLI's ``train-impedance`` at its defaults (256 x 512 on the
+   256^3 T1 phantom, a splatted target written to a ``.npy`` first, all 50
+   epochs), ``recover-pose`` plain and ``--annealed`` at its defaults (64 x
+   128) and at 256 x 512, both through ``cli.main``; ``/recover`` over HTTP
+   on a ``nearest`` service at 256 x 512 (8 starts, two 20-step phases in
+   place of the default 600 steps); ``recover_pose`` with a default
+   ``PoseRecoveryConfig``.  Each must launch K2 (with idx in training,
+   without in recovery) and K2b (the volume path in training, the points
+   path in recovery) and end finite; its wall time is printed beside the
+   card's name and limit.  One step at its own starting point holds its
+   loss and gradients, and the sampler alone at that step's inputs (K2's
+   samples, K2b's gradients of a fixed weighting of them), to the
+   ``trilinear_plain`` path in float64 on the card by max(floor, 2x) the
+   plain f32 path's distance; the samples and a sampler gradient must
+   have plain f32 within NEAR of f64, so that the check holds the kernels
+   where the echo scan puts the whole step's f32 far from f64.  The
+   launches go on the ``kernels`` line (``entry_launches``, K3's read too;
+   K2b's ``entry_bwd_volume_launches`` and ``entry_bwd_points_launches``).
+   ``--entry-points`` runs this phase alone and also times each entry
+   point on the parent's route (``trilinear`` as the plain sampler, which
+   must launch neither K2 nor K2b), in the order kernel, parent, parent,
+   kernel.
 
 TF32 is off for matmuls and cuDNN (``torch.backends``), so no comparison
 depends on those defaults.  The line before the last is a JSON object of
@@ -250,6 +274,7 @@ path); the last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import dataclasses
 import json
@@ -539,6 +564,35 @@ def _assert_close(got, want, rtol: float, atol: float, what: str,
             f"{what}: {int(bad.sum())} of {bad.numel()} values differ beyond rtol {rtol} "
             f"atol {atol}, in rows {rows[:10].tolist()} ({rows.numel()} rows); first at "
             f"{i}: {got[i].item()} vs {want[i].item()}")
+
+
+def _held(what: str, kernel: dict, plain: dict, f64: dict, floor: float = 1e-3,
+          floors: dict | None = None) -> list:
+    """Holds each tensor of ``kernel`` (the kernel path in f32) to ``f64``
+    (the plain path in float64) as far as ``plain`` (the plain path in f32)
+    allows: its max abs distance over the f64 tensor's max |value| must be
+    at most max(floor, 2x) the plain f32 path's (near a resonance of the
+    echo scan f32 is off from f64 in any evaluation order).  ``floors``
+    overrides ``floor`` by name.  Every tensor must be finite on every path.
+    Returns ``[(name, kernel's distance, plain f32's)]``."""
+    out = []
+    for name, ref in f64.items():
+        ref = ref.detach().double().cpu()
+        got_k, got_p = (x[name].detach().double().cpu() for x in (kernel, plain))
+        if not all(bool(torch.isfinite(x).all()) for x in (ref, got_k, got_p)):
+            raise AssertionError(f"{what}: {name} not finite on every path")
+        scale = max(float(ref.abs().max()), 1e-30)
+        e_k, e_p = (float((x - ref).abs().max()) / scale for x in (got_k, got_p))
+        lim = (floors or {}).get(name, floor)
+        if not e_k <= max(lim, 2.0 * e_p):
+            raise AssertionError(f"{what}: {name} through the kernels {e_k:.3e} from f64, "
+                                 f"plain f32 {e_p:.3e} (limit max({lim:g}, 2x))")
+        out.append((name, e_k, e_p))
+    return out
+
+
+def _held_text(rows: list) -> str:
+    return ", ".join(f"{name} {e_k:.2e}/{e_p:.2e}" for name, e_k, e_p in rows)
 
 
 def _frame_rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -1163,24 +1217,17 @@ def _training_phase(dev, vol) -> dict:
     # own distance from f64 (at most 2x it, or 1e-3).
     us_norm, mask = _normalized(target)
     cfg_plain = dataclasses.replace(cfg, render=dataclasses.replace(
-        cfg.render, interp="trilinear", use_pallas=False))
+        cfg.render, interp="trilinear_plain", use_pallas=False))
     model0 = init_params(torch.Generator().manual_seed(TRAIN_SEED), cfg.hidden)
     g_kernel = _param_grads(copy.deepcopy(model0).to(dev), t1, us_norm, mask, src, dirs, cfg)
-    g_plain = _param_grads(copy.deepcopy(model0).to(dev), t1, us_norm, mask, src, dirs,
-                           cfg_plain)
-    g_64 = _param_grads(copy.deepcopy(model0).double(), t1.double().cpu(),
-                        us_norm.double().cpu(), mask.cpu(), src.cpu(), dirs.cpu(), cfg_plain)
-    report = []
-    for name, ref in g_64.items():
-        scale = max(float(ref.abs().max()), 1e-30)
-        e_k = float((g_kernel[name] - ref).abs().max()) / scale
-        e_p = float((g_plain[name] - ref).abs().max()) / scale
-        if not e_k <= max(1e-3, 2.0 * e_p):
-            raise AssertionError(f"gradient of {name}: kernel path {e_k:.3e} from f64, "
-                                 f"plain f32 path {e_p:.3e}")
-        report.append(f"{name} {e_k:.2e}/{e_p:.2e}")
+    with _plain_only("training gradients"):
+        g_plain = _param_grads(copy.deepcopy(model0).to(dev), t1, us_norm, mask, src, dirs,
+                               cfg_plain)
+        g_64 = _param_grads(copy.deepcopy(model0).double(), t1.double().cpu(),
+                            us_norm.double().cpu(), mask.cpu(), src.cpu(), dirs.cpu(), cfg_plain)
+    report = _held_text(_held("training gradients", g_kernel, g_plain, g_64))
     print("training gradients vs float64 CPU (max abs err / max |f64|, kernel/plain f32): "
-          + ", ".join(report), flush=True)
+          + report, flush=True)
     train = {"cfg": cfg, "t1": t1, "us_norm": us_norm, "mask": mask, "src": src, "dirs": dirs,
              "launches": launches}
     print(_training_horizon_check(train), flush=True)
@@ -1229,14 +1276,15 @@ def _training_horizon_check(train: dict, steps: int = TRAINING_HORIZON,
 
     cfg = train["cfg"] if lr is None else dataclasses.replace(train["cfg"], lr=lr)
     plain = dataclasses.replace(cfg, render=dataclasses.replace(
-        cfg.render, interp="trilinear", use_pallas=False))
+        cfg.render, interp="trilinear_plain", use_pallas=False))
     model0 = init_params(torch.Generator().manual_seed(TRAIN_SEED), cfg.hidden)
     torch.use_deterministic_algorithms(True)
     try:
         t0 = time.perf_counter()
-        traj = {"kernel": _train_trajectory(model0, train, cfg, steps, torch.float32),
-                "plain": _train_trajectory(model0, train, plain, steps, torch.float32),
-                "f64": _train_trajectory(model0, train, plain, steps, torch.float64)}
+        traj = {"kernel": _train_trajectory(model0, train, cfg, steps, torch.float32)}
+        with _plain_only("training horizon"):
+            traj["plain"] = _train_trajectory(model0, train, plain, steps, torch.float32)
+            traj["f64"] = _train_trajectory(model0, train, plain, steps, torch.float64)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
     finally:
@@ -1453,7 +1501,22 @@ def _counts_reset() -> None:
     march_trilinear_fused.launches = 0
     march_trilinear_fused.idx_launches = 0
     march_trilinear_fused.bwd_launches = 0
+    march_trilinear_fused.bwd_volume_launches = 0
+    march_trilinear_fused.bwd_points_launches = 0
     sample_trilinear_fused.launches = 0
+
+
+@contextlib.contextmanager
+def _plain_only(what: str):
+    """Raise unless the block launched neither K2 nor K2b: the
+    ``trilinear_plain`` reference paths, which the kernel paths are held to."""
+    from diffus_tpu_torch.kernels.trilinear_cuda import march_trilinear_fused as k2
+
+    before = (k2.launches, k2.bwd_launches)
+    yield
+    if (k2.launches, k2.bwd_launches) != before:
+        raise AssertionError(f"{what}: the trilinear_plain reference launched K2 or K2b "
+                             f"(launches, backward: {before} -> {(k2.launches, k2.bwd_launches)})")
 
 
 def _counts(what: str, idx: bool | None = None, bwd: bool = False) -> dict:
@@ -1652,7 +1715,7 @@ def _recovery_frame_check(dev, svc, init, fit: dict, first, label: str) -> str:
     from diffus_tpu_torch.types import TransducerPose
 
     base = svc._recovery_config().as_base()
-    plain = dataclasses.replace(base.render, interp="trilinear", use_pallas=False)
+    plain = dataclasses.replace(base.render, interp="trilinear_plain", use_pallas=False)
     n = base.geometry.num_samples
     f32 = {"dtype": torch.float32, "device": dev}
     position = torch.cat([torch.tensor(APEX[None], **f32), init.position,
@@ -1662,9 +1725,10 @@ def _recovery_frame_check(dev, svc, init, fit: dict, first, label: str) -> str:
     with torch.no_grad():
         dirs = pose_fan_directions(TransducerPose(position, rotvec), base.geometry)
         kernel = render_frame(svc.volume, position, dirs, n, base.render)[3].double().cpu()
-        plain32 = render_frame(svc.volume, position, dirs, n, plain)[3].double().cpu()
-        vol64 = torch.from_numpy(brain_phantom_3d(tuple(svc.volume.shape))).double()
-        ref = render_frame(vol64, position.cpu(), dirs.cpu(), n, plain)[3]
+        with _plain_only(f"recovery frames ({label})"):
+            plain32 = render_frame(svc.volume, position, dirs, n, plain)[3].double().cpu()
+            vol64 = torch.from_numpy(brain_phantom_3d(tuple(svc.volume.shape))).double()
+            ref = render_frame(vol64, position.cpu(), dirs.cpu(), n, plain)[3]
         # the kernel path's frame is its echo trace (no start skip, pulse or
         # envelope in this config), so each order's frames are its twin's output
         if base.render.start_index(n) or base.render.pulse_length or base.render.envelope:
@@ -1721,23 +1785,16 @@ def _recovery_grad_check(dev, svc, run: dict, label: str) -> None:
     sigma = cfg.phases[0][0]
     target_b = gaussian_blur_frame(run["target"], sigma)
     plain = dataclasses.replace(base, render=dataclasses.replace(
-        base.render, interp="trilinear", use_pallas=False))
+        base.render, interp="trilinear_plain", use_pallas=False))
     g_kernel = _pose_grads(svc.volume, target_b, init.position, init.rotvec, base, sigma)
-    g_plain = _pose_grads(svc.volume, target_b, init.position, init.rotvec, plain, sigma)
-    vol64 = torch.from_numpy(brain_phantom_3d(SHAPE)).double()
-    g_64 = _pose_grads(vol64, target_b.double().cpu(), init.position.double().cpu(),
-                       init.rotvec.double().cpu(), plain, sigma)
-    report = []
-    for name, ref in g_64.items():
-        scale = max(float(ref.abs().max()), 1e-30)
-        e_k = float((g_kernel[name] - ref).abs().max()) / scale
-        e_p = float((g_plain[name] - ref).abs().max()) / scale
-        if not e_k <= max(1e-3, 2.0 * e_p):
-            raise AssertionError(f"pose gradient of {name} ({label}): kernel path {e_k:.3e} "
-                                 f"from f64, plain f32 path {e_p:.3e}")
-        report.append(f"{name} {e_k:.2e}/{e_p:.2e}")
+    with _plain_only(f"recovery gradients ({label})"):
+        g_plain = _pose_grads(svc.volume, target_b, init.position, init.rotvec, plain, sigma)
+        vol64 = torch.from_numpy(brain_phantom_3d(SHAPE)).double()
+        g_64 = _pose_grads(vol64, target_b.double().cpu(), init.position.double().cpu(),
+                           init.rotvec.double().cpu(), plain, sigma)
+    report = _held_text(_held(f"pose gradients ({label})", g_kernel, g_plain, g_64))
     print(f"recovery gradients ({label}) vs float64 CPU (max abs err / max |f64|, "
-          f"kernel/plain f32): " + ", ".join(report), flush=True)
+          f"kernel/plain f32): " + report, flush=True)
 
 
 # A start's trajectory is near the f64 one while the plain f32 path's
@@ -1927,20 +1984,19 @@ def _recovery_horizon_check(dev, svc, run: dict, label: str, steps: int = RECOVE
     base = cfg.as_base()
     sigma, lr_pos, lr_rot, phase_steps = cfg.phases[0]
     target_b = gaussian_blur_frame(run["target"], sigma)
-    plain = dataclasses.replace(base.render, interp="trilinear", use_pallas=False)
+    plain = dataclasses.replace(base.render, interp="trilinear_plain", use_pallas=False)
     vol64 = svc.volume.double()
     args = (target_b, init, base)
     torch.use_deterministic_algorithms(True)
     try:
         t0 = time.perf_counter()
-        traj = {
-            "kernel": _pose_trajectory(svc.volume, *args, base.render, sigma, (lr_pos, lr_rot),
-                                       phase_steps, steps, torch.float32),
-            "plain": _pose_trajectory(svc.volume, *args, plain, sigma, (lr_pos, lr_rot),
-                                      phase_steps, steps, torch.float32),
-            "f64": _pose_trajectory(vol64, *args, plain, sigma, (lr_pos, lr_rot), phase_steps,
-                                    steps, torch.float64),
-        }
+        traj = {"kernel": _pose_trajectory(svc.volume, *args, base.render, sigma,
+                                           (lr_pos, lr_rot), phase_steps, steps, torch.float32)}
+        with _plain_only(f"recovery horizon ({label})"):
+            traj["plain"] = _pose_trajectory(svc.volume, *args, plain, sigma, (lr_pos, lr_rot),
+                                             phase_steps, steps, torch.float32)
+            traj["f64"] = _pose_trajectory(vol64, *args, plain, sigma, (lr_pos, lr_rot),
+                                           phase_steps, steps, torch.float64)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
     finally:
@@ -3043,7 +3099,7 @@ def _pipeline_stage(fp, stage: int, n: int, rays: int, path: str, dev) -> tuple:
     """full_pipeline's stage 4 (``(first loss, last loss)``) or 5 (``(position
     error before, after)``) on its scene and phantom of size ``n`` with
     ``rays``, ``path`` ``kernel`` (f32, ``trilinear_fused`` and
-    ``use_pallas``: the script's run), ``plain`` (f32 ``trilinear``) or
+    ``use_pallas``: the script's run), ``plain`` (f32 ``trilinear_plain``) or
     ``f64`` (the plain path in float64), on ``dev``.  The f64 stages are
     the script's own steps in float64: ``train_impedance_scan`` from the
     same initial weights, and ``pose_step`` under ``recover_pose``'s Adam."""
@@ -3053,7 +3109,7 @@ def _pipeline_stage(fp, stage: int, n: int, rays: int, path: str, dev) -> tuple:
     from diffus_tpu_torch.types import RenderConfig, TransducerPose
 
     render = RenderConfig(attenuation_coeff=ATT, interp="trilinear_fused", use_pallas=True) \
-        if path == "kernel" else RenderConfig(attenuation_coeff=ATT, interp="trilinear")
+        if path == "kernel" else RenderConfig(attenuation_coeff=ATT, interp="trilinear_plain")
     scene = fp.calibrate(n, rays)
     t1, z_true = fp.impedance(n, dev)
     if stage == 4:
@@ -3096,7 +3152,8 @@ def _pipeline_check(fp, dev, rays: int, card: str) -> None:
         t0 = time.perf_counter()
         torch.use_deterministic_algorithms(True)
         try:
-            got = {p: _pipeline_stage(fp, stage, n, rays, p, dev) for p in ("f64", "plain")}
+            with _plain_only(f"full_pipeline stage {stage}"):
+                got = {p: _pipeline_stage(fp, stage, n, rays, p, dev) for p in ("f64", "plain")}
         finally:
             torch.use_deterministic_algorithms(False)
         ok = {p: after < before for p, (before, after) in got.items()}
@@ -3213,8 +3270,11 @@ def _examples_study(dev, card: str) -> int:
             for path in ("kernel", "plain", "f64"):
                 t0 = time.perf_counter()
                 torch.use_deterministic_algorithms(True)
+                plain_only = (contextlib.nullcontext() if path == "kernel" else
+                              _plain_only(f"full_pipeline stage {stage}, {path}"))
                 try:
-                    before, after = _pipeline_stage(fp, stage, n, N_RAYS, path, dev)
+                    with plain_only:
+                        before, after = _pipeline_stage(fp, stage, n, N_RAYS, path, dev)
                 finally:
                     torch.use_deterministic_algorithms(False)
                 row.append(f"{path} {before:.5f} -> {after:.5f} "
@@ -3264,6 +3324,359 @@ def _bench_phase(card: str) -> dict:
     print(f"bench [{card}]: launches over both benches {totals}; "
           + ", ".join(f"{s} {r['wall_s']:.2f} s" for s, r in runs.items()), flush=True)
     return {"launches": totals, "wall_s": {s: r["wall_s"] for s, r in runs.items()}}
+
+
+# -- phase 15: the entry points that name interp="trilinear" ----------------------
+
+ENTRY = os.path.join(ROOT, "diffus_tpu_torch", "build", "entry")   # git-ignored
+ENTRY_SOURCE = [129.3, 4.6, 127.4]   # recover-pose's initial guess; the true source is APEX
+# /recover's schedule on the nearest service (the default is 600 steps)
+ENTRY_PHASES = [[4.0, 0.3, 0.02, 20], [0.0, 0.1, 0.005, 20]]
+
+
+@contextlib.contextmanager
+def _parent_route():
+    """Run ``interp="trilinear"`` as the parent did, as the plain sampler
+    (``trilinear_plain``): the renderer's route is patched for the block."""
+    from diffus_tpu_torch.render import renderer
+
+    resolve = renderer._resolve_sampler
+    renderer._resolve_sampler = (
+        lambda interp, dtype: resolve("trilinear_plain" if interp == "trilinear" else interp,
+                                      dtype))
+    try:
+        yield
+    finally:
+        renderer._resolve_sampler = resolve
+
+
+def _entry_counts(what: str, training: bool) -> dict:
+    """Every kernel's launches since :func:`_counts_reset` on an entry
+    point: K2 launched, with idx on every launch in training and on none in
+    recovery; K2b launched, every launch with its volume path and none with
+    its points path in training, the reverse in recovery."""
+    from diffus_tpu_torch.kernels import gather_probe as probe
+    from diffus_tpu_torch.kernels.propagation_cuda import echo_fused
+    from diffus_tpu_torch.kernels.trilinear_cuda import march_trilinear_fused as k2
+
+    n = {"echo_scan": echo_fused.launches, "trilinear_sample": k2.launches,
+         "trilinear_idx": k2.idx_launches, "gather_probe": probe.gather_probe.launches,
+         "echo_scan_bwd": echo_fused.bwd_launches, "trilinear_bwd": k2.bwd_launches,
+         "trilinear_bwd_volume": k2.bwd_volume_launches,
+         "trilinear_bwd_points": k2.bwd_points_launches}
+    ok = min(n["trilinear_sample"], n["trilinear_bwd"]) >= 1 and (
+        (n["trilinear_idx"], n["trilinear_bwd_volume"], n["trilinear_bwd_points"])
+        == ((n["trilinear_sample"], n["trilinear_bwd"], 0) if training
+            else (0, 0, n["trilinear_bwd"])))
+    if not ok:
+        raise AssertionError(f"{what}: K2 should launch {'with' if training else 'without'} "
+                             f"idx and K2b on its {'volume' if training else 'points'} path "
+                             f"alone: {n}")
+    return n
+
+
+def _sampler_terms(volume, source, directions, num_samples: int, interp: str, wrt: dict,
+                   with_idx: bool) -> dict:
+    """The step's sampler alone, at the step's inputs and before the echo
+    scan can amplify a difference: ``trace_rays``' samples (K2 on the
+    kernel route) and the gradients of one fixed weighting of them (normal,
+    seed 0) with respect to the leaves in ``wrt`` (K2b), named ``grad
+    <name> (sampler)``."""
+    from diffus_tpu_torch.render.renderer import trace_rays
+
+    _, samples = trace_rays(volume, source, directions, num_samples, interp,
+                            _with_idx=with_idx)
+    w = torch.from_numpy(np.random.default_rng(0).standard_normal(tuple(samples.shape)))
+    grads = torch.autograd.grad((samples * w.to(samples)).sum(), list(wrt.values()))
+    return {"samples": samples.detach(),
+            **{f"grad {name} (sampler)": g for name, g in zip(wrt, grads)}}
+
+
+def _held_step(what: str, run, floor_loss: float, floor_grad: float = 1e-3) -> str:
+    """``run(interp, dtype)``, a dict of one step's ``loss``, its ``grad
+    ...`` tensors and the step's :func:`_sampler_terms`, three ways on the
+    card: through the kernels (``trilinear``) in f32, and
+    ``trilinear_plain`` in f32 and float64 (which must launch neither K2
+    nor K2b), held by :func:`_held` (floors ``floor_loss`` for the loss and
+    the samples, ``floor_grad`` for gradients).  Where the plain f32 path
+    is far from f64 (a full-depth fan's resonances), max(floor, 2x) holds
+    the step's loss and gradients to little, so the samples and at least
+    one sampler gradient must have plain f32 within NEAR of f64: those hold
+    K2 and K2b whatever the echo scan does."""
+    kernel = run("trilinear", torch.float32)
+    with _plain_only(what):
+        plain = run("trilinear_plain", torch.float32)
+        f64 = run("trilinear_plain", torch.float64)
+    rows = _held(what, kernel, plain, f64, floor_grad,
+                 floors={"loss": floor_loss, "samples": floor_loss})
+    near = {name for name, _, e_p in rows if e_p <= NEAR}
+    if "samples" not in near or not any(n.endswith("(sampler)") for n in near):
+        raise AssertionError(f"{what}: plain f32 is not within {NEAR:g} of f64 on the samples "
+                             f"and a sampler gradient, so nothing holds K2 and K2b: "
+                             f"{_held_text(rows)}")
+    return (f"{what}: one step vs f64 on the card (kernel/plain f32; {len(near)} of "
+            f"{len(rows)} with plain f32 within {NEAR:g}): " + _held_text(rows))
+
+
+def _timed(run) -> tuple:
+    """``run()``'s wall time on the host clock to a synchronize, and its result."""
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def _entry_run(label: str, training: bool, run, card: str, study: bool = False) -> dict:
+    """``run()`` through the kernels, between a reset and a read of the
+    counts.  With ``study``, then twice on the parent's route (no K2, no
+    K2b) and once more through the kernels: the order kernel, parent,
+    parent, kernel spreads a drift of the host's speed over both routes.
+    Returns the launches and the wall times per route, in run order."""
+    _counts_reset()
+    wall, out = _timed(run)
+    launches = _entry_counts(label, training)
+    walls = {"kernel": [wall], "parent": []}
+    if study:
+        with _parent_route(), _plain_only(f"{label} on the parent's route"):
+            for _ in range(2):
+                walls["parent"].append(_timed(run)[0])
+        walls["kernel"].append(_timed(run)[0])
+    parent = (f", on the parent's route (trilinear_plain) "
+              f"{' and '.join(f'{w:.3f}' for w in walls['parent'])} s (order kernel, parent, "
+              f"parent, kernel)") if study else ""
+    print(f"entry points [{card}]: {label}: "
+          f"{' and '.join(f'{w:.3f}' for w in walls['kernel'])} s through K2 and K2b{parent} "
+          f"(host clock to a synchronize); launches {launches}; result {out}", flush=True)
+    return {"launches": launches, "wall_s": walls}
+
+
+def _cli_json(argv: list) -> dict:
+    """``cli.main(argv)`` in this process; its last line of output as JSON."""
+    import io
+
+    from diffus_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        if cli.main(argv) != 0:
+            raise AssertionError(f"cli {argv[0]} did not exit 0")
+    last = buf.getvalue().strip().splitlines()[-1]
+    if last.startswith("loss:"):
+        first, final = (float(v) for v in last.split(":")[1].split("->"))
+        out = {"loss_first": first, "loss_last": final}
+    else:
+        out = json.loads(last)
+    if not all(np.all(np.isfinite(v)) for v in out.values() if not isinstance(v, bool)):
+        raise AssertionError(f"cli {argv[0]}: not finite: {out}")
+    return out
+
+
+def _entry_points_phase(dev, card: str, study: bool = False) -> dict:
+    """Phase 15: the entry points that name ``trilinear``, each through K2
+    and K2b (with ``study``, also on the parent's route); one step of each
+    held to f64.  Returns the launches per entry point, their sums and the
+    walls."""
+    from diffus_tpu_torch.geometry import fan_directions_2d
+    from diffus_tpu_torch.impedance import default_table_points, tabular_impedance_volume
+    from diffus_tpu_torch.impedance.mlp import init_params
+    from diffus_tpu_torch.ops.splat import differentiable_splat
+    from diffus_tpu_torch.phantoms import brain_phantom_3d, t1_phantom_3d
+    from diffus_tpu_torch.render.renderer import render_frame
+    from diffus_tpu_torch.serve import RendererService
+    from diffus_tpu_torch.train import ImpedanceTrainConfig, synth_loss
+    from diffus_tpu_torch.geometry.fan import pose_fan_directions
+    from diffus_tpu_torch.train.impedance_train import _inputs, impedance_volume
+    from diffus_tpu_torch.train.pose_recovery import (
+        AnnealedPoseConfig,
+        PoseRecoveryConfig,
+        gaussian_blur_frame,
+        pose_loss,
+        recover_pose,
+        render_pose,
+        sample_init_poses,
+    )
+    from diffus_tpu_torch.types import BeamGeometry, RenderConfig, TransducerPose
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(ENTRY, ignore_errors=True)
+    os.makedirs(ENTRY)
+    t1_np = t1_phantom_3d(SHAPE).astype(np.float32)
+    t1_path, us_path = os.path.join(ENTRY, "t1.npy"), os.path.join(ENTRY, "us.npy")
+    np.save(t1_path, t1_np)
+    # train-impedance's target: the impedance phantom's frame at the CLI's
+    # defaults (source APEX, a 45-degree fan of 256 rays, 512 samples), splatted
+    train_cfg = ImpedanceTrainConfig(render=RenderConfig(attenuation_coeff=ATT,
+                                                         interp="trilinear_plain"))
+    src = torch.tensor(APEX, dtype=torch.float32, device=dev)
+    dirs = fan_directions_2d([0.0, 1.0], np.radians(45.0), N_RAYS, device=dev)
+    with torch.no_grad():
+        x, y, _, frame = render_frame(torch.from_numpy(brain_phantom_3d(SHAPE)).to(dev), src,
+                                      dirs, N_SAMPLES, train_cfg.render)
+        target = differentiable_splat(x.float(), y.float(), frame, *train_cfg.image_shape,
+                                      train_cfg.splat_sigma)
+    np.save(us_path, target.cpu().numpy())
+    runs, held = {}, []
+
+    # -- the CLI's train-impedance at its defaults ------------------------------
+    train_argv = ["train-impedance", "--t1", t1_path, "--us", us_path, "--source",
+                  *map(str, APEX)]
+    # one epoch on each route first, untimed: a process's first call pays
+    # one-time costs (lazy module loads, the first convolution) that would
+    # land on the first timed run
+    _cli_json(train_argv + ["--epochs", "1"])
+    if study:
+        with _parent_route():
+            _cli_json(train_argv + ["--epochs", "1"])
+    runs["train-impedance"] = _entry_run(
+        "train-impedance (256 x 512, 50 epochs, SSIM)", True, lambda: _cli_json(train_argv),
+        card, study)
+    t1 = torch.from_numpy(t1_np).to(dev)
+
+    def train_step_run(interp, dtype):
+        cfg = dataclasses.replace(train_cfg, image_shape=tuple(target.shape),
+                                  render=RenderConfig(attenuation_coeff=ATT, interp=interp))
+        t1_, us, mask, s, d = _inputs(t1, target, None, src, dirs)
+        model = init_params(torch.Generator().manual_seed(0), cfg.hidden).to(dev, dtype)
+        loss = synth_loss(model, t1_.to(dtype), us.to(dtype), mask, s.to(dtype), d.to(dtype),
+                          cfg)
+        loss.backward()
+        with torch.no_grad():
+            zv = impedance_volume(model, t1_.to(dtype), cfg)
+        zv.requires_grad_(True)
+        return {"loss": loss, **{f"grad {n}": p.grad for n, p in model.named_parameters()},
+                **_sampler_terms(zv, s.to(dtype), d.to(dtype), cfg.num_samples, interp,
+                                 {"volume": zv}, with_idx=True)}
+
+    held.append(_held_step("train-impedance", train_step_run, 1e-3))
+
+    def pose_sampler(vol, pose, geom, interp):
+        """:func:`_sampler_terms` at the step's poses, from fresh leaves."""
+        leaves = {n: x.detach().clone().requires_grad_(True)
+                  for n, x in (("position", pose.position), ("rotvec", pose.rotvec))}
+        fan = pose_fan_directions(TransducerPose(leaves["position"], leaves["rotvec"]), geom)
+        return _sampler_terms(vol, leaves["position"], fan, geom.num_samples, interp, leaves,
+                              with_idx=False)
+
+    # -- the CLI's recover-pose, plain and annealed, at 64 x 128 and 256 x 512 ---
+    tx, ty = default_table_points(device=dev)
+    z = tabular_impedance_volume(t1, tx, ty)
+    true = TransducerPose.create(APEX, device=dev)
+    for rays, samples in ((64, 128), (N_RAYS, N_SAMPLES)):
+        geom = BeamGeometry(n_rays=rays, num_samples=samples, opening_angle=np.radians(45.0))
+        with torch.no_grad():   # the CLI's target (--true-source), through K2
+            cli_target = render_pose(z, true, PoseRecoveryConfig(geometry=geom, render=RenderConfig(
+                attenuation_coeff=ATT, interp="trilinear")))
+        base = ["recover-pose", "--volume", t1_path, "--true-source", *map(str, APEX),
+                "--source", *map(str, ENTRY_SOURCE)]
+        size = [] if rays == 64 else ["--rays", str(rays), "--samples", str(samples)]
+        for annealed in (False, True):
+            label = f"recover-pose{' --annealed' if annealed else ''} ({rays} x {samples})"
+            runs[label] = _entry_run(label, False, lambda: _cli_json(
+                base + size + (["--annealed"] if annealed else [])), card, study)
+
+            def pose_step_run(interp, dtype, annealed=annealed, geom=geom, tgt=cli_target):
+                cfg = PoseRecoveryConfig(geometry=geom, render=RenderConfig(
+                    attenuation_coeff=ATT, interp=interp), lr=0.05)
+                vol, tgt = z.to(dtype), tgt.to(dtype)
+                if annealed:   # the CLI's one start (--starts 1) and the first phase's blur
+                    sigma = AnnealedPoseConfig.phases[0][0]
+                    start = sample_init_poses(torch.Generator(device=dev).manual_seed(0),
+                                              ENTRY_SOURCE, 4.0, 0.05, 1)
+                else:
+                    sigma, start = 0.0, TransducerPose.create(ENTRY_SOURCE, device=dev)
+                pose = TransducerPose(start.position.to(dtype).detach().requires_grad_(True),
+                                      start.rotvec.to(dtype).detach().requires_grad_(True))
+                loss = pose_loss(vol, gaussian_blur_frame(tgt, sigma), pose, cfg, sigma).sum()
+                loss.backward()
+                return {"loss": loss, "grad position": pose.position.grad,
+                        "grad rotvec": pose.rotvec.grad, **pose_sampler(vol, pose, geom, interp)}
+
+            held.append(_held_step(label, pose_step_run, 1e-4))
+
+    # -- /recover on a nearest service at full width -----------------------------
+    svc = RendererService(z, BeamGeometry(N_RAYS, N_SAMPLES), RenderConfig(attenuation_coeff=ATT),
+                          batch_tiers=(1,), device=dev)
+    rcfg = svc._recovery_config([tuple(p) for p in ENTRY_PHASES])
+    with torch.no_grad():
+        rec_target = render_pose(svc.volume, true, rcfg.as_base())
+    http = _Http(svc)
+    try:
+        def recover_http():
+            fit = http.call("/recover", {
+                "target_npy_b64": _npy_b64(rec_target.cpu().numpy()),
+                "init_position": ENTRY_SOURCE, "count": STARTS, "radius": RADIUS,
+                "rot_scale": ROT_SCALE, "phases": ENTRY_PHASES, "seed": 0})
+            if not np.all(np.isfinite(fit["final_losses"])):
+                raise AssertionError(f"/recover losses {fit['final_losses']}")
+            return {"final_loss": fit["final_loss"], "position": fit["position"]}
+
+        runs["/recover (nearest service)"] = _entry_run(
+            f"/recover on a nearest service ({N_RAYS} x {N_SAMPLES}, {STARTS} starts, "
+            f"{sum(p[3] for p in ENTRY_PHASES)} steps)", False, recover_http, card, study)
+    finally:
+        http.close()
+
+    def service_step_run(interp, dtype):
+        render = dataclasses.replace(rcfg.render, interp=interp)
+        cfg = dataclasses.replace(rcfg.as_base(), render=render)
+        sigma = ENTRY_PHASES[0][0]
+        starts = sample_init_poses(torch.Generator(device=dev).manual_seed(0), ENTRY_SOURCE,
+                                   RADIUS, ROT_SCALE, STARTS)
+        pose = TransducerPose(starts.position.to(dtype).requires_grad_(True),
+                              starts.rotvec.to(dtype).requires_grad_(True))
+        vol = svc.volume.to(dtype)
+        loss = pose_loss(vol, gaussian_blur_frame(rec_target.to(dtype), sigma), pose, cfg,
+                         sigma).sum()
+        loss.backward()
+        return {"loss": loss, "grad position": pose.position.grad,
+                "grad rotvec": pose.rotvec.grad, **pose_sampler(vol, pose, cfg.geometry, interp)}
+
+    held.append(_held_step("/recover (nearest service)", service_step_run, 1e-4))
+    del svc
+
+    # -- recover_pose with a default PoseRecoveryConfig --------------------------
+    pcfg = PoseRecoveryConfig()
+    if pcfg.render.interp != "trilinear":
+        raise AssertionError(f"PoseRecoveryConfig's default interp is {pcfg.render.interp}")
+    with torch.no_grad():
+        pose_target = render_pose(z, true, pcfg)
+
+    def recover_default():
+        pose, losses = recover_pose(z, pose_target, TransducerPose.create(ENTRY_SOURCE,
+                                                                          device=dev), pcfg)
+        if not bool(torch.isfinite(losses).all()):
+            raise AssertionError(f"recover_pose losses {losses}")
+        return {"loss_first": float(losses[0]), "loss_last": float(losses[-1]),
+                "position": pose.position.tolist()}
+
+    runs["recover_pose (default config)"] = _entry_run(
+        f"recover_pose, PoseRecoveryConfig() ({pcfg.geometry.n_rays} x "
+        f"{pcfg.geometry.num_samples}, {pcfg.steps} steps)", False, recover_default, card,
+        study)
+
+    def default_step_run(interp, dtype):
+        cfg = dataclasses.replace(pcfg, render=dataclasses.replace(pcfg.render, interp=interp))
+        pose = TransducerPose(torch.tensor(ENTRY_SOURCE, dtype=dtype, device=dev,
+                                           requires_grad=True),
+                              torch.zeros(3, dtype=dtype, device=dev, requires_grad=True))
+        vol = z.to(dtype)
+        loss = pose_loss(vol, pose_target.to(dtype), pose, cfg).sum()
+        loss.backward()
+        return {"loss": loss, "grad position": pose.position.grad,
+                "grad rotvec": pose.rotvec.grad, **pose_sampler(vol, pose, cfg.geometry, interp)}
+
+    held.append(_held_step("recover_pose (default config)", default_step_run, 1e-4))
+    for line in held:
+        print(f"entry points [{card}]: {line}", flush=True)
+    walls = sum(sum(w) for r in runs.values() for w in r["wall_s"].values())
+    shutil.rmtree(ENTRY, ignore_errors=True)
+    totals = {k: sum(r["launches"][k] for r in runs.values())
+              for k in next(iter(runs.values()))["launches"]}
+    print(f"entry points [{card}]: {len(runs)} entry points, launches {totals}; phase 15 "
+          f"{time.perf_counter() - t_phase:.2f} s, of which the timed runs {walls:.2f} s",
+          flush=True)
+    return {"launches": totals, "by_entry": {k: r["launches"] for k, r in runs.items()},
+            "wall_s": {k: r["wall_s"] for k, r in runs.items()}}
 
 
 def _phase4_service(dev):
@@ -3352,8 +3765,9 @@ def _training_study(dev, card: str, steps: int) -> int:
     us_norm, mask = _normalized(target)
     train = {"t1": t1, "us_norm": us_norm, "mask": mask, "src": src, "dirs": dirs}
     plain = dataclasses.replace(cfg, render=dataclasses.replace(
-        cfg.render, interp="trilinear", use_pallas=False))
-    k1 = dataclasses.replace(cfg, render=dataclasses.replace(cfg.render, interp="trilinear"))
+        cfg.render, interp="trilinear_plain", use_pallas=False))
+    k1 = dataclasses.replace(cfg, render=dataclasses.replace(cfg.render,
+                                                             interp="trilinear_plain"))
     k2 = dataclasses.replace(cfg, render=dataclasses.replace(cfg.render, use_pallas=False))
     model0 = init_params(torch.Generator().manual_seed(TRAIN_SEED), cfg.hidden)
     nudged = copy.deepcopy(model0)
@@ -3378,8 +3792,11 @@ def _training_study(dev, card: str, steps: int) -> int:
         if swap is not None:
             old = getattr(swap[0], swap[1])
             setattr(swap[0], swap[1], swap[2])
+        plain_only = (_plain_only("training study, a trilinear_plain way")
+                      if c.render.interp == "trilinear_plain" else contextlib.nullcontext())
         try:
-            return _train_trajectory(model, train, c, n, dtype)
+            with plain_only:
+                return _train_trajectory(model, train, c, n, dtype)
         finally:
             torch.use_deterministic_algorithms(False)
             if old is not None:
@@ -3531,6 +3948,9 @@ def main(argv=None) -> int:
                         help="full_pipeline's stages 4 and 5 at every candidate size, three ways")
     parser.add_argument("--probe", action="store_true",
                         help="only phase 6: K3 against float64, beside its earlier design")
+    parser.add_argument("--entry-points", action="store_true",
+                        help="only phase 15: the entry points that name interp='trilinear', "
+                             "each also timed on the parent's route")
     args = parser.parse_args(argv)
     any_only = any(v is not None and v is not False for v in vars(args).values())
     t_start = time.perf_counter()
@@ -3577,6 +3997,9 @@ def main(argv=None) -> int:
         return _examples_study(dev, card)
     if args.probe:
         _gather_probe_phase(dev, _parent_probe(parent_build))
+        return 0
+    if args.entry_points:
+        _entry_points_phase(dev, card, study=True)
         return 0
 
     import torch.nn.functional as F
@@ -3886,6 +4309,11 @@ def main(argv=None) -> int:
     benches = _bench_phase(card)
     print(f"times [{card}]: phase 14 {time.perf_counter() - t0:.2f} s", flush=True)
 
+    # -- 15. the entry points that name interp="trilinear" ----------------------------
+    t0 = time.perf_counter()
+    entry = _entry_points_phase(dev, card)
+    print(f"times [{card}]: phase 15 {time.perf_counter() - t0:.2f} s", flush=True)
+
     kernels = [
         {"name": "echo_scan", "route": "cuda", "source": "diffus_tpu_torch/csrc/echo_scan.cu",
          "replaces": "diffus_tpu/kernels/propagation_pallas.py:45",
@@ -3952,8 +4380,15 @@ def main(argv=None) -> int:
         k["serving_surface_launches"] = surface["launches"][k["name"]]
         k["examples_launches"] = examples["launches"][k["name"]]
         k["bench_launches"] = benches["launches"][k["name"]]
+        k["entry_launches"] = entry["launches"][k["name"]]
     kernels[2]["mesh_launches"] = meshed["launches"]["gather_probe"]
     kernels[2]["bench_launches"] = benches["launches"]["gather_probe"]
+    kernels[2]["entry_launches"] = entry["launches"]["gather_probe"]
+    kernels[1]["entry_idx_launches"] = entry["launches"]["trilinear_idx"]
+    kernels[1]["entry_by_path"] = entry["by_entry"]
+    kernels[1]["entry_wall_s"] = entry["wall_s"]
+    for part in ("volume", "points"):
+        kernels[4][f"entry_bwd_{part}_launches"] = entry["launches"][f"trilinear_bwd_{part}"]
     for path, run in (("training", train), ("image_formation", bmode), ("recovery", recovery),
                       ("serving_surface", surface), ("mesh", meshed), ("examples", examples),
                       ("bench", benches)):

@@ -20,7 +20,9 @@ On a CPU tensor each runs its plain version; on a CUDA tensor it launches
 the kernel or raises.  There is no fallback, and the kernels take f32
 only: a bf16 or f64 CUDA tensor raises.  Each counts its launches
 (``.launches``; the ray form also counts those that wrote an idx,
-``.idx_launches``).  What bounds the kernels on the card is in the
+``.idx_launches``, and its backward's, ``.bwd_launches``, of which
+``.bwd_volume_launches`` ran the volume path and ``.bwd_points_launches``
+the points path).  What bounds the kernels on the card is in the
 source's header note.
 
 Gradient: the ray form's ``torch.autograd.Function`` has a backward that
@@ -330,6 +332,8 @@ def _launch_march_bwd(volume: torch.Tensor, source: torch.Tensor, directions: to
             ptr(ddir_sum), ptr(ray_src), stream)
     _build.check(status, "trilinear march backward")
     march_trilinear_fused.bwd_launches += 1
+    march_trilinear_fused.bwd_volume_launches += int(need_v)
+    march_trilinear_fused.bwd_points_launches += int(need_s or need_d)
     dsrc = _as_input(dsrc_sum if sum_src else dsrc_pose, source.shape, lead) if need_s else None
     ddir = (_as_input(ddir_sum if sum_dirs else ddir_pose, directions.shape, lead) if need_d
             else None)
@@ -432,3 +436,5 @@ sample_trilinear_fused.launches = 0  # kernel launches so far; reset it to count
 march_trilinear_fused.launches = 0
 march_trilinear_fused.idx_launches = 0  # of those, the launches that wrote an idx
 march_trilinear_fused.bwd_launches = 0  # K2b's launches (the ray form's gradient)
+march_trilinear_fused.bwd_volume_launches = 0  # of those, the ones with its volume path
+march_trilinear_fused.bwd_points_launches = 0  # and with its points path (sources, directions)

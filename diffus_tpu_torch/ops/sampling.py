@@ -4,10 +4,23 @@ Two samplers carry every interp name: ``nearest`` (the reference's
 round-half-even + per-axis clamp) and exact ``trilinear``
 (differentiable w.r.t. points and volume).  The JAX package's tile and
 row tables are TPU gather-layout workarounds and are not ported; their
-names map onto these samplers in :data:`SAMPLERS`.
+names map onto these samplers by what each name is (:data:`SAMPLER_KINDS`):
+
+- ``nearest``: the nearest gather;
+- ``bf16``: exact trilinear of bf16 corners, plain PyTorch;
+- ``exact``: exact trilinear in f32, which the card runs through the
+  CUDA kernel K2 (as JAX runs its TPU sampler for these names);
+- ``plain``: ``trilinear_plain``, exact trilinear in plain PyTorch on every
+  device, the reference the kernel paths are held to.
+
+The renderer picks the route from the kind and the volume's dtype
+(``render.renderer._resolve_sampler``); K2's wrapper launches the kernel
+on a CUDA volume and runs its plain version on a CPU one.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -27,8 +40,18 @@ def ray_points(source: torch.Tensor, directions: torch.Tensor, num_samples: int,
     return source[..., None, None, :] + steps[:, None] * directions[..., :, None, :]
 
 
-def _dims(volume: torch.Tensor, dtype) -> torch.Tensor:
-    return torch.tensor(volume.shape, dtype=dtype, device=volume.device)
+@functools.lru_cache(maxsize=64)
+def _bounds(shape: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """``shape - 1`` as a ``dtype`` tensor on ``device``, the clamp's upper
+    bounds, made once per key: a copy from pageable host memory waits for
+    the card, so only the first call of a shape makes one.  The tensor is
+    an ordinary one even under ``inference_mode`` (``torch.minimum`` saves
+    it for its backward), and is complete before any stream reads it."""
+    with torch.inference_mode(False):
+        hi = torch.tensor([n - 1 for n in shape], dtype=dtype, device=device)
+    if hi.is_cuda:
+        torch.cuda.current_stream(device).synchronize()
+    return hi
 
 
 def _round_idx(volume: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
@@ -37,7 +60,7 @@ def _round_idx(volume: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
     order does not change a finite result), and a NaN coordinate gives index
     0, as XLA converts NaN: an integer cast of NaN or of a huge float would
     index anywhere."""
-    hi = _dims(volume, points.dtype) - 1.0
+    hi = _bounds(tuple(volume.shape), points.dtype, volume.device)
     p = torch.minimum(torch.clamp(torch.nan_to_num(points, nan=0.0), min=0.0), hi)
     return torch.round(p).to(torch.int32)
 
@@ -61,11 +84,12 @@ def sample_trilinear(volume: torch.Tensor, points: torch.Tensor):
     :func:`sample_nearest` (the splat uses them).  A bf16 volume gives f32
     values: its corners are promoted by the f32 weights.
     """
-    p = torch.minimum(torch.clamp(points, min=0.0), _dims(volume, points.dtype) - 1.0)
+    shape = tuple(volume.shape)
+    p = torch.minimum(torch.clamp(points, min=0.0), _bounds(shape, points.dtype, volume.device))
     p0 = torch.floor(p)
     frac = p - p0                                  # NaN for a NaN point: its value is NaN,
     i0 = torch.nan_to_num(p0, nan=0.0).long()      # its corners voxel 0 (K2 does the same)
-    i1 = torch.minimum(i0 + 1, _dims(volume, torch.long) - 1)
+    i1 = torch.minimum(i0 + 1, _bounds(shape, torch.long, volume.device))
     fx, fy, fz = frac[..., 0], frac[..., 1], frac[..., 2]
     x0, y0, z0 = i0[..., 0], i0[..., 1], i0[..., 2]
     x1, y1, z1 = i1[..., 0], i1[..., 1], i1[..., 2]
@@ -109,18 +133,34 @@ def sample_trilinear_tile_fused(volume: torch.Tensor, points: torch.Tensor):
     return sample_trilinear_fused(volume, points)
 
 
-SAMPLERS = {
-    "nearest": sample_nearest,
-    "nearest_rows": sample_nearest,
-    "trilinear": sample_trilinear,
-    "trilinear_rows": sample_trilinear,
-    "trilinear_rows2": sample_trilinear,
-    "trilinear_tile": sample_trilinear,
-    "trilinear_tile_k2": sample_trilinear,
-    "trilinear_tile_k2i": sample_trilinear,
-    "trilinear_tile3d_f32": sample_trilinear,
-    "trilinear_fused": sample_trilinear_tile_fused,
-    "trilinear_tile_fused": sample_trilinear_tile_fused,
-    "trilinear_bf16": sample_trilinear_bf16,
-    "trilinear_tile3d_bf16": sample_trilinear_bf16,
+# What each interp name is (the renderer routes by it, not by the function):
+# JAX's nearest names, its bf16 ones, its exact f32 trilinear ones (which the
+# card runs through K2) and the port's own plain exact trilinear.
+SAMPLER_KINDS = {
+    "nearest": "nearest",
+    "nearest_rows": "nearest",
+    "trilinear": "exact",
+    "trilinear_rows": "exact",
+    "trilinear_rows2": "exact",
+    "trilinear_tile": "exact",
+    "trilinear_tile_k2": "exact",
+    "trilinear_tile_k2i": "exact",
+    "trilinear_tile3d_f32": "exact",
+    "trilinear_fused": "exact",
+    "trilinear_tile_fused": "exact",
+    "trilinear_bf16": "bf16",
+    "trilinear_tile3d_bf16": "bf16",
+    "trilinear_plain": "plain",
 }
+
+# The names of JAX's Pallas sampler.  They name the kernel itself, so they
+# run K2 on a CUDA volume of any dtype (K2 takes f32 only and raises on
+# another); the other exact names sample a bf16 volume plainly, as JAX's
+# XLA samplers do.
+KERNEL_NAMES = frozenset({"trilinear_fused", "trilinear_tile_fused"})
+
+# Each name's sampler at arbitrary points: an exact name through K2's points
+# form (the plain sampler on CPU tensors)
+SAMPLERS = {name: {"nearest": sample_nearest, "bf16": sample_trilinear_bf16,
+                   "exact": sample_trilinear_tile_fused, "plain": sample_trilinear}[kind]
+            for name, kind in SAMPLER_KINDS.items()}

@@ -10,17 +10,20 @@ A function of ``(volume, source, directions)`` plus a static
 Every stage takes leading batch dims, so :func:`render_sweep` is one
 batched pass over poses; the envelope's normalisation and the artifacts'
 clip ranges are per frame, and each frame draws its own noise.
-``config.use_pallas`` runs the echo scan through the CUDA kernel K1 and
-``interp='trilinear_fused'`` marches the rays through K2's ray form, which
-computes the sample points itself; on CPU tensors both run their plain
-PyTorch versions.  :func:`_render` can leave the sample coordinates out,
+``config.use_pallas`` runs the echo scan through the CUDA kernel K1, and
+every exact-trilinear interp (``trilinear``, ``trilinear_fused`` and JAX's
+other exact names) marches the rays of a CUDA volume through K2's ray form,
+which computes the sample points itself (:func:`_resolve_sampler`, the
+counterpart of JAX's TPU upgrade); on CPU tensors both run their plain
+PyTorch versions, and ``trilinear_plain`` runs the plain sampler anywhere.
+:func:`_render` can leave the sample coordinates out,
 for callers that read the intensities alone (the service, pose recovery):
 XLA drops that unread output of JAX's jitted renders, and K2 then writes
 no idx.  The pulse, envelope and artifact stages are
 plain PyTorch (the JAX package computes them outside Pallas too).
 
-The TPU-only machinery of the JAX renderer (sampler auto-upgrades, tile
-tables, pose chunking, placement warnings, ``:436-566``) is not ported.
+The rest of the JAX renderer's TPU-only machinery (tile tables, pose
+chunking, placement warnings, ``:436-566``) is not ported.
 """
 
 from __future__ import annotations
@@ -44,12 +47,41 @@ from diffus_tpu_torch.ops.propagation import (
     impedance_weighted_rho,
     reflection_coeff,
 )
-from diffus_tpu_torch.ops.sampling import SAMPLERS, ray_points, sample_trilinear_tile_fused
+from diffus_tpu_torch.ops.sampling import (
+    KERNEL_NAMES,
+    SAMPLER_KINDS,
+    march_trilinear,
+    ray_points,
+    sample_nearest,
+    sample_trilinear_bf16,
+)
 from diffus_tpu_torch.types import RenderConfig, Volume
 
 _DEFAULT_CONFIG = RenderConfig()
-# the interps that march through K2's ray form: SAMPLERS' fused ones
-_MARCHED = frozenset(k for k, f in SAMPLERS.items() if f is sample_trilinear_tile_fused)
+
+
+def _resolve_sampler(interp: str, dtype: torch.dtype) -> str:
+    """The route that :func:`trace_rays` takes for ``interp`` on a volume of
+    ``dtype`` (``renderer.py:51-78``, JAX's TPU upgrade):
+
+    - ``"k2"``: an exact-trilinear name, K2's ray form
+      (:func:`march_trilinear_fused`): on a CUDA volume the kernel forward
+      and K2b backward, on a CPU one their plain version.  K2 takes float32
+      only and raises on another dtype (a float64 volume on the card names
+      ``trilinear_plain``);
+    - ``"trilinear_bf16"``: a bf16 name, or an exact name other than the
+      Pallas kernel's (:data:`KERNEL_NAMES`) on a bf16 volume, the plain
+      bf16 sampler (JAX samples a bf16 volume with its XLA sampler);
+    - ``"trilinear_plain"``: the plain sampler on every device;
+    - ``"nearest"``: the nearest gather.
+
+    Decided by the name and the volume alone: nothing falls back to the
+    plain sampler when the kernel fails."""
+    kind = SAMPLER_KINDS[interp]
+    if kind == "exact":
+        bf16_plain = dtype == torch.bfloat16 and interp not in KERNEL_NAMES
+        return "trilinear_bf16" if bf16_plain else "k2"
+    return {"nearest": "nearest", "bf16": "trilinear_bf16", "plain": "trilinear_plain"}[kind]
 
 
 def _on(volume: torch.Tensor, x) -> torch.Tensor:
@@ -63,15 +95,21 @@ def trace_rays(volume, source, directions, num_samples: int, interp: str = "near
     """March rays and sample the volume (``renderer.py:131-150``).
 
     Returns ``(idx, values)``: int32 coords ``(..., n_rays, num_samples, 3)``
-    and values ``(..., n_rays, num_samples)``.  The fused interps go
-    through K2's ray form, which takes ``source`` and ``directions`` as
-    they are; with ``_with_idx=False`` it computes no coords and ``idx``
-    is None (the other samplers return theirs regardless).
+    and values ``(..., n_rays, num_samples)``.  The route is
+    :func:`_resolve_sampler`'s: exact trilinear goes through K2's ray form
+    (the kernel on a CUDA volume), which takes ``source`` and
+    ``directions`` as they are (float32 on the card); with
+    ``_with_idx=False`` the exact routes compute no coords and ``idx`` is
+    None (nearest and bf16 return theirs regardless).
     """
     source, directions = _on(volume, source), _on(volume, directions)
-    if interp in _MARCHED:
+    route = _resolve_sampler(interp, volume.dtype)
+    if route == "k2":
         return march_trilinear_fused(volume, source, directions, num_samples, step, _with_idx)
-    return SAMPLERS[interp](volume, ray_points(source, directions, num_samples, step))
+    if route == "trilinear_plain":
+        return march_trilinear(volume, source, directions, num_samples, step, _with_idx)
+    sampler = sample_nearest if route == "nearest" else sample_trilinear_bf16
+    return sampler(volume, ray_points(source, directions, num_samples, step))
 
 
 def simulate_rays(volume, source, directions, num_samples: int, interp: str = "nearest"):

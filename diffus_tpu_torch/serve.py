@@ -519,20 +519,15 @@ class RendererService:
 
     def _recovery_config(self, phases=None) -> AnnealedPoseConfig:
         """The recovery's forward model (``diffus_tpu/serve.py:804-828``): this
-        service's render config with artifacts off (their noise is unlearnable
-        for an MSE descent) and an interpolating sampler, under the service
-        geometry, with an optional phase-schedule override.
-
-        JAX rewrites every interp to ``'trilinear'``.  Here ``'trilinear'`` on
-        a CUDA tensor is the plain sampler, so a service on
-        ``'trilinear_fused'`` keeps it (kernel K2; both are exact trilinear
-        with gradients); every other interp becomes ``'trilinear'``.
-        ``use_pallas`` stays as the service has it, so K1 runs too.
+        service's render config with ``interp='trilinear'`` (gradients need
+        interpolation; on a CUDA float32 volume it runs K2 and K2b) and
+        artifacts off (their noise is unlearnable for an MSE descent), under
+        the service geometry, with an optional phase-schedule override.
+        ``use_pallas`` stays as the service has it.
         """
         render_cfg = self.config
-        interp = "trilinear_fused" if render_cfg.interp == "trilinear_fused" else "trilinear"
-        if render_cfg.interp != interp or render_cfg.artifacts:
-            render_cfg = dataclasses.replace(render_cfg, interp=interp, artifacts=False)
+        if render_cfg.interp != "trilinear" or render_cfg.artifacts:
+            render_cfg = dataclasses.replace(render_cfg, interp="trilinear", artifacts=False)
         cfg = AnnealedPoseConfig(geometry=self.geometry, render=render_cfg)
         if phases is not None:
             cfg = dataclasses.replace(cfg, phases=tuple(

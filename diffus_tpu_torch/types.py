@@ -129,9 +129,15 @@ class RenderConfig:
 
     ``start``: int samples, or a float fraction of ``num_samples``.
     ``interp``: ``nearest`` (parity), ``trilinear`` (pose-differentiable),
-    ``trilinear_bf16`` (bf16 volume, f32 weights), or any explicit
-    sampler name of the JAX package; :data:`diffus_tpu_torch.ops.sampling.SAMPLERS`
-    maps each onto one of the port's samplers.  ``use_pallas`` routes the
+    ``trilinear_bf16`` (bf16 volume, f32 weights), ``trilinear_plain``, or
+    any explicit sampler name of the JAX package;
+    :data:`diffus_tpu_torch.ops.sampling.SAMPLER_KINDS` says what each is.
+    ``trilinear`` and JAX's other exact names run the CUDA kernel K2 (and
+    its backward K2b) on a CUDA float32 volume, as JAX runs its TPU sampler
+    for them; ``trilinear_plain`` is the same exact trilinear in plain
+    PyTorch on every device (the port's own name, which JAX lacks): the
+    reference that the kernel paths are held to, and the way to take exact
+    trilinear of a float64 volume on the card.  ``use_pallas`` routes the
     echo scan through the hand-written CUDA kernel
     (:mod:`diffus_tpu_torch.kernels.propagation_cuda`); the field keeps
     the JAX package's name so configs carry across unchanged.
@@ -162,7 +168,8 @@ class RenderConfig:
 
     def __post_init__(self):
         if self.interp not in (
-            ("nearest", "trilinear", "trilinear_bf16") + self._EXPLICIT_SAMPLERS
+            ("nearest", "trilinear", "trilinear_bf16", "trilinear_plain")
+            + self._EXPLICIT_SAMPLERS
         ):
             raise ValueError(f"unknown interp {self.interp!r}")
         if self.reflection_mode not in ("parity", "symmetric", "physical"):

@@ -15,7 +15,7 @@ phantoms, or on real volumes via ``--volume``.
 
 Runs on ``--device`` (default ``cuda``; without a card it stops and says to
 pass ``--device cpu``).  ``--pallas`` runs the echo scan through kernel K1,
-``--interp trilinear_fused`` the sampler through K2.  The PNG is written
+``--interp trilinear`` (or ``trilinear_fused``) the sampler through K2.  The PNG is written
 with matplotlib where it is installed, else with Pillow.
 """
 
@@ -160,7 +160,7 @@ def main(argv=None):
     ap.add_argument("--pallas", action="store_true",
                     help="run the echo scan through the CUDA kernel (K1)")
     ap.add_argument("--interp", default="nearest", choices=INTERPS,
-                    help="sampler (trilinear_fused: the CUDA kernel K2)")
+                    help="sampler (trilinear, trilinear_fused: the CUDA kernel K2 on the card)")
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (default cuda; pass cpu where there is no card)")
     args = ap.parse_args(argv)

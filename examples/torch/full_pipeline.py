@@ -19,8 +19,8 @@ Chains every workflow the reference spreads across notebooks
 
 Runs on ``--device`` (default ``cuda``; without a card it stops and says to
 pass ``--device cpu``).  ``--pallas`` runs the echo scan through kernel K1
-(and its backward K1b), ``--interp trilinear_fused`` the sampler through
-K2 (and K2b).  The MLP's initial weights come from a CPU
+(and its backward K1b); ``--interp trilinear``, the default, and
+``trilinear_fused`` run the sampler through K2 (and K2b).  The MLP's initial weights come from a CPU
 ``torch.Generator`` seeded 0.  ``--train-size`` and ``--pose-size`` run
 stage 4 or 5 on a scene and phantom of their own size (stages 1-3 stay at
 ``--size``): the full-width card run uses them where the stage's own
@@ -150,7 +150,7 @@ def main(argv=None):
     ap.add_argument("--pallas", action="store_true",
                     help="run the echo scan through the CUDA kernel (K1)")
     ap.add_argument("--interp", default="trilinear", choices=INTERPS,
-                    help="sampler (trilinear_fused: the CUDA kernel K2)")
+                    help="sampler (trilinear, trilinear_fused: the CUDA kernel K2 on the card)")
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (default cuda; pass cpu where there is no card)")
     args = ap.parse_args(argv)

@@ -13,8 +13,9 @@ and prints latency + stats — the whole serving surface in one script.
 
 Runs on ``--device`` (default ``cuda``; without a card it stops and says to
 pass ``--device cpu``).  ``--pallas`` runs the echo scan through kernel K1
-(and ``/recover``'s backward through K1b), ``--interp trilinear_fused``
-the sampler through K2 (and K2b).
+(and ``/recover``'s backward through K1b), ``--interp trilinear`` (or
+``trilinear_fused``) the service's sampler through K2; ``/recover`` renders
+with ``trilinear``, through K2 and K2b, whatever the service's interp.
 """
 
 from __future__ import annotations
@@ -77,17 +78,16 @@ def request_sources(d: int) -> np.ndarray:
 
 def recovery_target(svc, true: np.ndarray) -> np.ndarray:
     """The frame ``/recover`` is asked to place: rendered at ``true`` with
-    the service's config on an interpolating sampler (its recovery's own
-    rule: ``trilinear_fused`` stays, every other interp is ``trilinear``)."""
+    the service's config on ``trilinear``, the interpolating sampler its
+    recovery renders with (K2 on the card)."""
     import torch
 
     from diffus_tpu_torch.train.pose_recovery import AnnealedPoseConfig, render_pose
     from diffus_tpu_torch.types import TransducerPose
 
-    interp = "trilinear_fused" if svc.config.interp == "trilinear_fused" else "trilinear"
     cfg = AnnealedPoseConfig(
         geometry=svc.geometry,
-        render=dataclasses.replace(svc.config, interp=interp),
+        render=dataclasses.replace(svc.config, interp="trilinear"),
     )
     with torch.no_grad():
         target = render_pose(svc.volume, TransducerPose.create(true, device=svc.device),
@@ -101,7 +101,7 @@ def main(argv=None):
     ap.add_argument("--rays", type=int, default=64)
     ap.add_argument("--samples", type=int, default=96)
     ap.add_argument("--interp", default="nearest", choices=INTERPS,
-                    help="sampler (trilinear_fused: the CUDA kernel K2)")
+                    help="sampler (trilinear, trilinear_fused: the CUDA kernel K2 on the card)")
     ap.add_argument("--pallas", action="store_true",
                     help="run the echo scan through the CUDA kernel (K1)")
     ap.add_argument("--device", default="cuda",

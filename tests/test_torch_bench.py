@@ -465,3 +465,79 @@ def test_training_step_update_matches_jax(small):
         assert np.abs(g - w).max() <= 2 * jcfg.lr + 1e-6
         # a step of lr moved every weight the gradient reached
         np.testing.assert_allclose(np.abs(g - start[name].numpy())[sure], jcfg.lr, rtol=1e-3)
+
+
+# the pose of the bench's first trilinear call (inputs["trilinear"][0]) whose
+# frame holds the call's largest distance from float64, and that distance's pixel
+RESONANT_POSE, RESONANT_PIXEL = 30, (52, 288)
+_JAX_F64_FRAMES = """
+import sys
+import numpy as np
+import jax.numpy as jnp
+from diffus_tpu.ops.propagation import depth_attenuation, echo_amplitudes, reflection_coeff
+from diffus_tpu.phantoms import brain_phantom_3d
+from diffus_tpu.render.renderer import trace_rays
+src, dirs = (np.load(p).astype(np.float64) for p in sys.argv[1:3])
+vol = jnp.asarray(brain_phantom_3d((256,) * 3).astype(np.float64))
+frames = []
+for s in src:
+    _, z = trace_rays(vol, jnp.asarray(s), jnp.asarray(dirs), 512, "trilinear")
+    r = reflection_coeff(z[:, :-1], z[:, 1:])
+    frames.append(np.asarray(depth_attenuation(echo_amplitudes(r, mode="parity"), 1e-4)))
+np.save(sys.argv[3], np.stack(frames))
+"""
+
+
+def test_first_trilinear_call_is_as_far_from_f64_in_jax(tmp_path):
+    """The bench's first trilinear call is 2.3% off float64 on both of the
+    port's f32 paths (PERF.md, Findings).  At the call's first pose and at
+    the pose that holds that distance, JAX's f32 frame is as far from its
+    float64 frame (JAX casts the samples to f32 in ``render_frame``, so its
+    f64 frame is composed from its stages under ``JAX_ENABLE_X64``, in a
+    subprocess) as the port's plain f32 frame is from the port's f64, at the
+    same pixel: the ray leaves the head there (a reflection coefficient
+    below -0.99), and the echo scan amplifies the f32 rounding of the
+    samples.  The two f64 frames agree to 1e-9 on the same directions."""
+    from diffus_tpu_torch.geometry import fan_directions_2d
+    from diffus_tpu_torch.phantoms import brain_phantom_3d as tphantom
+    from diffus_tpu_torch.render.renderer import render_frame as trender, simulate_rays
+    from diffus_tpu_torch.types import RenderConfig
+
+    assert (bt.VOLUME_DIM, bt.N_RAYS, bt.NUM_SAMPLES) == (256, 256, 512)
+    src = bt.draw_inputs(np.random.default_rng(0))["trilinear"][0][[0, RESONANT_POSE]]
+    dirs = fan_directions_2d([0.0, 1.0], np.radians(45.0), 256).numpy()
+    paths = [str(tmp_path / f) for f in ("src.npy", "dirs.npy", "j64.npy")]
+    np.save(paths[0], src)
+    np.save(paths[1], dirs)
+    env = dict(os.environ, JAX_ENABLE_X64="1", JAX_PLATFORMS="cpu",
+               PYTHONPATH=str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    jax64 = subprocess.Popen([sys.executable, "-c", _JAX_F64_FRAMES, *paths], env=env,
+                             cwd=ROOT)
+    try:
+        vol = tphantom((256,) * 3)
+        cfg = JConfig(attenuation_coeff=1e-4, interp="trilinear")
+        j32 = np.stack([np.asarray(jrender(jnp.asarray(vol), jnp.asarray(s), jnp.asarray(dirs),
+                                           512, cfg)[3]) for s in src])
+        tcfg = RenderConfig(attenuation_coeff=1e-4, interp="trilinear_plain")
+        port = {dt: np.stack([trender(torch.from_numpy(vol).to(dt), torch.from_numpy(s).to(dt),
+                                      torch.from_numpy(dirs).to(dt), 512, tcfg)[3].numpy()
+                              for s in src]) for dt in (torch.float32, torch.float64)}
+        assert jax64.wait(timeout=120) == 0
+    finally:
+        jax64.kill()
+    j64 = np.load(paths[2])
+    for p, pose in enumerate((0, RESONANT_POSE)):
+        ref = port[torch.float64][p]
+        assert frame_rel_err(ref, j64[p]) < 1e-9
+        d_jax = np.abs(j32[p] - j64[p])
+        d_port = np.abs(port[torch.float32][p] - ref)
+        e_jax, e_port = (frame_rel_err(d + j64[p], j64[p]) for d in (d_jax, d_port))
+        assert 0.5 <= e_jax / e_port <= 2.0, (pose, e_jax, e_port)
+        if pose == RESONANT_POSE:
+            assert e_jax > 1e-2 and e_port > 1e-2, (e_jax, e_port)
+            for d in (d_jax, d_port):
+                assert np.unravel_index(np.argmax(d), d.shape) == RESONANT_PIXEL
+    ray, sample = RESONANT_PIXEL
+    r = simulate_rays(torch.from_numpy(vol).double(), torch.from_numpy(src[1]).double(),
+                      torch.from_numpy(dirs[ray:ray + 1]).double(), 512, "trilinear_plain")[1]
+    assert float(r[0, :sample].min()) < -0.99

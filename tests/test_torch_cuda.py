@@ -684,7 +684,7 @@ def test_train_step_on_the_card(cuda, loss):
                                render=RenderConfig(attenuation_coeff=1e-4,
                                                    interp="trilinear_fused", use_pallas=True))
     plain = dataclasses.replace(cfg, render=dataclasses.replace(
-        cfg.render, interp="trilinear", use_pallas=False))
+        cfg.render, interp="trilinear_plain", use_pallas=False))
     x, y, _, frame = render_frame(z, src, dirs, 20, plain.render)
     target = differentiable_splat(x.float(), y.float(), frame, 32, 32, 2.0)
     target = (target - target.min()) / (target.max() - target.min() + 1e-8)
@@ -779,3 +779,85 @@ def test_meshed_service_renders_without_idx(cuda):
     assert march_trilinear_fused.launches - before[0] == 8
     assert march_trilinear_fused.idx_launches == before[1]
     assert torch.equal(got, plain.render(src))
+
+
+def _routing_scene(cuda, dtype=torch.float32):
+    from diffus_tpu_torch.types import RenderConfig
+
+    vol = torch.from_numpy(brain_phantom_3d((32, 32, 32))).to(cuda, dtype)
+    dirs = fan_directions_2d([0.0, 1.0], np.radians(40.0), 12, device=cuda).to(dtype)
+    src = torch.tensor([16.2, 1.4, 15.7], device=cuda, dtype=dtype)
+    return vol, src, dirs, (lambda interp, **f: RenderConfig(attenuation_coeff=1e-4,
+                                                             interp=interp, **f))
+
+
+def _render_grads(vol, src, dirs, cfg):
+    from diffus_tpu_torch.render.renderer import render_frame
+
+    leaves = [t.detach().clone().requires_grad_(True) for t in (vol, src, dirs)]
+    frame = render_frame(*leaves, 40, cfg)[3]
+    frame.square().sum().backward()
+    return frame.detach(), [t.grad for t in leaves]
+
+
+@pytest.mark.cuda
+def test_trilinear_runs_k2_and_k2b_on_the_card(cuda):
+    """``interp='trilinear'`` on a CUDA float32 volume: K2's ray form forward
+    (with idx, for ``render_frame``) and K2b backward, once each; frames and
+    gradients within the plain path's tolerances."""
+    vol, src, dirs, cfg = _routing_scene(cuda)
+    before = (march_trilinear_fused.launches, march_trilinear_fused.idx_launches,
+              march_trilinear_fused.bwd_launches)
+    frame, grads = _render_grads(vol, src, dirs, cfg("trilinear"))
+    torch.cuda.synchronize()
+    assert (march_trilinear_fused.launches, march_trilinear_fused.idx_launches,
+            march_trilinear_fused.bwd_launches) == tuple(b + 1 for b in before)
+    want, want_grads = _render_grads(vol, src, dirs, cfg("trilinear_plain"))
+    torch.testing.assert_close(frame, want, rtol=1e-5, atol=1e-6 * float(want.abs().max()))
+    for g, w in zip(grads, want_grads):
+        assert torch.equal(torch.isnan(g), torch.isnan(w))
+        scale = float(w.nan_to_num(0).abs().max())
+        torch.testing.assert_close(g.nan_to_num(0), w.nan_to_num(0), rtol=1e-4,
+                                   atol=1e-5 * scale)
+
+
+@pytest.mark.cuda
+def test_trilinear_plain_launches_nothing_on_the_card(cuda):
+    """``trilinear_plain`` is the plain sampler on the card: no K2 or K2b."""
+    vol, src, dirs, cfg = _routing_scene(cuda)
+    before = (march_trilinear_fused.launches, march_trilinear_fused.bwd_launches,
+              sample_trilinear_fused.launches)
+    _render_grads(vol, src, dirs, cfg("trilinear_plain"))
+    torch.cuda.synchronize()
+    assert (march_trilinear_fused.launches, march_trilinear_fused.bwd_launches,
+            sample_trilinear_fused.launches) == before
+
+
+@pytest.mark.cuda
+def test_trilinear_on_a_float64_volume_raises_on_the_card(cuda):
+    """K2 takes float32 only and nothing falls back: an f64 CUDA volume under
+    ``trilinear`` raises; ``trilinear_plain`` renders it."""
+    from diffus_tpu_torch.render.renderer import render_frame
+
+    vol, src, dirs, cfg = _routing_scene(cuda, torch.float64)
+    with pytest.raises(TypeError, match="float32"):
+        render_frame(vol, src, dirs, 40, cfg("trilinear"))
+    assert torch.isfinite(render_frame(vol, src, dirs, 40, cfg("trilinear_plain"))[3]).all()
+
+
+@pytest.mark.cuda
+def test_trilinear_bf16_config_renders_on_the_card(cuda):
+    """``RenderConfig(dtype='bfloat16', interp='trilinear')`` samples the bf16
+    volume with the plain bf16 sampler (no K2 launch), as JAX samples it with
+    its XLA sampler, and equals that render on the CPU."""
+    from diffus_tpu_torch.render.renderer import render_frame
+
+    vol, src, dirs, cfg = _routing_scene(cuda)
+    c = cfg("trilinear", dtype="bfloat16")
+    before = march_trilinear_fused.launches
+    frame = render_frame(vol, src, dirs, 40, c)[3]
+    torch.cuda.synchronize()
+    assert march_trilinear_fused.launches == before
+    want = render_frame(vol.cpu(), src.cpu(), dirs.cpu(), 40, c)[3]
+    assert torch.isfinite(frame).all()
+    torch.testing.assert_close(frame.cpu(), want, rtol=1e-4, atol=1e-4 * float(want.abs().max()))

@@ -371,15 +371,18 @@ def test_service_recover_pose():
 
 
 def test_service_recovery_config_keeps_the_kernels():
-    """JAX rewrites every interp to 'trilinear'; the port keeps
-    'trilinear_fused' (kernel K2; 'trilinear' is the plain sampler) and
-    ``use_pallas`` (K1), rewrites every other interp, and drops artifacts."""
+    """JAX's rule: every interp becomes 'trilinear' (K2 and K2b on a CUDA
+    float32 volume, ``renderer._resolve_sampler``), ``use_pallas`` (K1)
+    stays, and artifacts go."""
+    from diffus_tpu_torch.render.renderer import _resolve_sampler
+
     cfg = _service(interp="trilinear_fused", use_pallas=True, artifacts=True,
                    envelope=True)._recovery_config(((2.0, 0.1, 0.01, 3),))
     assert (cfg.render.interp, cfg.render.use_pallas, cfg.render.artifacts,
-            cfg.render.envelope) == ("trilinear_fused", True, False, True)
+            cfg.render.envelope) == ("trilinear", True, False, True)
+    assert _resolve_sampler(cfg.render.interp, torch.float32) == "k2"
     assert cfg.phases == ((2.0, 0.1, 0.01, 3),) and cfg.geometry == SVC_GEO
-    for interp in ("nearest", "trilinear_bf16", "trilinear_tile", "trilinear"):
+    for interp in ("nearest", "trilinear_bf16", "trilinear_tile", "trilinear", "trilinear_plain"):
         assert _service(interp=interp)._recovery_config().render.interp == "trilinear"
     svc = _service(artifacts=True, interp="trilinear_fused", use_pallas=True)
     res = svc.recover_pose(np.zeros((8, 16), np.float32), [8.0, 1.0, 8.0], count=2,
