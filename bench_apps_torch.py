@@ -18,7 +18,12 @@ card), ``bench_torch.py``'s two guards on this volume
 (``parity_max_rel_err``, ``tile_max_rel_err``), its held check
 (``held_to_f64``: each timed workload's first call through the kernels
 held to float64, as ``bench_torch.py`` holds its own), ``pass`` and
-``gates``; ``device`` is the card's name and power limit.
+``gates``; ``device`` is the card's name and power limit.  As in
+``bench_torch.py``, on the card each function that ``bench_apps.py`` jits
+is timed as a captured CUDA graph with its eager time beside it
+(``*_eager_ms``, ``*_eager_device_ms``), ``graph_launches`` counts the
+launches that replays made (the recoveries' descents replay their steps
+too), and the ``graph_launches`` and ``graph_equal`` gates hold them.
 
 Every echo scan runs through K1, and every loop names ``trilinear`` where
 JAX's does, which runs K2's ray form (and K2b) on the card: the kernels that
@@ -67,6 +72,8 @@ REQUIRED = {
     "pose_recovery": STEP,
     "pose_recovery_envelope": STEP,
 }
+GRAPHED = ("sweep", "train_step", "train_step_ssim", "pose_grad_step", "pose_recovery",
+           "pose_recovery_envelope")
 
 
 def draw_inputs(rng: np.random.Generator) -> dict:
@@ -80,15 +87,15 @@ def draw_inputs(rng: np.random.Generator) -> dict:
     return {"sets": sets, "pose": pose}
 
 
-def sweep(volume, directions, sets, clock: bt.Clock, launches: dict) -> dict:
-    """Config 2: the multi-pose nearest sweep, through K1."""
-    with bt.counting(launches, "sweep"):
-        ms, device_ms = clock.loop(bt.frames_fn(volume, directions, bt.NEAREST, SAMPLES),
-                                   bt.on(clock.device, sets), STEP_ITERS, "sweep")
-    return {"ms": ms, "device_ms": device_ms}
+def sweep(volume, directions, sets, clock: bt.Clock, launches: dict, replays: dict) -> dict:
+    """Config 2: the multi-pose nearest sweep, through K1 (:meth:`bench_torch.Clock.timed`)."""
+    with bt.counting(launches, "sweep", replays):
+        return clock.timed(bt.frames_fn(volume, directions, bt.NEAREST, SAMPLES),
+                           bt.on(clock.device, sets), STEP_ITERS, "sweep")
 
 
-def training(model, volume, t1, directions, sets, clock: bt.Clock, launches: dict) -> tuple:
+def training(model, volume, t1, directions, sets, clock: bt.Clock, launches: dict,
+             replays: dict) -> tuple:
     """Config 3: one training step with ``masked_mse_edge`` and one with SSIM,
     each from a copy of ``model``, against the splatted frame rendered from
     the first set's first apex through the kernels.  Returns each step's
@@ -107,19 +114,19 @@ def training(model, volume, t1, directions, sets, clock: bt.Clock, launches: dic
                  "target": splat_frame((x, y, None), frame, (0, 1), IMAGE),
                  "mask": torch.ones(IMAGE, dtype=torch.bool, device=dev)}
         srcs = bt.on(dev, [s[row] for s in sets])
-        out[workload] = bt.training_step(model, setup, srcs, clock, launches, workload,
-                                         STEP_ITERS)
+        out[workload] = bt.training_steps(model, setup, srcs, clock, launches, replays,
+                                          workload, STEP_ITERS)
         held[workload] = bt.held_training(model, setup, srcs[0][0])
     return out, held
 
 
-def pose_grad(volume, pose_srcs, clock: bt.Clock, launches: dict) -> dict:
+def pose_grad(volume, pose_srcs, clock: bt.Clock, launches: dict, replays: dict) -> dict:
     """Config 4: one pose-recovery gradient step, POSE_RAYS x POSE_SAMPLES."""
     return bt.pose_step(volume, bt.on(clock.device, pose_srcs), clock, launches,
-                        "pose_grad_step", POSE_RAYS, POSE_SAMPLES, POSE_ITERS)
+                        "pose_grad_step", POSE_RAYS, POSE_SAMPLES, POSE_ITERS, replays)
 
 
-def recoveries(volume, launches: dict) -> dict:
+def recoveries(volume, launches: dict, replays: dict) -> dict:
     """Config 4's acceptance: the annealed multistart success rate
     (RECOVERY_STARTS starts in a RECOVERY_RADIUS ball, ROT_SCALE rotations,
     ``torch.Generator`` seed 7), and the envelope over ENVELOPE_RADII with the
@@ -127,11 +134,11 @@ def recoveries(volume, launches: dict) -> dict:
     cfg = AnnealedPoseConfig(geometry=BeamGeometry(n_rays=POSE_RAYS, num_samples=POSE_SAMPLES),
                              render=bt.KERNELS, phases=RECOVERY_PHASES)
     true = TransducerPose.create([DIM / 2, 4.0, DIM / 2], device=volume.device)
-    with bt.counting(launches, "pose_recovery"):
+    with bt.counting(launches, "pose_recovery", replays):
         rate = pose_recovery_benchmark(volume, true, cfg, torch.Generator().manual_seed(7),
                                        count=RECOVERY_STARTS, radius=RECOVERY_RADIUS,
                                        rot_scale=ROT_SCALE)
-    with bt.counting(launches, "pose_recovery_envelope"):
+    with bt.counting(launches, "pose_recovery_envelope", replays):
         envelope = pose_recovery_envelope(volume, true, cfg, torch.Generator().manual_seed(11),
                                           radii=ENVELOPE_RADII, count=RECOVERY_STARTS,
                                           rot_scale=ROT_SCALE, global_threshold=0.0)
@@ -143,7 +150,7 @@ def bench(device: torch.device, model) -> dict:
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    launches = {}
+    launches, replays = {}, {}
     volume_np = brain_phantom_3d((DIM,) * 3)
     checks = bt.guards(volume_np, device, launches)
     inputs = draw_inputs(np.random.default_rng(0))
@@ -152,10 +159,11 @@ def bench(device: torch.device, model) -> dict:
     t1 = torch.from_numpy(t1_phantom_3d((DIM,) * 3)).to(device)
     directions = fan_directions_2d([0.0, 1.0], np.radians(45.0), RAYS, device=device)
 
-    sw = sweep(volume, directions, inputs["sets"], clock, launches)
-    steps, held_steps = training(model, volume, t1, directions, inputs["sets"], clock, launches)
-    grad = pose_grad(volume, inputs["pose"], clock, launches)
-    recovered = recoveries(volume, launches)
+    sw = sweep(volume, directions, inputs["sets"], clock, launches, replays)
+    steps, held_steps = training(model, volume, t1, directions, inputs["sets"], clock, launches,
+                                 replays)
+    grad = pose_grad(volume, inputs["pose"], clock, launches, replays)
+    recovered = recoveries(volume, launches, replays)
     # each timed workload's first call held to float64 (not counted in launches); the
     # recoveries run the pose step's kernels at its shapes
     first = (lambda a: torch.from_numpy(a).to(device))
@@ -168,25 +176,39 @@ def bench(device: torch.device, model) -> dict:
     }
 
     launches_ok, launches_note = bt.launches_gate(launches, REQUIRED, device)
+    replays_ok, _ = bt.launches_gate(replays, {w: REQUIRED[w] for w in GRAPHED}, device)
+    graph_equal = {"sweep": sw["equal"], "pose_grad_step": grad["equal"]}
     gates = {"parity": checks["parity_max_rel_err"] < 1e-5,
              "tile": checks["tile_max_rel_err"] < 1e-5, "held": bt.held_gate(held_to_f64),
-             "launches": launches_ok}
+             "launches": launches_ok, "graph_launches": replays_ok,
+             "graph_equal": all(v is not False for v in graph_equal.values())}
+    per_pose = (lambda ms: None if ms is None else ms / POSES)
     return {
         "sync_ms": round(clock.sync_ms, 2),
         "sweep_ms_per_pose": round(sw["ms"] / POSES, 3),
-        "sweep_device_ms_per_pose": None if sw["device_ms"] is None else sw["device_ms"] / POSES,
+        "sweep_device_ms_per_pose": per_pose(sw["device_ms"]),
+        "sweep_eager_ms_per_pose": per_pose(sw["eager_ms"]),
+        "sweep_eager_device_ms_per_pose": per_pose(sw["eager_device_ms"]),
         "train_step_ms": round(steps["train_step"]["ms"], 2),
         "train_step_device_ms": steps["train_step"]["device_ms"],
+        "train_step_eager_ms": steps["train_step"]["eager_ms"],
+        "train_step_eager_device_ms": steps["train_step"]["eager_device_ms"],
         "train_step_ssim_ms": round(steps["train_step_ssim"]["ms"], 2),
         "train_step_ssim_device_ms": steps["train_step_ssim"]["device_ms"],
+        "train_step_ssim_eager_ms": steps["train_step_ssim"]["eager_ms"],
+        "train_step_ssim_eager_device_ms": steps["train_step_ssim"]["eager_device_ms"],
         "pose_grad_step_ms": round(grad["ms"], 2),
         "pose_grad_step_device_ms": grad["device_ms"],
+        "pose_grad_step_eager_ms": grad["eager_ms"],
+        "pose_grad_step_eager_device_ms": grad["eager_device_ms"],
         **recovered,
         "parity_max_rel_err": checks["parity_max_rel_err"],
         "tile_max_rel_err": checks["tile_max_rel_err"],
         "held_to_f64": held_to_f64,
         "launches": launches,
         "launches_note": launches_note,
+        "graph_launches": replays,
+        "graph_equal": graph_equal,
         "device": bt.device_name(device),
         "note": (f"readback-closed, sync subtracted; volume {DIM}^3; *_device_ms from CUDA "
                  f"events, each call queued ahead of the card (None where a call waits "

@@ -32,7 +32,17 @@ Prints ONE JSON line with ``bench.py``'s keys, except:
   sectors a batch's samples touch, counted on the device from the samples,
   plus the intensities written, the sources and the fan), over the H100's
   3.35 TB/s (:func:`roofline`);
-- ``device`` is the card's name and power limit as ``nvidia-smi`` gives them.
+- ``device`` is the card's name and power limit as ``nvidia-smi`` gives them;
+- on the card every function that ``bench.py`` jits runs here as a
+  captured CUDA graph (:mod:`diffus_tpu_torch.utils.graphs`), captured
+  before its timed loop, which replays it; each time keeps the same calls
+  run eagerly beside it (``*_eager_ms``, ``*_eager_device_ms``; None off
+  the card, where only the eager path runs), ``graph_launches`` counts the
+  launches the replays made (the ``graph_launches`` gate: each kernel that
+  :data:`REQUIRED` names for a timed workload launched in its replays), and
+  ``graph_equal`` says for each timed workload of one function whether its
+  first replay equals the eager call bit for bit (the ``graph_equal`` gate;
+  the training step is not compared: its splat adds with atomics).
 
 Every workload takes ``bench.py``'s inputs (``np.random.default_rng(0)``
 drawn in its order, :func:`draw_inputs`) and names the kernels it runs.
@@ -90,11 +100,12 @@ from diffus_tpu_torch.render.renderer import _render, render_frame, trace_rays
 from diffus_tpu_torch.train.impedance_train import (
     ImpedanceTrainConfig,
     make_optimizer,
+    make_train_step,
     synth_loss,
-    train_step,
 )
 from diffus_tpu_torch.train.pose_recovery import PoseRecoveryConfig, render_pose
 from diffus_tpu_torch.types import BeamGeometry, RenderConfig, TransducerPose
+from diffus_tpu_torch.utils.graphs import Graphed, replayed
 from diffus_tpu_torch.utils.timing import (
     HBM_BYTES_PER_S,
     measure_sync_ms,
@@ -138,6 +149,8 @@ REQUIRED = {
                    "trilinear_bwd"),
     "pose_step": ("echo_scan", "trilinear_sample", "echo_scan_bwd", "trilinear_bwd"),
 }
+# the workloads timed as captured graphs on the card (the guards run once, eagerly)
+GRAPHED = ("single_frame", "sweep", "trilinear", "trilinear_bf16", "train_step", "pose_step")
 
 
 # -- device, launches, timing ---------------------------------------------------
@@ -169,12 +182,20 @@ def launch_counts() -> dict:
             "trilinear_bwd": k2.bwd_launches, "gather_probe": gather_probe.gather_probe.launches}
 
 
+def replay_counts() -> dict:
+    """Of :func:`launch_counts`, the launches that replays of captured graphs made."""
+    return {k: replayed[k] for k in launch_counts()}
+
+
 @contextlib.contextmanager
-def counting(launches: dict, workload: str):
-    """Record in ``launches[workload]`` the kernels launched inside the block."""
-    before = launch_counts()
+def counting(launches: dict, workload: str, replays: dict | None = None):
+    """Record in ``launches[workload]`` the kernels launched inside the block,
+    and in ``replays[workload]`` those that graph replays launched."""
+    before, before_replays = launch_counts(), replay_counts()
     yield
     launches[workload] = {k: v - before[k] for k, v in launch_counts().items()}
+    if replays is not None:
+        replays[workload] = {k: v - before_replays[k] for k, v in replay_counts().items()}
 
 
 def launches_gate(launches: dict, required: dict, device: torch.device) -> tuple:
@@ -197,7 +218,8 @@ class Clock:
     device time from CUDA events.
 
     Device time: each call is queued behind a spin of the stream
-    (``torch.cuda._sleep``, about 3x the host clock's time a call) and
+    (``torch.cuda._sleep``, about 3x the host clock's time a call, at
+    least 0.5 ms: a replayed graph's call takes ~0.04 ms of host time) and
     between two CUDA events, so that the card finds the whole call queued
     and the span between the events holds the card's work and no host
     time.  Where the card reached a call's first event before the host
@@ -230,6 +252,25 @@ class Clock:
         ms = readback_time_ms(fn, args_list, n=n, sync_ms=self.sync_ms)
         return ms, self.device_ms(fn, args_list[1:n + 1], ms, what)
 
+    def timed(self, fn, args_list, n: int, what: str, robust: bool = False) -> dict:
+        """``fn`` timed as ``bench.py`` times its jitted function: on the card
+        captured as a CUDA graph (:func:`as_graph`, on ``args_list[0]``)
+        and replayed (``ms``, ``device_ms``), then eagerly
+        (``eager_ms``, ``eager_device_ms``), with ``equal``: whether the
+        graph's first replay equals the eager call bit for bit.  Off the
+        card ``fn`` runs eagerly alone (the eager keys and ``equal`` None).
+        ``robust`` takes :meth:`robust` in place of :meth:`loop`."""
+        time = self.robust if robust else self.loop
+        if self.device.type != "cuda":
+            ms, device_ms = time(fn, args_list, n, what)
+            return {"ms": ms, "device_ms": device_ms, "eager_ms": None, "eager_device_ms": None,
+                    "equal": None}
+        graph, equal = graph_checked(fn, args_list[0], what)
+        ms, device_ms = time(graph, args_list, n, what)
+        eager_ms, eager_device_ms = time(fn, args_list, n, f"{what}, eager")
+        return {"ms": ms, "device_ms": device_ms, "eager_ms": eager_ms,
+                "eager_device_ms": eager_device_ms, "equal": equal}
+
     def robust(self, fn, args_list, n: int, what: str) -> tuple:
         """``(ms, device_ms)`` a call: ``robust_readback_time_ms`` (for calls
         below the readback's own cost), and the device time of its calls."""
@@ -241,7 +282,7 @@ class Clock:
         card, or where a call waited for the card."""
         if self.cycles_per_ms is None:
             return None
-        cycles = int(self.cycles_per_ms * max(3.0 * wall_ms, 0.1))
+        cycles = int(self.cycles_per_ms * max(3.0 * wall_ms, 0.5))
         spans, late = [], 0
         for args in args_list:
             start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -258,6 +299,23 @@ class Clock:
                   file=sys.stderr)
             return None
         return sum(s.elapsed_time(e) for s, e in spans) / len(spans)
+
+
+def as_graph(fn, args: tuple, name: str) -> Graphed:
+    """``fn`` as a captured CUDA graph, ``bench.py``'s jitted function: its
+    warm-up calls and its capture made on ``args``, so that a timed loop
+    only replays it."""
+    graph = Graphed(fn, name=name)
+    while not graph.captured:
+        graph(*args)
+    return graph
+
+
+def graph_checked(fn, args: tuple, name: str) -> tuple:
+    """``(as_graph(fn, args, name), equal)``: ``equal`` whether its first
+    replay on ``args`` equals ``fn``'s eager call bit for bit."""
+    graph = as_graph(fn, args, name)
+    return graph, bool(torch.equal(graph(*args), fn(*args)))
 
 
 # -- inputs, guards, rooflines ----------------------------------------------------
@@ -385,37 +443,45 @@ def frames_fn(volume: torch.Tensor, directions: torch.Tensor, cfg: RenderConfig,
 
 
 def serving(volume: torch.Tensor, directions: torch.Tensor, inputs: dict, clock: Clock,
-            launches: dict) -> dict:
+            launches: dict, replays: dict) -> dict:
     """The single-frame latency (``bench.py:141-147``), the headline nearest
     sweep (``:149-160``), the trilinear loops (``:162-214``, their median)
-    and the bf16 loop (``:216-231``), each on its own inputs."""
+    and the bf16 loop (``:216-231``), each on its own inputs, each a
+    :meth:`Clock.timed` dict (the trilinear loops': ``runs``, the median
+    ``device_ms``, and one eager loop beside them)."""
     dev = clock.device
     out = {}
-    with counting(launches, "single_frame"):
-        out["single_ms"], out["single_device_ms"] = clock.robust(
-            frames_fn(volume, directions, NEAREST, NUM_SAMPLES), on(dev, inputs["singles"]),
-            SINGLE_ITERS, "single frame")
-    with counting(launches, "sweep"):
-        out["sweep_ms"], out["sweep_device_ms"] = clock.loop(
-            frames_fn(volume, directions, NEAREST, NUM_SAMPLES), on(dev, inputs["sweep"]),
-            SWEEP_ITERS, "sweep")
+    with counting(launches, "single_frame", replays):
+        out["single"] = clock.timed(frames_fn(volume, directions, NEAREST, NUM_SAMPLES),
+                                    on(dev, inputs["singles"]), SINGLE_ITERS, "single frame",
+                                    robust=True)
+    with counting(launches, "sweep", replays):
+        out["sweep"] = clock.timed(frames_fn(volume, directions, NEAREST, NUM_SAMPLES),
+                                   on(dev, inputs["sweep"]), SWEEP_ITERS, "sweep")
     tri = on(dev, inputs["trilinear"])
+    tri_fn = frames_fn(volume, directions, KERNELS, NUM_SAMPLES)
     runs, device_runs = [], []
-    with counting(launches, "trilinear"):
+    out["trilinear"] = {"eager_ms": None, "eager_device_ms": None, "equal": None}
+    with counting(launches, "trilinear", replays):
+        loop_fn = tri_fn
+        if dev.type == "cuda":
+            loop_fn, out["trilinear"]["equal"] = graph_checked(tri_fn, tri[0], "trilinear")
         for rep in range(TRI_REPS):
             offs = rep * (TRILINEAR_ITERS + 1)
-            ms, dev_ms = clock.loop(frames_fn(volume, directions, KERNELS, NUM_SAMPLES),
-                                    tri[offs:offs + TRILINEAR_ITERS + 1], TRILINEAR_ITERS,
-                                    "trilinear")
+            ms, dev_ms = clock.loop(loop_fn, tri[offs:offs + TRILINEAR_ITERS + 1],
+                                    TRILINEAR_ITERS, "trilinear")
             runs.append(ms)
             device_runs.append(dev_ms)
-    out["tri_ms_runs"] = runs
-    out["tri_device_ms"] = None if None in device_runs else float(np.median(device_runs))
+        if dev.type == "cuda":
+            out["trilinear"]["eager_ms"], out["trilinear"]["eager_device_ms"] = clock.loop(
+                tri_fn, tri[:TRILINEAR_ITERS + 1], TRILINEAR_ITERS, "trilinear, eager")
+    out["trilinear"].update(runs=runs, device_ms=None if None in device_runs
+                            else float(np.median(device_runs)))
     offs = TRI_REPS * (TRILINEAR_ITERS + 1)
-    with counting(launches, "trilinear_bf16"):
-        out["bf16_ms"], out["bf16_device_ms"] = clock.loop(
-            frames_fn(volume, directions, BF16, NUM_SAMPLES),
-            tri[offs:offs + TRILINEAR_ITERS + 1], TRILINEAR_ITERS, "trilinear bf16")
+    with counting(launches, "trilinear_bf16", replays):
+        out["bf16"] = clock.timed(frames_fn(volume, directions, BF16, NUM_SAMPLES),
+                                  tri[offs:offs + TRILINEAR_ITERS + 1], TRILINEAR_ITERS,
+                                  "trilinear bf16")
     return out
 
 
@@ -440,30 +506,51 @@ def training_setup(device, src0: np.ndarray) -> dict:
 
 
 def training_step(model, setup: dict, srcs: list, clock: Clock, launches: dict,
-                  workload: str, iters: int) -> dict:
+                  workload: str, iters: int, graphs: bool | None = None,
+                  replays: dict | None = None) -> dict:
     """One impedance training step (BASELINE config 3, ``bench.py:259-310``)
-    from a copy of ``model``, timed over ``iters`` calls on ``srcs``.  The port's
-    ``train_step`` updates the model and its Adam in place, so the timed
-    calls walk a trajectory where JAX times every call from one state; the
-    work a call is the same.  Returns the times and ``loss_first``, the
-    warm-up step's loss (from ``model``'s weights, on ``srcs[0]``), and
-    ``params_first``, the weights after it (not in the record)."""
+    from a copy of ``model``, timed over ``iters`` calls on ``srcs``: a
+    captured CUDA graph of ``train_step`` with the source its input on the
+    card (:func:`~diffus_tpu_torch.train.impedance_train.make_train_step`;
+    ``graphs=False`` runs it eagerly), captured before the timed loop.  The
+    port's ``train_step`` updates the model and its Adam in place, so the
+    timed calls walk a trajectory where JAX times every call from one
+    state; the work a call is the same.  Returns the times and
+    ``loss_first``, the first step's loss (from ``model``'s weights, on
+    ``srcs[0]``), and ``params_first``, the weights after it (not in the
+    record)."""
     model = copy.deepcopy(model).to(clock.device)
     cfg = setup["cfg"]
     opt = make_optimizer(model, cfg)
+    step_fn = make_train_step(model, opt, setup["t1"], setup["target"], setup["mask"],
+                              setup["directions"], cfg, graphs)
     losses, params_first = [], {}
 
     def step(src):
-        losses.append(train_step(model, opt, setup["t1"], setup["target"], setup["mask"], src,
-                                 setup["directions"], cfg))
+        losses.append(step_fn(src))
         if len(losses) == 1:
             params_first.update((n, p.detach().clone()) for n, p in model.named_parameters())
         return losses[-1]
 
-    with counting(launches, workload):
+    with counting(launches, workload, replays):
+        while isinstance(step_fn, Graphed) and not step_fn.captured:
+            step(*srcs[0])
         ms, device_ms = clock.loop(step, srcs, iters, workload)
     return {"ms": ms, "device_ms": device_ms, "loss_first": float(losses[0]),
             "params_first": params_first}
+
+
+def training_steps(model, setup: dict, srcs: list, clock: Clock, launches: dict,
+                   replays: dict, workload: str, iters: int) -> dict:
+    """:func:`training_step` as ``bench.py`` times it (on the card a
+    captured graph), and on the card eagerly beside it (``eager_ms``,
+    ``eager_device_ms``; not counted in ``launches``)."""
+    out = training_step(model, setup, srcs, clock, launches, workload, iters, replays=replays)
+    out["eager_ms"] = out["eager_device_ms"] = None
+    if clock.device.type == "cuda":
+        eager = training_step(model, setup, srcs, clock, {}, workload, iters, graphs=False)
+        out["eager_ms"], out["eager_device_ms"] = eager["ms"], eager["device_ms"]
+    return out
 
 
 def pose_problem(volume: torch.Tensor, rays: int, samples: int) -> tuple:
@@ -490,13 +577,13 @@ def pose_grad_fn(volume: torch.Tensor, target: torch.Tensor, pcfg: PoseRecoveryC
 
 
 def pose_step(volume: torch.Tensor, srcs: list, clock: Clock, launches: dict, workload: str,
-              rays: int, samples: int, iters: int) -> dict:
+              rays: int, samples: int, iters: int, replays: dict | None = None) -> dict:
     """One pose-recovery gradient step (BASELINE config 4, ``bench.py:312-333``),
-    :func:`pose_problem`'s; robust estimator over ``iters`` calls on ``srcs``."""
+    :func:`pose_problem`'s; robust estimator over ``iters`` calls on
+    ``srcs``, as :meth:`Clock.timed`."""
     pose_grad = pose_grad_fn(volume, *reversed(pose_problem(volume, rays, samples)))
-    with counting(launches, workload):
-        ms, device_ms = clock.robust(pose_grad, srcs, iters, workload)
-    return {"ms": ms, "device_ms": device_ms}
+    with counting(launches, workload, replays):
+        return clock.timed(pose_grad, srcs, iters, workload, robust=True)
 
 
 # -- held to float64: the kernels at the timed workloads' shapes ---------------------
@@ -607,33 +694,34 @@ def bench(device: torch.device, model) -> dict:
         # full float32 in every matmul and convolution, whatever the defaults
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    launches = {}
+    launches, replays = {}, {}
     volume_np = brain_phantom_3d((VOLUME_DIM,) * 3)
     checks = guards(volume_np, device, launches)
     inputs = draw_inputs(np.random.default_rng(0))
     clock = Clock(device)
     volume = torch.from_numpy(volume_np).to(device)
     directions = fan_directions_2d([0.0, 1.0], np.radians(45.0), N_RAYS, device=device)
-    s = serving(volume, directions, inputs, clock, launches)
+    s = serving(volume, directions, inputs, clock, launches, replays)
 
-    fps = POSE_BATCH / s["sweep_ms"] * 1e3
-    tri_fps_runs = [POSE_BATCH / ms * 1e3 for ms in s["tri_ms_runs"]]
+    fps = POSE_BATCH / s["sweep"]["ms"] * 1e3
+    tri_fps_runs = [POSE_BATCH / ms * 1e3 for ms in s["trilinear"]["runs"]]
     trilinear_fps = float(np.median(tri_fps_runs))
     per_frame = (lambda ms: None if ms is None else ms / POSE_BATCH)
     first = torch.from_numpy(inputs["sweep"][1]).to(device)
     dirs_p = directions.expand(POSE_BATCH, -1, -1)
     n_out = POSE_BATCH * N_RAYS * NUM_SAMPLES
     nearest = roofline(nearest_sectors(volume, first, dirs_p), n_out, POSE_BATCH, N_RAYS,
-                       1e3 / fps, per_frame(s["sweep_device_ms"]))
+                       1e3 / fps, per_frame(s["sweep"]["device_ms"]))
     tri_first = torch.from_numpy(inputs["trilinear"][1]).to(device)
     trilinear = roofline(trilinear_sectors(volume, tri_first, dirs_p), n_out, POSE_BATCH, N_RAYS,
-                         1e3 / trilinear_fps, per_frame(s["tri_device_ms"]))
+                         1e3 / trilinear_fps, per_frame(s["trilinear"]["device_ms"]))
 
     steps = on(device, inputs["steps"])
     setup = training_setup(device, inputs["steps"][0])
-    train = training_step(model, setup, steps, clock, launches, "train_step", TRAIN_ITERS)
+    train = training_steps(model, setup, steps, clock, launches, replays, "train_step",
+                           TRAIN_ITERS)
     pose = pose_step(setup["volume"], steps, clock, launches, "pose_step", POSE_RAYS,
-                     POSE_SAMPLES, POSE_ITERS)
+                     POSE_SAMPLES, POSE_ITERS, replays)
 
     # each timed workload's first call held to float64 (not counted in launches)
     first_of = (lambda name: on(device, inputs[name][:1])[0][0])
@@ -651,29 +739,47 @@ def bench(device: torch.device, model) -> dict:
     tile_workload = tile_err(volume, first_of("trilinear"), dirs_p, NUM_SAMPLES)
 
     launches_ok, launches_note = launches_gate(launches, REQUIRED, device)
+    replays_ok, _ = launches_gate(replays, {w: REQUIRED[w] for w in GRAPHED}, device)
+    graph_equal = {"single_frame": s["single"]["equal"], "sweep": s["sweep"]["equal"],
+                   "trilinear": s["trilinear"]["equal"], "trilinear_bf16": s["bf16"]["equal"],
+                   "pose_step": pose["equal"]}
     gates = {"parity": checks["parity_max_rel_err"] < 1e-5,
              "tile": checks["tile_max_rel_err"] < 1e-5 and tile_workload < 1e-5,
              "held": held_gate(held_to_f64),
-             "launches": launches_ok}
+             "launches": launches_ok,
+             "graph_launches": replays_ok,
+             "graph_equal": all(v is not False for v in graph_equal.values())}
     return {
         "metric": "bmode_frames_per_sec_256rays_512samples_256cube",
         "value": round(fps, 1),
         "unit": "frames/sec",
         "vs_baseline": round(fps / REFERENCE_FPS, 1),
-        "single_frame_latency_ms": round(s["single_ms"], 3),
-        "single_frame_latency_device_ms": s["single_device_ms"],
-        "sweep_device_ms": s["sweep_device_ms"],
+        "single_frame_latency_ms": round(s["single"]["ms"], 3),
+        "single_frame_latency_device_ms": s["single"]["device_ms"],
+        "single_frame_latency_eager_ms": s["single"]["eager_ms"],
+        "single_frame_latency_eager_device_ms": s["single"]["eager_device_ms"],
+        "sweep_device_ms": s["sweep"]["device_ms"],
+        "sweep_eager_ms": s["sweep"]["eager_ms"],
+        "sweep_eager_device_ms": s["sweep"]["eager_device_ms"],
         "trilinear_fps": round(trilinear_fps, 1),
         "trilinear_fps_runs": [round(f, 1) for f in sorted(tri_fps_runs)],
-        "trilinear_device_ms": s["tri_device_ms"],
-        "trilinear_bf16_fps": round(POSE_BATCH / s["bf16_ms"] * 1e3, 1),
-        "trilinear_bf16_device_ms": s["bf16_device_ms"],
+        "trilinear_device_ms": s["trilinear"]["device_ms"],
+        "trilinear_eager_ms": s["trilinear"]["eager_ms"],
+        "trilinear_eager_device_ms": s["trilinear"]["eager_device_ms"],
+        "trilinear_bf16_fps": round(POSE_BATCH / s["bf16"]["ms"] * 1e3, 1),
+        "trilinear_bf16_device_ms": s["bf16"]["device_ms"],
+        "trilinear_bf16_eager_ms": s["bf16"]["eager_ms"],
+        "trilinear_bf16_eager_device_ms": s["bf16"]["eager_device_ms"],
         "nearest_roofline": nearest,
         "trilinear_roofline": trilinear,
         "train_step_ms": round(train["ms"], 2),
         "train_step_device_ms": train["device_ms"],
+        "train_step_eager_ms": train["eager_ms"],
+        "train_step_eager_device_ms": train["eager_device_ms"],
         "pose_step_ms": round(pose["ms"], 2),
         "pose_step_device_ms": pose["device_ms"],
+        "pose_step_eager_ms": pose["eager_ms"],
+        "pose_step_eager_device_ms": pose["eager_device_ms"],
         "pose_batch": POSE_BATCH,
         "sync_ms": round(clock.sync_ms, 2),
         "parity_max_rel_err": checks["parity_max_rel_err"],
@@ -683,6 +789,8 @@ def bench(device: torch.device, model) -> dict:
         "pallas": True,
         "launches": launches,
         "launches_note": launches_note,
+        "graph_launches": replays,
+        "graph_equal": graph_equal,
         "device": device_name(device),
         "torch_version": torch.__version__,
         "cuda_version": torch.version.cuda,

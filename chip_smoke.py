@@ -12,6 +12,7 @@
     python3 chip_smoke.py --examples-study  # full_pipeline's stages 4 and 5 at each size, 3 ways
     python3 chip_smoke.py --probe  # phases 1, 2 and 6: K3 against float64, beside its earlier design
     python3 chip_smoke.py --entry-points  # phases 1, 2 and 15, beside the parent's route
+    python3 chip_smoke.py --graphs  # phases 1, 2 and 16: the captured CUDA graphs against eager
 
 ``--requests`` times the serving path alone (latency and device-time split
 per tier: K1, K2, ``ray_points`` and the rest), ``--backward`` the
@@ -263,7 +264,38 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``--entry-points`` runs this phase alone and also times each entry
    point on the parent's route (``trilinear`` as the plain sampler, which
    must launch neither K2 nor K2b), in the order kernel, parent, parent,
-   kernel.
+   kernel;
+16. the hot paths as captured CUDA graphs (``diffus_tpu_torch/utils/graphs.py``;
+   every earlier phase that calls the service, a recovery loop or a
+   training loop already runs its graphs), in a process of its own
+   (``--graphs``, as phases 13 and 14 run theirs), each against the same
+   code run eagerly (``graphs=False``): the service at tiers 1, 8 and 32 on the
+   256^3 phantom at 256 x 512 (``trilinear_fused`` + K1), coalescing off
+   and on, and 8 threads racing the 1-pose tier;
+   ``recover_pose_multistart_annealed`` at STARTS x 256 x 512 for 40 steps
+   (GRAPH_PHASES); ``train_impedance_scan`` at ``ImpedanceTrainConfig()``'s
+   defaults for GRAPH_EPOCHS epochs.  Recovery and training run under
+   deterministic algorithms.  Each graphed output must equal the eager one
+   bit for bit; each path prints its capture seconds, its walls in the
+   order eager, graph, graph, eager (host clock to a synchronize), the
+   device time a call (CUDA events, each call queued behind a spin; an
+   eager training step's ~900 launches outgrow the launch queue behind it,
+   so that one is phase 8's), the launches of K1, K2, K1b and K2b that
+   replays made (each as many as the replays, none of the backward kernels
+   in the service), and the kernels ``torch.profiler`` sees in one replay
+   (K1 and K2, and K1b and K2b where the path runs them, must be among
+   them); a replayed request or step must not synchronise with the host
+   (``torch.cuda.set_sync_debug_mode``).
+   The service's scene holds its tiers' graphs in one memory pool: the
+   device memory the captures reserved is printed beside what three
+   separate pools reserve.  The card's Adam (``make_optimizer``:
+   capturable, float64 step counts) has its first update held to plain
+   ``torch.optim.Adam``'s on the same gradients (within 6e-6 of the
+   update: float64 counts read 2.98e-06, capturable Adam's own float32
+   counts 1.19e-05).  Phases 7, 8 and 10 step with the loops' optimizers
+   on every path, so their trajectory checks and step times hold the
+   optimizer the loops ship.  The replays' launches go on the ``kernels``
+   line (``graph_launches``).
 
 TF32 is off for matmuls and cuDNN (``torch.backends``), so no comparison
 depends on those defaults.  The line before the last is a JSON object of
@@ -1237,8 +1269,10 @@ def _training_phase(dev, vol) -> dict:
 
 def _train_trajectory(model0, train: dict, cfg, steps: int, dtype) -> dict:
     """``steps`` of ``train_step`` from ``model0``'s weights in ``dtype`` on
-    the card: the :func:`_trajectory_check` record, each parameter tensor a
-    state of one start and its gradient at each step (``grad <name>``)."""
+    the card, under ``make_optimizer``'s Adam (the loops': capturable,
+    float64 step counts): the :func:`_trajectory_check` record, each
+    parameter tensor a state of one start and its gradient at each step
+    (``grad <name>``)."""
     from diffus_tpu_torch.train import make_optimizer, train_step
 
     dev = train["t1"].device
@@ -1492,9 +1526,11 @@ def _request_profiles(svc, rng, card: str, label: str) -> dict:
 
 def _counts_reset() -> None:
     from diffus_tpu_torch.kernels import gather_probe as probe
+    from diffus_tpu_torch.utils import graphs
     from diffus_tpu_torch.kernels.propagation_cuda import echo_fused
     from diffus_tpu_torch.kernels.trilinear_cuda import march_trilinear_fused, sample_trilinear_fused
 
+    graphs.replayed.clear()
     probe.gather_probe.launches = 0
     echo_fused.launches = 0
     echo_fused.bwd_launches = 0
@@ -1931,9 +1967,10 @@ def _horizon_summary(out: dict) -> str:
 def _pose_trajectory(volume, target_b, init, base, render, sigma: float, lrs: tuple,
                      phase_steps: int, steps: int, dtype) -> dict:
     """``steps`` of ``pose_step`` from ``init`` in ``dtype`` on ``volume``'s
-    device, with ``render`` and the phase's cosine-decayed two-group Adam:
-    the :func:`_trajectory_check` record, with each step's raw gradients
-    (before Adam's update)."""
+    device, with ``render`` and the phase's cosine-decayed two-group Adam
+    (``make_pose_optimizer``, the loops': on the card capturable, with
+    float64 step counts and tensor rates): the :func:`_trajectory_check`
+    record, with each step's raw gradients (before Adam's update)."""
     from diffus_tpu_torch.train.pose_recovery import (
         make_pose_optimizer,
         pose_step,
@@ -3101,8 +3138,10 @@ def _pipeline_stage(fp, stage: int, n: int, rays: int, path: str, dev) -> tuple:
     ``rays``, ``path`` ``kernel`` (f32, ``trilinear_fused`` and
     ``use_pallas``: the script's run), ``plain`` (f32 ``trilinear_plain``) or
     ``f64`` (the plain path in float64), on ``dev``.  The f64 stages are
-    the script's own steps in float64: ``train_impedance_scan`` from the
-    same initial weights, and ``pose_step`` under ``recover_pose``'s Adam."""
+    the script's own steps in float64 (``train_step`` from the same
+    initial weights, ``pose_step``) under a plain ``torch.optim.Adam``,
+    not the program's own optimizer, so that a fault of that optimizer
+    shows."""
     import diffus_tpu_torch.train.impedance_train as ti
     from diffus_tpu_torch.impedance.mlp import init_params
     from diffus_tpu_torch.train.pose_recovery import pose_step, render_pose
@@ -3121,8 +3160,9 @@ def _pipeline_stage(fp, stage: int, n: int, rays: int, path: str, dev) -> tuple:
             t1_, us, mask, src, dirs = ti._inputs(t1, target, torch.ones(
                 fp.IMAGE, dtype=torch.bool, device=dev), scene.source, scene.directions)
             model = init_params(torch.Generator().manual_seed(0), cfg.hidden, dev).double()
-            losses = ti.train_impedance_scan(model, t1_.double(), us.double(), mask,
-                                             src.double(), dirs.double(), cfg)[1]
+            opt = torch.optim.Adam(model.parameters(), lr=cfg.lr)
+            losses = [ti.train_step(model, opt, t1_.double(), us.double(), mask, src.double(),
+                                    dirs.double(), cfg) for _ in range(cfg.epochs)]
         return float(losses[0]), float(losses[-1])
     if path != "f64":
         return fp.recover(scene, z_true, rays, 100, render)
@@ -3679,6 +3719,420 @@ def _entry_points_phase(dev, card: str, study: bool = False) -> dict:
             "wall_s": {k: r["wall_s"] for k, r in runs.items()}}
 
 
+# -- phase 16: the hot paths as captured CUDA graphs ---------------------------------
+
+# phase 16's recovery: 40 steps of the annealed schedule's shape at 256 x 512
+GRAPH_PHASES = ((4.0, 0.3, 0.02, 10), (1.0, 0.15, 0.01, 10), (0.0, 0.1, 0.005, 20))
+GRAPH_EPOCHS = 10      # phase 16's training run at ImpedanceTrainConfig()'s defaults
+# the card's Adam's first update against plain Adam's, of the update: float64
+# step counts read 2.98e-06, capturable Adam's own float32 counts 1.19e-05
+ADAM_LIMIT = 6e-6
+# the kernels' names in a profiler trace: K1, K2's ray form, K1b, K2b
+GRAPH_KERNEL_NAMES = {"echo_scan": "echo_scan_kernel", "trilinear_sample": "trilinear_march",
+                      "echo_scan_bwd": "echo_scan_bwd_kernel", "trilinear_bwd": "march_bwd"}
+
+
+def _replays() -> dict:
+    """Launches that graph replays made since :func:`_counts_reset`."""
+    from diffus_tpu_torch.utils import graphs
+
+    return {k: graphs.replayed[k] for k in ("echo_scan", "trilinear_sample", "trilinear_idx",
+                                            "echo_scan_bwd", "trilinear_bwd", "gather_probe")}
+
+
+def _no_sync(run, what: str):
+    """``run()`` under ``torch.cuda.set_sync_debug_mode("error")``: raises if
+    it synchronises with the host."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return run()
+    except RuntimeError as e:
+        raise AssertionError(f"{what}: a host synchronisation inside a replay: {e}") from e
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def _replay_kernels(run, what: str, needed: tuple, tries: int = 3) -> list:
+    """The device kernels ``torch.profiler`` sees in one ``run()`` (one
+    replay): their short names; each of ``needed`` (keys of
+    GRAPH_KERNEL_NAMES) must be among them.  CUPTI can drop a trace's
+    activities (:func:`_trace`), so a trace that lacks one is taken again,
+    up to ``tries`` times."""
+    for attempt in range(1, tries + 1):
+        traced = _trace(run, what)
+        if traced is None:
+            raise AssertionError(f"torch.profiler saw no device time in {what}")
+        names = sorted({e.name.replace("void ", "").replace("(anonymous namespace)::", "")
+                        .split("(")[0].split("<")[0].strip()
+                        for e in traced[2] if e.device_time_total > 0})
+        missing = [k for k in needed if not any(GRAPH_KERNEL_NAMES[k] in n for n in names)]
+        if not missing:
+            return names
+        print(f"torch.profiler: trace {attempt} of {tries} of {what} holds none of {missing}",
+              file=sys.stderr, flush=True)
+    raise AssertionError(f"{what}: the profiler's kernels {names} hold none of {missing}")
+
+
+def _walls(eager, graph, n: int) -> dict:
+    """Milliseconds a call of each, ``n`` calls back to back ended by a
+    synchronize (host clock), in the order eager, graph, graph, eager."""
+    out = {"eager": [], "graph": []}
+    for kind, fn in (("eager", eager), ("graph", graph), ("graph", graph), ("eager", eager)):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        out[kind].append((time.perf_counter() - t0) * 1e3 / n)
+    return out
+
+
+def _device_ms(clock, fn, wall_ms: float, n: int, what: str):
+    """Device milliseconds a call (``bench_torch.Clock.device_ms``: each call
+    queued behind a spin, between CUDA events); None where a call waited
+    for the card."""
+    return clock.device_ms(lambda: fn(), [()] * n, wall_ms, what)
+
+
+def _graph_line(card: str, what: str, capture_s: float, walls: dict, device: dict,
+                launches: dict, names: list) -> None:
+    print(f"graphs [{card}]: {what}: capture {capture_s:.3f} s; ms a call, eager / graph / "
+          f"graph / eager: {walls['eager'][0]:.4f} / {walls['graph'][0]:.4f} / "
+          f"{walls['graph'][1]:.4f} / {walls['eager'][1]:.4f} (host clock to a synchronize); "
+          f"device ms (CUDA events) eager {device['eager']} graph {device['graph']}; "
+          f"launches through replays {launches}; one replay's kernels (torch.profiler): "
+          f"{names}", flush=True)
+
+
+def _graph_service_part(dev, vol, card: str, clock) -> dict:
+    """The service at tiers 1, 8 and 32, graphed against eager: frames bit for
+    bit (coalescing off and on, and 8 threads racing one tier), the
+    captures' seconds and the device memory they reserve (the scene's one
+    pool, and separate pools beside it), walls, device times, launches
+    through replays, no host sync in a replayed request, one replay's
+    kernels."""
+    import threading
+
+    from diffus_tpu_torch.render.renderer import _render
+    from diffus_tpu_torch.serve import RendererService
+    from diffus_tpu_torch.types import BeamGeometry, RenderConfig
+    from diffus_tpu_torch.utils.graphs import Graphed
+
+    def reserved_mib() -> float:   # what the caching allocator holds beyond live blocks is let go
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_reserved(dev) / 2**20
+
+    cfg = RenderConfig(attenuation_coeff=ATT, interp="trilinear_fused", use_pallas=True)
+    geom = BeamGeometry(N_RAYS, N_SAMPLES)
+    graph = RendererService(vol, geom, cfg, batch_tiers=TIERS, device=dev, coalesce=False)
+    eager = RendererService(vol, geom, cfg, batch_tiers=TIERS, device=dev, coalesce=False,
+                            graphs=False)
+    coalesced = RendererService(vol, geom, cfg, batch_tiers=TIERS, device=dev,
+                                coalesce_window_s=0.003)
+    before = reserved_mib()
+    warm_s = graph.warmup()
+    pooled = reserved_mib() - before
+    # the same tier functions, each a graph of its own pool
+    separate, alone = [], {}
+    for tier in TIERS:
+        before = reserved_mib()
+        separate.append(Graphed(lambda sources: _render(
+            graph.volume, sources, graph.directions, N_SAMPLES, cfg, float(geom.step),
+            with_idx=False)[1], name=f"the {tier}-pose tier alone", device=dev))
+        zeros = torch.zeros((tier, 3), device=dev)
+        while not separate[-1].captured:
+            separate[-1](zeros)
+        alone[tier] = reserved_mib() - before
+    del separate
+    print(f"graphs [{card}]: device memory the captured tiers reserve "
+          f"(torch.cuda.memory_reserved, cache emptied): the scene's tiers {TIERS} in one pool "
+          f"{pooled:.1f} MiB; each in a pool of its own "
+          + ", ".join(f"{t} poses {m:.1f}" for t, m in alone.items())
+          + f" MiB, {sum(alone.values()):.1f} MiB in all", flush=True)
+    coalesced.warmup()
+    eager.warmup()
+    captures = graph.graph_captures()["default"]
+    rng = np.random.default_rng(16)
+    out = {"launches": {}, "memory_mib": {"pooled": pooled, "alone": alone}}
+    for tier in TIERS:
+        src = _sources(rng, tier).to(dev)
+        _counts_reset()
+        got = _no_sync(lambda: graph.render(src), f"the {tier}-pose request")
+        torch.cuda.synchronize()
+        launches = _replays()
+        if min(launches["echo_scan"], launches["trilinear_sample"]) != 1 or max(
+                launches["echo_scan_bwd"], launches["trilinear_bwd"], launches["trilinear_idx"]):
+            raise AssertionError(f"the {tier}-pose request's replay launched {launches}")
+        out["launches"] = {k: out["launches"].get(k, 0) + n for k, n in launches.items()}
+        if not torch.equal(got, eager.render(src)):
+            raise AssertionError(f"the {tier}-pose request: graphed frames differ from eager")
+        walls = _walls(lambda: eager.render(src), lambda: graph.render(src), 10)
+        device = {k: _device_ms(clock, lambda s=svc: s.render(src), min(walls[k]), 10,
+                                f"{k} {tier}-pose request")
+                  for k, svc in (("eager", eager), ("graph", graph))}
+        names = _replay_kernels(lambda: graph.render(src), f"one {tier}-pose replay",
+                                ("echo_scan", "trilinear_sample"))
+        _graph_line(card, f"service, {tier}-pose request (trilinear_fused + K1, {N_RAYS} x "
+                    f"{N_SAMPLES})", captures[tier], walls, device, launches, names)
+        out[tier] = {"walls": walls, "device_ms": device, "capture_s": captures[tier]}
+    # coalescing on: concurrent 1-pose requests share a padded tier's replay
+    srcs = [_sources(rng, 1).to(dev) for _ in range(8)]
+    want = [eager.render(s) for s in srcs]
+    got = [None] * 8
+
+    def request(i):
+        got[i] = coalesced.render(srcs[i])
+
+    threads = [threading.Thread(target=request, args=(i,)) for i in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    if any(t.is_alive() for t in threads) or not all(
+            torch.equal(g.to(dev), w) for g, w in zip(got, want)):
+        raise AssertionError("coalesced graphed requests differ from eager frames")
+    batches = coalesced.snapshot_stats()["batches"]
+    # 8 threads racing one graphed tier, no coalescing: each its own frames
+    racing = [[None] * 5 for _ in range(8)]
+
+    def race(i):
+        for k in range(5):
+            racing[i][k] = graph.render(srcs[i]).clone()
+
+    threads = [threading.Thread(target=race, args=(i,)) for i in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    if any(t.is_alive() for t in threads) or not all(
+            torch.equal(f, want[i]) for i in range(8) for f in racing[i]):
+        raise AssertionError("8 threads racing the 1-pose graph got frames not their own")
+    print(f"graphs [{card}]: service: warmup {warm_s:.2f} s (captures "
+          f"{ {t: round(s, 4) for t, s in captures.items()} } s); every tier's replay equal to "
+          f"eager bit for bit, no host sync inside; 8 concurrent 1-pose requests coalesced "
+          f"({batches} batches) equal to eager; 8 threads x 5 requests racing the 1-pose "
+          f"graph each got its own frames", flush=True)
+    return out
+
+
+def _graph_recovery_part(dev, vol, card: str, clock) -> dict:
+    """``recover_pose_multistart_annealed`` at STARTS x 256 x 512 for 40
+    steps, graphed and eager under deterministic algorithms: poses and
+    losses bit for bit; its step captured alone for the walls, the
+    device time, no host sync and one replay's kernels."""
+    from diffus_tpu_torch.train.pose_recovery import (
+        AnnealedPoseConfig,
+        _leaves,
+        gaussian_blur_frame,
+        make_pose_optimizer,
+        pose_step,
+        recover_pose_multistart_annealed,
+        render_pose,
+        sample_init_poses,
+        set_cosine_lr,
+    )
+    from diffus_tpu_torch.types import BeamGeometry, RenderConfig, TransducerPose
+    from diffus_tpu_torch.utils.graphs import WARMUP, Graphed
+
+    render = RenderConfig(attenuation_coeff=ATT, interp="trilinear", use_pallas=True)
+    cfg = AnnealedPoseConfig(geometry=BeamGeometry(N_RAYS, N_SAMPLES), render=render,
+                             phases=GRAPH_PHASES)
+    steps = sum(p[3] for p in GRAPH_PHASES)
+    with torch.no_grad():
+        target = render_pose(vol, TransducerPose.create(APEX, device=dev), cfg.as_base())
+    init = sample_init_poses(torch.Generator(device=dev).manual_seed(RECOVERY_SEED), APEX,
+                             RADIUS, ROT_SCALE, STARTS)
+    runs, run_s = {}, {"eager": [], "graph": []}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for kind in ("eager", "graph", "graph", "eager"):
+            _counts_reset()
+            t0 = time.perf_counter()
+            runs[kind] = recover_pose_multistart_annealed(
+                vol, target, init, cfg, graphs=None if kind == "graph" else False)
+            torch.cuda.synchronize()
+            run_s[kind].append(time.perf_counter() - t0)
+            if kind == "graph":
+                launches = _replays()
+        (pg, lg, _), (pe, le, _) = runs["graph"], runs["eager"]
+        if not (torch.equal(lg, le) and torch.equal(pg.position, pe.position)
+                and torch.equal(pg.rotvec, pe.rotvec)):
+            raise AssertionError(f"recovery: the graphed descent differs from the eager one: "
+                                 f"losses max abs {float((lg - le).abs().max()):.3e}")
+        want = steps - len(GRAPH_PHASES) * WARMUP   # a phase's first steps run eagerly
+        if any(launches[k] != want for k in ("echo_scan", "trilinear_sample", "echo_scan_bwd",
+                                             "trilinear_bwd")) or launches["trilinear_idx"]:
+            raise AssertionError(f"recovery: launches through replays {launches}, expected "
+                                 f"{want} each of K1, K2 (no idx), K1b, K2b")
+        # the first phase's step, captured alone, as the loop captures it
+        sigma, lr_pos, lr_rot, phase_steps = GRAPH_PHASES[0]
+        target_b = gaussian_blur_frame(target, sigma)
+
+        def stepper():
+            pose = _leaves(init, dev)
+            opt = make_pose_optimizer(pose, lr_pos, lr_rot)
+            set_cosine_lr(opt, (lr_pos, lr_rot), 0, phase_steps)
+            return lambda: pose_step(vol, target_b, pose, opt, cfg.as_base(), sigma)
+
+        eager_step, graph_step = stepper(), Graphed(stepper(), name="recovery step")
+        while not graph_step.captured:
+            graph_step()
+        _no_sync(graph_step, "the recovery step")
+        walls = _walls(eager_step, graph_step, 10)
+        device = {k: _device_ms(clock, fn, min(walls[k]), 10, f"{k} recovery step")
+                  for k, fn in (("eager", eager_step), ("graph", graph_step))}
+        names = _replay_kernels(graph_step, "one recovery step replay",
+                                tuple(GRAPH_KERNEL_NAMES))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    _graph_line(card, f"recovery step ({STARTS} starts, {N_RAYS} x {N_SAMPLES}, sigma "
+                f"{sigma:g})", graph_step.capture_s, walls, device, launches, names)
+    print(f"graphs [{card}]: recover_pose_multistart_annealed, {STARTS} starts x {steps} steps "
+          f"{GRAPH_PHASES}: graphed equal to eager bit for bit (poses and losses, "
+          f"deterministic algorithms); the whole run's seconds, eager / graph / graph / eager: "
+          + " / ".join(f"{s:.3f}" for s in (run_s["eager"][0], *run_s["graph"],
+                                            run_s["eager"][1]))
+          + f" (each graphed phase: {WARMUP} eager steps, a capture, replays)",
+          flush=True)
+    return {"launches": launches, "walls": walls, "device_ms": device,
+            "capture_s": graph_step.capture_s, "run_s": run_s}
+
+
+def _graph_training_part(dev, vol, card: str, clock) -> dict:
+    """``train_impedance_scan`` at ``ImpedanceTrainConfig()``'s defaults (phase
+    7's inputs, K1 and K2) for GRAPH_EPOCHS epochs, graphed and eager under
+    deterministic algorithms: losses and weights bit for bit; its step
+    captured alone for the walls, the device time, no host sync and one
+    replay's kernels; the card's capturable Adam against plain Adam."""
+    from diffus_tpu_torch.impedance.mlp import init_params
+    from diffus_tpu_torch.train import make_optimizer, train_impedance_scan, train_step
+    from diffus_tpu_torch.train.impedance_train import make_train_step
+    from diffus_tpu_torch.utils.graphs import WARMUP
+
+    cfg, t1, src, dirs, target = _training_inputs(dev, vol)
+    cfg = dataclasses.replace(cfg, epochs=GRAPH_EPOCHS)
+    us_norm, mask = _normalized(target)
+    args = (t1, us_norm, mask)
+    runs, run_s = {}, {"eager": [], "graph": []}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for kind in ("eager", "graph", "graph", "eager"):
+            model = init_params(torch.Generator().manual_seed(TRAIN_SEED), cfg.hidden, dev)
+            _counts_reset()
+            t0 = time.perf_counter()
+            _, losses = train_impedance_scan(model, *args, src, dirs, cfg,
+                                             graphs=None if kind == "graph" else False)
+            torch.cuda.synchronize()
+            run_s[kind].append(time.perf_counter() - t0)
+            runs[kind] = (losses, [p.detach().clone() for p in model.parameters()])
+            if kind == "graph":
+                launches = _replays()
+        (lg, pg), (le, pe) = runs["graph"], runs["eager"]
+        if not (torch.equal(lg, le) and all(torch.equal(a, b) for a, b in zip(pg, pe))):
+            raise AssertionError(f"training: the graphed run differs from the eager one: "
+                                 f"losses {lg.tolist()} vs {le.tolist()}")
+        want = GRAPH_EPOCHS - WARMUP
+        if any(launches[k] != want for k in ("echo_scan", "trilinear_sample", "trilinear_idx",
+                                             "echo_scan_bwd", "trilinear_bwd")):
+            raise AssertionError(f"training: launches through replays {launches}, expected "
+                                 f"{want} each of K1, K2 (with idx), K1b, K2b")
+        eager_model = init_params(torch.Generator().manual_seed(TRAIN_SEED), cfg.hidden, dev)
+        graph_model = init_params(torch.Generator().manual_seed(TRAIN_SEED), cfg.hidden, dev)
+        eager_opt = make_optimizer(eager_model, cfg)
+        graph_step = make_train_step(graph_model, make_optimizer(graph_model, cfg), *args, dirs,
+                                     cfg)
+        while not graph_step.captured:
+            graph_step(src)
+        _no_sync(lambda: graph_step(src), "the training step")
+        walls = _walls(lambda: train_step(eager_model, eager_opt, *args, src, dirs, cfg),
+                       lambda: graph_step(src), 10)
+        device = {"eager": _device_ms(clock, lambda: train_step(eager_model, eager_opt, *args,
+                                                                src, dirs, cfg),
+                                      min(walls["eager"]), 10, "eager training step"),
+                  "graph": _device_ms(clock, lambda: graph_step(src), min(walls["graph"]), 10,
+                                      "graphed training step")}
+        names = _replay_kernels(lambda: graph_step(src), "one training step replay",
+                                tuple(GRAPH_KERNEL_NAMES))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    _graph_line(card, f"training step (ImpedanceTrainConfig(), {N_RAYS} x {cfg.num_samples}, "
+                f"SSIM)", graph_step.capture_s, walls, device, launches, names)
+    print(f"graphs [{card}]: train_impedance_scan, {GRAPH_EPOCHS} epochs: graphed equal to "
+          f"eager bit for bit (losses and weights, deterministic algorithms); the whole run's "
+          f"seconds, eager / graph / graph / eager: "
+          + " / ".join(f"{s:.3f}" for s in (run_s["eager"][0], *run_s["graph"],
+                                            run_s["eager"][1])), flush=True)
+    # the card's Adam (capturable: its bias correction and step size formed on
+    # the device from float64 step counts) against plain Adam on the same
+    # gradients: one step's update.  Capturable Adam's own float32 counts read
+    # 1.19e-05 here, float64 counts 2.98e-06.
+    model = init_params(torch.Generator().manual_seed(TRAIN_SEED), cfg.hidden, dev)
+    twin = copy.deepcopy(model)
+    cap, plain = make_optimizer(model, cfg), torch.optim.Adam(twin.parameters(), lr=cfg.lr)
+    grads = _param_grads(copy.deepcopy(model), *args, src, dirs, cfg)
+    worst = 0.0
+    for opt, m in ((cap, model), (plain, twin)):
+        for name, p in m.named_parameters():
+            p.grad = grads[name].to(dev, p.dtype)
+        opt.step()
+    for p, q, p0 in zip(model.parameters(), twin.parameters(),
+                        init_params(torch.Generator().manual_seed(TRAIN_SEED), cfg.hidden,
+                                    dev).parameters()):
+        d_cap, d_plain = p.detach() - p0.detach(), q.detach() - p0.detach()
+        scale = float(d_plain.abs().max())
+        if scale > 0:
+            worst = max(worst, float((d_cap - d_plain).abs().max()) / scale)
+    if not worst <= ADAM_LIMIT:
+        raise AssertionError(f"capturable Adam's first update is {worst:.3e} of the update from "
+                             f"plain Adam's")
+    print(f"graphs [{card}]: capturable Adam's first update vs plain Adam's on the same "
+          f"gradients: max abs difference {worst:.3e} of the largest update (limit "
+          f"{ADAM_LIMIT:g})",
+          flush=True)
+    return {"launches": launches, "walls": walls, "device_ms": device,
+            "capture_s": graph_step.capture_s, "run_s": run_s, "adam_vs_plain": worst}
+
+
+def _graphs_subprocess(card: str) -> dict:
+    """Phase 16 (:func:`_graphs_phase`) in a process of its own,
+    ``chip_smoke.py --graphs``: in the whole script's process, after the
+    earlier phases' profiler traces, a trace of the training step's replay
+    lacked some of its kernels three times over (K2's among them; the
+    replay's output equal to eager, so K2 ran), where a new process's
+    trace holds them all.  Prints the phase's lines; returns its
+    ``graph_launches``."""
+    proc = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--graphs"],
+                          cwd=ROOT, capture_output=True, text=True, timeout=900)
+    lines = proc.stdout.splitlines()
+    launches = [line for line in lines if line.startswith("graph_launches ")]
+    if proc.returncode != 0 or len(launches) != 1:
+        raise AssertionError(f"chip_smoke.py --graphs: exit {proc.returncode}\n"
+                             f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    for line in lines:
+        if line.startswith("graphs ["):
+            print(line, flush=True)
+    return {"graph_launches": json.loads(launches[0].split(" ", 1)[1])}
+
+
+def _graphs_phase(dev, vol, card: str) -> dict:
+    """Phase 16: the service's tiers, a recovery and a training run as
+    captured CUDA graphs against the same code run eagerly.  Returns each
+    kernel's launches through replays over the phase."""
+    from bench_torch import Clock
+
+    clock = Clock(dev)
+    parts = {"service": _graph_service_part(dev, vol, card, clock),
+             "recovery": _graph_recovery_part(dev, vol, card, clock),
+             "training": _graph_training_part(dev, vol, card, clock)}
+    totals = {k: sum(p["launches"][k] for p in parts.values())
+              for k in ("echo_scan", "trilinear_sample", "echo_scan_bwd", "trilinear_bwd",
+                        "gather_probe")}
+    return {"graph_launches": totals, **parts}
+
+
 def _phase4_service(dev):
     """``(volume, service)``: phase 4's service on the 256^3 phantom, nothing
     rendered yet; ``coalesce=False``: phases 4-5 time a request's render path
@@ -3948,6 +4402,8 @@ def main(argv=None) -> int:
                         help="full_pipeline's stages 4 and 5 at every candidate size, three ways")
     parser.add_argument("--probe", action="store_true",
                         help="only phase 6: K3 against float64, beside its earlier design")
+    parser.add_argument("--graphs", action="store_true",
+                        help="only phase 16: the hot paths as captured CUDA graphs against eager")
     parser.add_argument("--entry-points", action="store_true",
                         help="only phase 15: the entry points that name interp='trilinear', "
                              "each also timed on the parent's route")
@@ -4000,6 +4456,10 @@ def main(argv=None) -> int:
         return 0
     if args.entry_points:
         _entry_points_phase(dev, card, study=True)
+        return 0
+    if args.graphs:
+        graphed = _graphs_phase(dev, _phase4_service(dev)[0], card)
+        print("graph_launches " + json.dumps(graphed["graph_launches"]), flush=True)
         return 0
 
     import torch.nn.functional as F
@@ -4314,6 +4774,11 @@ def main(argv=None) -> int:
     entry = _entry_points_phase(dev, card)
     print(f"times [{card}]: phase 15 {time.perf_counter() - t0:.2f} s", flush=True)
 
+    # -- 16. the hot paths as captured CUDA graphs against eager, a new process --------
+    t0 = time.perf_counter()
+    graphed = _graphs_subprocess(card)
+    print(f"times [{card}]: phase 16 {time.perf_counter() - t0:.2f} s", flush=True)
+
     kernels = [
         {"name": "echo_scan", "route": "cuda", "source": "diffus_tpu_torch/csrc/echo_scan.cu",
          "replaces": "diffus_tpu/kernels/propagation_pallas.py:45",
@@ -4381,6 +4846,8 @@ def main(argv=None) -> int:
         k["examples_launches"] = examples["launches"][k["name"]]
         k["bench_launches"] = benches["launches"][k["name"]]
         k["entry_launches"] = entry["launches"][k["name"]]
+    for k in kernels:
+        k["graph_launches"] = graphed["graph_launches"][k["name"]]
     kernels[2]["mesh_launches"] = meshed["launches"]["gather_probe"]
     kernels[2]["bench_launches"] = benches["launches"]["gather_probe"]
     kernels[2]["entry_launches"] = entry["launches"]["gather_probe"]

@@ -31,6 +31,7 @@ import math
 import torch
 
 from diffus_tpu_torch.kernels import _build
+from diffus_tpu_torch.utils.graphs import count
 
 _INT32 = (-(1 << 31), (1 << 31) - 1)
 _STRIDE = 97
@@ -120,7 +121,7 @@ def _launch(off: int, table: torch.Tensor, n_rows: int, n_buf: int) -> torch.Ten
         status = lib.diffus_gather_probe(table.data_ptr(), partial.data_ptr(), out.data_ptr(),
                                          off, n_rows, table.shape[0], n_buf, grid, stream)
     _build.check(status, "gather probe")
-    gather_probe.launches += 1
+    count("gather_probe", gather_probe, "launches", stream)
     return out
 
 

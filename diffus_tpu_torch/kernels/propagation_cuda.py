@@ -49,6 +49,7 @@ from diffus_tpu_torch.ops.propagation import (
     depth_attenuation,
     echo_amplitudes,
 )
+from diffus_tpu_torch.utils.graphs import count
 
 _MODES = {"parity": 0, "symmetric": 1}
 LANES = 32          # lanes per ray of the kernel: 8, 16 or 32 (csrc/echo_scan.cu)
@@ -59,7 +60,7 @@ def echo_plain(r: torch.Tensor, mode: str = "parity", att: float = 0.5) -> torch
     return depth_attenuation(echo_amplitudes(r, mode=mode), att)
 
 
-@functools.lru_cache(maxsize=32)
+@functools.cache  # kept: a captured CUDA graph reads the tensor where it is
 def _att_table(n: int, att: float, device: torch.device) -> torch.Tensor:
     """``att_j`` for ``j = 0..n``: ``att_0 = 1``, ``att_{j+1} = att_j * decay``
     in f32 with ``decay = f32(exp(-att))`` (``propagation_pallas.py:56,79``).
@@ -172,7 +173,7 @@ def _compose(s, o):
              tc * ga + td * gc + hc, tc * gb + td * gd + hd))
 
 
-@functools.lru_cache(maxsize=32)
+@functools.cache  # kept: a captured CUDA graph reads the tensor where it is
 def _exp_table(n: int, att: float, device: torch.device) -> torch.Tensor:
     """``exp(-att j)`` for ``j = 0..n`` in float64: the attenuation factors
     of ``depth_attenuation``, whose VJP K1b takes (the forward's f32 table
@@ -388,7 +389,7 @@ def _launch(r: torch.Tensor, mode: str, att: float, lanes: int = LANES) -> torch
         status = lib.diffus_echo_scan(rows.data_ptr(), table.data_ptr(), out.data_ptr(), n, b,
                                       _MODES[mode], lanes, stream)
     _build.check(status, "echo scan")
-    echo_fused.launches += 1
+    count("echo_scan", echo_fused, "launches", stream)
     return out.reshape(r.shape[:-1] + (n + 1,))
 
 
@@ -418,7 +419,7 @@ def _launch_bwd(r: torch.Tensor, grad: torch.Tensor, mode: str, att: float,
         status = lib.diffus_echo_scan_bwd(rows.data_ptr(), g.data_ptr(), table.data_ptr(),
                                           dr.data_ptr(), n, b, _MODES[mode], threads, stream)
     _build.check(status, "echo scan backward")
-    echo_fused.bwd_launches += 1
+    count("echo_scan_bwd", echo_fused, "bwd_launches", stream)
     return dr.reshape(r.shape)
 
 

@@ -52,6 +52,7 @@ import torch.nn.functional as F
 
 from diffus_tpu_torch.kernels import _build
 from diffus_tpu_torch.ops.sampling import march_trilinear, sample_trilinear
+from diffus_tpu_torch.utils.graphs import count
 
 _INT32_MAX = 2**31 - 1
 
@@ -95,7 +96,7 @@ def _launch(volume: torch.Tensor, points: torch.Tensor):
             n, d, h, w, stream,
         )
     _build.check(status, "trilinear sample")
-    sample_trilinear_fused.launches += 1
+    count("trilinear_points", sample_trilinear_fused, "launches", stream)
     lead = points.shape[:-1]
     return idx.reshape(lead + (3,)), values.reshape(lead)
 
@@ -146,8 +147,8 @@ def _launch_march(volume: torch.Tensor, source: torch.Tensor, directions: torch.
             stream,
         )
     _build.check(status, "trilinear march")
-    march_trilinear_fused.launches += 1
-    march_trilinear_fused.idx_launches += int(with_idx)
+    count("trilinear_sample", march_trilinear_fused, "launches", stream)
+    count("trilinear_idx", march_trilinear_fused, "idx_launches", stream, int(with_idx))
     return idx, values
 
 
@@ -331,9 +332,10 @@ def _launch_march_bwd(volume: torch.Tensor, source: torch.Tensor, directions: to
             _fixed_point_base(g.numel()), ptr(dsrc_pose), ptr(ddir_pose), ptr(dsrc_sum),
             ptr(ddir_sum), ptr(ray_src), stream)
     _build.check(status, "trilinear march backward")
-    march_trilinear_fused.bwd_launches += 1
-    march_trilinear_fused.bwd_volume_launches += int(need_v)
-    march_trilinear_fused.bwd_points_launches += int(need_s or need_d)
+    k2 = march_trilinear_fused
+    count("trilinear_bwd", k2, "bwd_launches", stream)
+    count("trilinear_bwd_volume", k2, "bwd_volume_launches", stream, int(need_v))
+    count("trilinear_bwd_points", k2, "bwd_points_launches", stream, int(need_s or need_d))
     dsrc = _as_input(dsrc_sum if sum_src else dsrc_pose, source.shape, lead) if need_s else None
     ddir = (_as_input(ddir_sum if sum_dirs else ddir_pose, directions.shape, lead) if need_d
             else None)

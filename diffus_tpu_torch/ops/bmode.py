@@ -8,6 +8,8 @@ vmapped ``render_sweep`` computes it.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -21,11 +23,11 @@ def _frame_min(x: torch.Tensor) -> torch.Tensor:
     return torch.amin(x, dim=tuple(range(-min(2, x.dim()), 0)), keepdim=True)
 
 
-def hilbert_envelope(rf: torch.Tensor) -> torch.Tensor:
-    """|analytic signal| along the last (depth) axis, ``scipy.signal.hilbert``
-    semantics: FFT, positive frequencies doubled (scipy's ``h`` for even and
-    odd lengths), inverse FFT (``bmode.py:19-33``)."""
-    n = rf.shape[-1]
+@functools.cache  # kept: a captured CUDA graph reads the tensor where it is
+def _hilbert_weights(n: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """scipy's ``h`` for length ``n`` on ``device``, made once per key: a
+    copy from pageable host memory waits for the card, and a captured CUDA
+    graph may not wait."""
     h = np.zeros(n)
     if n % 2 == 0:
         h[0] = h[n // 2] = 1.0
@@ -33,9 +35,20 @@ def hilbert_envelope(rf: torch.Tensor) -> torch.Tensor:
     else:
         h[0] = 1.0
         h[1:(n + 1) // 2] = 2.0
+    with torch.inference_mode(False):
+        out = torch.as_tensor(h, dtype=dtype, device=device)
+    if out.is_cuda:
+        torch.cuda.current_stream(device).synchronize()
+    return out
+
+
+def hilbert_envelope(rf: torch.Tensor) -> torch.Tensor:
+    """|analytic signal| along the last (depth) axis, ``scipy.signal.hilbert``
+    semantics: FFT, positive frequencies doubled (scipy's ``h`` for even and
+    odd lengths), inverse FFT (``bmode.py:19-33``)."""
     spec = torch.fft.fft(rf, dim=-1)
-    return torch.abs(torch.fft.ifft(spec * torch.as_tensor(h, dtype=rf.dtype,
-                                                              device=rf.device), dim=-1))
+    h = _hilbert_weights(rf.shape[-1], rf.dtype, rf.device)
+    return torch.abs(torch.fft.ifft(spec * h, dim=-1))
 
 
 def rf_to_bmode(profiles: torch.Tensor) -> torch.Tensor:

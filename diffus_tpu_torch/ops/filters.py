@@ -8,6 +8,8 @@ the artifact blurs or the pulse, in the forward or in the backward pass.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -36,6 +38,19 @@ def _shift_add(xp: torch.Tensor, taps, axis: int, n: int) -> torch.Tensor:
     return out
 
 
+@functools.cache  # kept: a captured CUDA graph reads the tensor where it is
+def _reflect_index(length: int, radius: int, device: torch.device) -> torch.Tensor:
+    """The ``'reflect'`` pad's source indices on ``device``, made once per
+    key: a copy from pageable host memory waits for the card, and a
+    captured CUDA graph may not wait."""
+    index = np.pad(np.arange(length), (radius, radius), mode="symmetric")
+    with torch.inference_mode(False):
+        out = torch.as_tensor(index, device=device)
+    if out.is_cuda:
+        torch.cuda.current_stream(device).synchronize()
+    return out
+
+
 def correlate1d(x: torch.Tensor, kernel, axis: int, mode: str = "reflect") -> torch.Tensor:
     """1D correlation along ``axis`` with a fixed kernel.
 
@@ -52,8 +67,7 @@ def correlate1d(x: torch.Tensor, kernel, axis: int, mode: str = "reflect") -> to
         xp = x
         n = length - size + 1
     elif mode == "reflect":
-        index = np.pad(np.arange(length), (radius, radius), mode="symmetric")
-        xp = torch.index_select(x, axis, torch.as_tensor(index, device=x.device))
+        xp = torch.index_select(x, axis, _reflect_index(length, radius, x.device))
         n = length
     elif mode == "zero":
         pad_shape = list(x.shape)

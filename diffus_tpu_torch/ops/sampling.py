@@ -40,7 +40,7 @@ def ray_points(source: torch.Tensor, directions: torch.Tensor, num_samples: int,
     return source[..., None, None, :] + steps[:, None] * directions[..., :, None, :]
 
 
-@functools.lru_cache(maxsize=64)
+@functools.cache  # kept: a captured CUDA graph reads the tensor where it is
 def _bounds(shape: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     """``shape - 1`` as a ``dtype`` tensor on ``device``, the clamp's upper
     bounds, made once per key: a copy from pageable host memory waits for

@@ -307,8 +307,9 @@ def sharded_recover_pose_multistart(mesh: Mesh, volume, target_frame,
     rot = place(_pad_axis(_f32(init_poses.rotvec, vol.device), 0, mesh.size), every)
     volumes = replicate(vol, mesh)
     targets = replicate(_f32(target_frame, vol.device), mesh)
+    # eager, as the rest of the mesh runs (no CUDA graph per device)
     runs = [recover_pose_multistart(volumes[d], targets[d], TransducerPose(pos[ij], rot[ij]),
-                                    cfg) for ij, d in np.ndenumerate(mesh.devices)]
+                                    cfg, graphs=False) for ij, d in np.ndenumerate(mesh.devices)]
     first = mesh.first
     position = torch.cat([p.position.to(first) for p, _, _ in runs])[:batch]
     rotvec = torch.cat([p.rotvec.to(first) for p, _, _ in runs])[:batch]

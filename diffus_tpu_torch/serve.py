@@ -16,6 +16,10 @@ placement-aware tile tables (``_prepare``, ``:329-449``) answer a TPU
 question, and ``scenes()`` reports ``"staged": "raw"`` for each.  With a
 device mesh (``mesh=``) a request's poses split over the mesh's ``pose``
 axis and its rays over ``ray`` (:mod:`diffus_tpu_torch.parallel`).
+
+On the card each scene's tier function is a captured CUDA graph, the JAX
+service's jitted ``render_sweep`` per tier (:mod:`diffus_tpu_torch.utils.graphs`);
+the meshed service runs eagerly.
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ from diffus_tpu_torch.train.pose_recovery import (
     sample_init_poses,
 )
 from diffus_tpu_torch.types import BeamGeometry, RenderConfig, TransducerPose
+from diffus_tpu_torch.utils.graphs import Graphed, Pool, use_graphs
 
 
 class _Pending:
@@ -67,7 +72,13 @@ class _Scene:
     scene, the crop's offset on the device, its box in the original volume
     and the original shape (clients keep original coordinates).  A meshed
     service also keeps ``replicas``, the volume on each distinct device of
-    the mesh, staged once with the scene."""
+    the mesh, staged once with the scene.  A graphed service keeps the
+    scene's captured tier functions in ``graphs`` (tier -> ``Graphed``):
+    they read this volume, so they go with the scene when it is swapped or
+    removed, and a render queued against it keeps them.  They share one
+    ``graph_pool`` (:class:`~diffus_tpu_torch.utils.graphs.Pool`): a scene
+    holds about its largest tier's intermediates, not their sum, and one
+    of its tiers replays at a time."""
 
     volume: torch.Tensor
     replicas: dict | None = None
@@ -75,6 +86,8 @@ class _Scene:
     crop_slices: tuple | None = None
     crop_margin: int = 16
     orig_shape: tuple = ()
+    graphs: dict = dataclasses.field(default_factory=dict, repr=False)
+    graph_pool: Pool | None = dataclasses.field(default=None, repr=False)
 
 
 class RendererService:
@@ -94,6 +107,13 @@ class RendererService:
     ``device`` defaults to the card (``"cuda"``); where there is none the
     service raises rather than serve on the CPU, which takes
     ``device="cpu"``.
+
+    ``graphs`` (:func:`~diffus_tpu_torch.utils.graphs.use_graphs`): None
+    renders each scene's tiers as captured CUDA graphs on the card
+    (:meth:`warmup` captures them; a tier not yet captured is captured at
+    its first use) and eagerly on the CPU; False renders eagerly on the
+    card, the graphs' reference; True on the CPU raises.  Recoveries run
+    the same way.  A meshed service runs eagerly.
 
     ``mesh`` (:func:`~diffus_tpu_torch.parallel.make_mesh`) serves over a
     (pose, ray) device mesh: each request's padded tier splits its poses
@@ -147,6 +167,7 @@ class RendererService:
         window_bounds_s: tuple = (0.0005, 0.008),
         crop: bool = False,
         crop_margin: int = 16,
+        graphs: bool | None = None,
     ):
         self.geometry = geometry
         self.config = config
@@ -161,6 +182,9 @@ class RendererService:
         self.directions = fan_directions_2d(
             median_direction, geometry.opening_angle, geometry.n_rays, device=self.device)
         self._mesh = mesh
+        if mesh is not None and graphs:
+            raise ValueError("the meshed service runs eagerly: pass graphs=None or False")
+        self._graphs = mesh is None and use_graphs(graphs, self.device)
         if mesh is not None:
             ray_m = mesh.shape.get("ray", 1)
             if geometry.n_rays % ray_m and (
@@ -204,7 +228,8 @@ class RendererService:
             from diffus_tpu_torch.parallel import replicate
 
             replicas = replicate(volume, self._mesh)
-        return _Scene(volume, replicas, **fields)
+        pool = Pool(self.device) if self._graphs else None
+        return _Scene(volume, replicas, graph_pool=pool, **fields)
 
     def _make_scene(self, volume, crop: bool, crop_margin: int) -> _Scene:
         """Stage one case, content-cropped first with ``crop`` (on the host,
@@ -280,12 +305,30 @@ class RendererService:
             from diffus_tpu_torch.parallel import sharded_sweep_frames
 
             return sharded_sweep_frames(self._mesh, sc.replicas, *args)
+        if self._graphs:
+            return self._tier_graph(sc, sources.shape[0])(sources)
         return _render(sc.volume, *args, with_idx=False)[1]
 
+    def _tier_graph(self, sc: _Scene, tier: int) -> Graphed:
+        """The scene's tier function as a :class:`Graphed`, made at its
+        first use.  It closes over the volume, the fan and the config, not
+        over the scene or the service, so that it goes with the scene."""
+        with self._lock:
+            graph = sc.graphs.get(tier)
+            if graph is None:
+                volume, args = sc.volume, (self.directions, self.geometry.num_samples,
+                                           self.config, float(self.geometry.step))
+                graph = sc.graphs[tier] = Graphed(
+                    lambda sources: _render(volume, sources, *args, with_idx=False)[1],
+                    name=f"the {tier}-pose tier", device=self.device, pool=sc.graph_pool)
+        return graph
+
     def warmup(self, scene: str | None = None) -> float:
-        """Render every batch tier once for ``scene`` (default: every
-        resident scene, one per distinct shape); builds the kernels on first
-        use.  Returns seconds spent."""
+        """Render every batch tier of ``scene`` (default: every resident
+        scene) until it is captured, on a graphed service, or once (one
+        scene per distinct shape), on an eager one; builds the kernels on
+        first use.  Returns seconds spent (:meth:`graph_captures` has the
+        captures' own)."""
         t0 = time.perf_counter()
         if scene is not None:
             items = [self._get_scene(scene)]
@@ -294,14 +337,24 @@ class RendererService:
                 items = list(self._scenes.values())
         seen = set()
         for sc in items:
-            if sc.volume.shape in seen:
+            if sc.volume.shape in seen and not self._graphs:
                 continue
             seen.add(sc.volume.shape)
             for b in self.batch_tiers:
-                self._frames(sc, torch.zeros((b, 3), device=self.device))
+                zeros = torch.zeros((b, 3), device=self.device)
+                self._frames(sc, zeros)
+                while self._graphs and not self._tier_graph(sc, b).captured:
+                    self._frames(sc, zeros)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return time.perf_counter() - t0
+
+    def graph_captures(self) -> dict:
+        """``{scene: {tier: seconds}}``: how long each resident scene's
+        captured tiers took to capture (none on an eager service)."""
+        with self._lock:
+            return {name: {tier: g.capture_s for tier, g in sc.graphs.items() if g.captured}
+                    for name, sc in self._scenes.items()}
 
     def _dispatch(self, sc: _Scene, sources) -> torch.Tensor:
         """Split into top-tier chunks, pad each up to its tier by repeating
@@ -582,7 +635,8 @@ class RendererService:
                     scene, {"requests": 0, "frames": 0, "recoveries": 0})["recoveries"] += 1
         init = sample_init_poses(torch.Generator(device=self.device).manual_seed(seed),
                                  init_position, radius, rot_scale, count)
-        poses, losses, _ = recover_pose_multistart_annealed(sc.volume, target, init, cfg)
+        poses, losses, _ = recover_pose_multistart_annealed(sc.volume, target, init, cfg,
+                                                            graphs=self._graphs)
         positions = poses.position
         if sc.offset is not None:
             positions = positions + sc.offset

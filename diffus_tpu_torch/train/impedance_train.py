@@ -11,8 +11,14 @@ card their gradients through K1b and K2b (the volume gradient summed in
 fixed point, so a step repeats bit for bit under deterministic algorithms).
 
 The JAX package jits one pure ``train_step`` and scans it over epochs.
-Here a step is eager PyTorch: :func:`train_step` updates the module and
-its ``torch.optim.Adam`` in place, and epochs are a Python loop.
+Here :func:`train_step` updates the module and its ``torch.optim.Adam`` in
+place; on the card :func:`make_train_step` captures it as a CUDA graph
+once per (module, optimizer, shapes), after its first steps run eagerly,
+and the epochs replay it (:mod:`diffus_tpu_torch.utils.graphs`).  The
+loops take ``graphs``: None is graphs on a CUDA volume and eager on the
+CPU, False runs eagerly on the card.  :func:`make_optimizer` gives a
+capturable Adam on the card (its step counts and bias correction on the
+device), which the loops use graphed or not.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ from diffus_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from diffus_tpu_torch.train.losses import masked_mse_edge_loss, ssim_loss
 from diffus_tpu_torch.train.metrics import MetricsLogger
 from diffus_tpu_torch.types import RenderConfig, _f32
+from diffus_tpu_torch.utils.graphs import adam, capture, scan, use_graphs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,8 +114,11 @@ def synth_loss(model: ImpedanceMLP, t1_volume, us_real_norm, mask, source, direc
 
 def make_optimizer(model: ImpedanceMLP, cfg: ImpedanceTrainConfig) -> torch.optim.Adam:
     """``optax.adam(cfg.lr)``'s counterpart: the same defaults (betas 0.9,
-    0.999, eps 1e-8 outside the square root, bias correction)."""
-    return torch.optim.Adam(model.parameters(), lr=cfg.lr)
+    0.999, eps 1e-8 outside the square root, bias correction).  On the
+    card it is capturable, its step counts, bias correction and step size
+    on the device (:func:`~diffus_tpu_torch.utils.graphs.adam`), so that
+    a CUDA graph can replay the update (:func:`make_train_step`)."""
+    return adam(model.parameters(), next(model.parameters()).device, cfg.lr)
 
 
 def train_step(model: ImpedanceMLP, optimizer: torch.optim.Optimizer, t1_volume, us_real_norm,
@@ -131,21 +141,45 @@ def train_step(model: ImpedanceMLP, optimizer: torch.optim.Optimizer, t1_volume,
     return loss.detach()
 
 
+def make_train_step(model: ImpedanceMLP, optimizer: torch.optim.Optimizer, t1_volume,
+                    us_real_norm, mask, directions, cfg: ImpedanceTrainConfig,
+                    graphs: bool | None = None):
+    """``jax.jit(train_step)``'s counterpart: ``step(source) -> loss``, one
+    :func:`train_step` on these tensors from the ``(3,)`` apex ``source``.
+    Where ``graphs`` resolves to graphs (:func:`~diffus_tpu_torch.utils.graphs.use_graphs`)
+    it is a :class:`~diffus_tpu_torch.utils.graphs.Graphed`: its first
+    steps run eagerly, then the step is captured once, with the source a
+    static input, and replayed for every later call."""
+    device = t1_volume.device
+    graphed = use_graphs(graphs, device)
+    if graphed and not all(group["capturable"] for group in optimizer.param_groups):
+        raise ValueError("a captured train_step replays the optimizer's update, which needs "
+                         "torch.optim.Adam(..., capturable=True), as make_optimizer gives on "
+                         "the card")
+
+    def step(source):
+        return train_step(model, optimizer, t1_volume, us_real_norm, mask, source, directions,
+                          cfg)
+
+    return capture(step, graphed, "train_step", device)
+
+
+def _losses(t1_volume: torch.Tensor, steps: int) -> torch.Tensor:
+    return t1_volume.new_empty((steps,))
+
+
 def train_impedance_scan(model: ImpedanceMLP, t1_volume, us_real_norm, mask, source,
-                         directions, cfg: ImpedanceTrainConfig):
-    """``cfg.epochs`` Adam steps from a fresh optimizer.
+                         directions, cfg: ImpedanceTrainConfig, graphs: bool | None = None):
+    """``cfg.epochs`` Adam steps from a fresh optimizer, replays of one
+    captured step per ``graphs`` (:func:`make_train_step`).
 
     Returns ``(model, losses)``: the module, trained in place, and the
     ``(epochs,)`` losses, each taken before its step.
     """
     optimizer = make_optimizer(model, cfg)
-    losses = [train_step(model, optimizer, t1_volume, us_real_norm, mask, source, directions,
-                         cfg) for _ in range(cfg.epochs)]
-    return model, _stack(losses, t1_volume.device)
-
-
-def _stack(losses, device) -> torch.Tensor:
-    return torch.stack(losses) if losses else torch.zeros((0,), device=device)
+    step = make_train_step(model, optimizer, t1_volume, us_real_norm, mask, directions, cfg,
+                           graphs)
+    return model, scan(step, _losses(t1_volume, cfg.epochs), inputs=(source,))
 
 
 def _inputs(t1_volume, us_real, mask, source, directions):
@@ -163,10 +197,11 @@ def _inputs(t1_volume, us_real, mask, source, directions):
 
 def train_impedance(generator: torch.Generator, t1_volume, us_real, source, directions,
                     cfg: ImpedanceTrainConfig = ImpedanceTrainConfig(), mask=None,
-                    pretrain_table: bool = False):
+                    pretrain_table: bool = False, graphs: bool | None = None):
     """Init the MLP from ``generator`` (or, with ``pretrain_table``, fit it
     to the tissue table first: 1000 Adam steps at lr 0.01, the reference's
-    warm start), min-max normalize the target, and train for ``cfg.epochs``.
+    warm start), min-max normalize the target, and train for ``cfg.epochs``
+    (:func:`train_impedance_scan`, with ``graphs``).
 
     ``us_real`` is the target image (``cfg.image_shape``), raw.  Training
     runs on the volume's device.  Returns ``(model, losses)``.
@@ -179,18 +214,38 @@ def train_impedance(generator: torch.Generator, t1_volume, us_real, source, dire
                                  device=t1.device)
     else:
         model = init_params(generator, cfg.hidden, t1.device)
-    return train_impedance_scan(model, t1, us_norm, mask, source, directions, cfg)
+    return train_impedance_scan(model, t1, us_norm, mask, source, directions, cfg, graphs)
+
+
+def load_optimizer_state(optimizer: torch.optim.Optimizer, state: dict) -> None:
+    """Load a saved Adam state into ``optimizer`` whichever device saved it.
+    ``load_state_dict`` takes the saved groups' settings, so the
+    optimizer's own ``capturable`` is put back, and each step count goes
+    where that setting keeps it: in float64 on the parameter's device when
+    capturable (the card, :func:`~diffus_tpu_torch.utils.graphs.capturable_adam`),
+    else in float32 on the CPU, as a fresh Adam keeps them."""
+    capturable = [group["capturable"] for group in optimizer.param_groups]
+    optimizer.load_state_dict(state)
+    for group, cap in zip(optimizer.param_groups, capturable):
+        group["capturable"] = cap
+        for p in group["params"]:
+            st = optimizer.state.get(p, {})
+            if "step" in st:
+                st["step"] = (st["step"].to(p.device, torch.float64) if cap
+                              else st["step"].to("cpu", torch.float32))
 
 
 def train_impedance_checkpointed(generator: torch.Generator, t1_volume, us_real, source,
                                  directions, cfg: ImpedanceTrainConfig, checkpoint_dir: str,
                                  chunk: int = 10, mask=None,
-                                 metrics_path: Optional[str] = None):
+                                 metrics_path: Optional[str] = None,
+                                 graphs: bool | None = None):
     """Training in chunks of ``chunk`` steps, with a checkpoint
     (``checkpoint_dir/latest``: module, optimizer state, step) and a JSONL
     metrics record after each chunk.  Started again with the same
-    ``checkpoint_dir``, it resumes from the last checkpoint and runs only
-    the steps left to ``cfg.epochs``.
+    ``checkpoint_dir``, it resumes from the last checkpoint (saved on
+    either device) and runs only the steps left to ``cfg.epochs``.  Every
+    chunk replays one captured step per ``graphs`` (:func:`make_train_step`).
 
     Returns ``(model, losses)``, the losses of the steps this call ran.
     """
@@ -201,18 +256,17 @@ def train_impedance_checkpointed(generator: torch.Generator, t1_volume, us_real,
     ckpt_path = os.path.join(checkpoint_dir, "latest")
     done = 0
     if os.path.exists(ckpt_path):
-        # the optimizer's step counts stay on the CPU, as a fresh Adam keeps them
         state = load_checkpoint(ckpt_path, map_location="cpu")
         model.load_state_dict(state["params"])
-        optimizer.load_state_dict(state["opt_state"])
+        load_optimizer_state(optimizer, state["opt_state"])
         done = int(state["step"])
 
+    step = make_train_step(model, optimizer, t1, us_norm, mask, directions, cfg, graphs)
     losses = []
     with MetricsLogger(metrics_path) as log:
         while done < cfg.epochs:
             n = min(chunk, cfg.epochs - done)
-            chunk_losses = _stack([train_step(model, optimizer, t1, us_norm, mask, source,
-                                              directions, cfg) for _ in range(n)], t1.device)
+            chunk_losses = scan(step, _losses(t1, n), inputs=(source,))
             losses.append(chunk_losses)
             done += n
             save_checkpoint(ckpt_path, {"params": model.state_dict(),

@@ -23,11 +23,25 @@ agree to ~5e-5, not to the bit).  The annealed schedule's
 position group and a rotation group whose ``lr`` is set before every
 update to ``lr 0.5 (1 + cos(pi min(t, steps) / steps))``, t = 0 at the
 first update, as optax counts.  Each phase starts a fresh Adam.
+
+On the card each descent is a captured CUDA graph, JAX's jitted
+``lax.scan``: the first steps run eagerly (they allocate Adam's state and
+fill every cache), then one :func:`pose_step` is captured per phase and
+replayed for the rest (:func:`~diffus_tpu_torch.utils.graphs.scan`).
+The loops take ``graphs`` (:func:`~diffus_tpu_torch.utils.graphs.use_graphs`:
+None is graphs on a CUDA volume, eager on the CPU; False runs eagerly on
+the card).  The loops' Adam is capturable on the card, graphed or not
+(:func:`~diffus_tpu_torch.utils.graphs.adam`: its step count, bias
+correction and step size on the device, in float64), and the annealed
+groups' ``lr`` there is a tensor that :func:`set_cosine_lr` writes before
+each step, so a replay reads the schedule's rate; on the CPU it is
+today's Adam with float rates.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import numpy as np
@@ -37,6 +51,7 @@ from torch.profiler import record_function
 from diffus_tpu_torch.geometry.fan import pose_fan_directions
 from diffus_tpu_torch.render.renderer import _render
 from diffus_tpu_torch.types import BeamGeometry, RenderConfig, TransducerPose, Volume, _f32
+from diffus_tpu_torch.utils.graphs import adam, capture, scan, use_graphs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,11 +101,6 @@ def _detached(pose: TransducerPose) -> TransducerPose:
     return TransducerPose(position=pose.position.detach(), rotvec=pose.rotvec.detach())
 
 
-def _trajectory(losses) -> torch.Tensor:
-    """Per-step losses ``[(...,)] * steps`` -> ``(..., steps)``."""
-    return torch.stack(losses, dim=-1)
-
-
 def render_pose(volume, pose: TransducerPose, cfg: PoseRecoveryConfig) -> torch.Tensor:
     """Differentiable frame ``(..., n_rays, depth)`` of a pose with
     ``(..., 3)`` leaves (``pose_recovery.py:44-50``)."""
@@ -113,16 +123,27 @@ def _edge_correlate(x: torch.Tensor, k: torch.Tensor, axis: int) -> torch.Tensor
     return (windows * k).sum(dim=-1)
 
 
+@functools.cache  # kept: a captured CUDA graph reads the tensor where it is
+def _blur_taps(sigma: float, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """The blur's taps, formed in f32 as JAX forms them, then made ``dtype``
+    on ``device`` once per key: a copy from pageable host memory waits for
+    the card, and a captured step may not wait."""
+    r = int(math.ceil(3 * sigma))
+    with torch.inference_mode(False):   # an ordinary tensor, which autograd may save
+        k = torch.exp(-0.5 * (torch.arange(-r, r + 1, dtype=torch.float32) / sigma) ** 2)
+        k = (k / torch.sum(k)).to(dtype=dtype, device=device)
+    if k.is_cuda:
+        torch.cuda.current_stream(device).synchronize()
+    return k
+
+
 def gaussian_blur_frame(frame: torch.Tensor, sigma: float) -> torch.Tensor:
     """Separable Gaussian blur of ``(..., rays, depth)`` frames, edge padded,
-    radius ``ceil(3 sigma)``, depth first, then rays (``pose_recovery.py:154-168``).
-    The taps are formed in f32, as JAX forms them."""
+    radius ``ceil(3 sigma)``, depth first, then rays (``pose_recovery.py:154-168``)."""
     sigma = float(sigma)
     if sigma <= 0:
         return frame
-    r = int(math.ceil(3 * sigma))
-    k = torch.exp(-0.5 * (torch.arange(-r, r + 1, dtype=torch.float32) / sigma) ** 2)
-    k = (k / torch.sum(k)).to(dtype=frame.dtype, device=frame.device)
+    k = _blur_taps(sigma, frame.dtype, frame.device)
     return _edge_correlate(_edge_correlate(frame, k, -1), k, -2)
 
 
@@ -134,20 +155,34 @@ def pose_loss(volume, target_blurred: torch.Tensor, pose: TransducerPose,
     return ((frame - target_blurred) ** 2).mean(dim=(-2, -1))
 
 
-def make_pose_optimizer(pose: TransducerPose, lr_pos: float,
-                        lr_rot: float) -> torch.optim.Adam:
+def make_pose_optimizer(pose: TransducerPose, lr_pos: float, lr_rot: float) -> torch.optim.Adam:
     """One Adam with a position group and a rotation group (optax's
-    ``multi_transform`` of two Adams)."""
-    return torch.optim.Adam([{"params": [pose.position], "lr": lr_pos},
-                             {"params": [pose.rotvec], "lr": lr_rot}])
+    ``multi_transform`` of two Adams), capturable on the card
+    (:func:`~diffus_tpu_torch.utils.graphs.adam`), where each group's
+    ``lr`` is a float64 0-d tensor that :func:`set_cosine_lr` writes and a
+    captured step reads: the float the schedule computes, as a float group
+    holds it."""
+    device = pose.position.device
+
+    def rate(lr):
+        if device.type != "cuda":
+            return lr
+        return torch.tensor(float(lr), dtype=torch.float64, device=device)
+
+    return adam([{"params": [pose.position], "lr": rate(lr_pos)},
+                 {"params": [pose.rotvec], "lr": rate(lr_rot)}], device)
 
 
 def set_cosine_lr(optimizer: torch.optim.Optimizer, lrs, t: int, steps: int) -> None:
     """Each group's ``lr`` for update ``t`` (from 0) of optax's
-    ``cosine_decay_schedule(lr, steps)``."""
+    ``cosine_decay_schedule(lr, steps)``; a tensor ``lr`` is written in
+    place (no host synchronisation), where a captured step reads it."""
     scale = 0.5 * (1.0 + math.cos(math.pi * min(t, steps) / steps))
     for group, lr in zip(optimizer.param_groups, lrs):
-        group["lr"] = lr * scale
+        if torch.is_tensor(group["lr"]):
+            group["lr"].fill_(lr * scale)
+        else:
+            group["lr"] = lr * scale
 
 
 def pose_step(volume, target_blurred: torch.Tensor, pose: TransducerPose,
@@ -167,25 +202,35 @@ def pose_step(volume, target_blurred: torch.Tensor, pose: TransducerPose,
     return mse.detach()
 
 
-def recover_pose(volume, target_frame, init_pose: TransducerPose, cfg: PoseRecoveryConfig):
+def _losses(pose: TransducerPose, steps: int) -> torch.Tensor:
+    """The ``(..., steps)`` buffer each step's per-start loss is written into."""
+    return pose.position.new_empty(pose.position.shape[:-1] + (steps,))
+
+
+def recover_pose(volume, target_frame, init_pose: TransducerPose, cfg: PoseRecoveryConfig,
+                 graphs: bool | None = None):
     """Adam at ``cfg.lr`` for ``cfg.steps`` from ``init_pose``, which may be a
-    batch of starts (``pose_recovery.py:53-78``).  Returns ``(pose, losses)``
-    with ``losses`` of shape ``(..., steps)``."""
+    batch of starts (``pose_recovery.py:53-78``), as a captured CUDA graph
+    per ``graphs`` (module docstring).  Returns ``(pose, losses)`` with
+    ``losses`` of shape ``(..., steps)``."""
     device = _device(volume)
+    graphed = use_graphs(graphs, device)
     pose = _leaves(init_pose, device)
     target = _f32(target_frame, device)
-    optimizer = torch.optim.Adam([pose.position, pose.rotvec], lr=cfg.lr)
-    losses = [pose_step(volume, target, pose, optimizer, cfg) for _ in range(cfg.steps)]
-    return _detached(pose), _trajectory(losses)
+    optimizer = adam([pose.position, pose.rotvec], device, cfg.lr)
+    step = capture(lambda: pose_step(volume, target, pose, optimizer, cfg), graphed,
+                   "recover_pose step", device)
+    losses = scan(step, _losses(pose, cfg.steps))
+    return _detached(pose), losses
 
 
 def recover_pose_multistart(volume, target_frame, init_poses: TransducerPose,
-                            cfg: PoseRecoveryConfig):
+                            cfg: PoseRecoveryConfig, graphs: bool | None = None):
     """:func:`recover_pose` from a batch of B starts (``(B, 3)`` leaves) as
     one batched descent (``pose_recovery.py:81-105``).  Returns
     ``(poses, losses (B, steps), best)``, ``best`` the argmin of the final
     losses."""
-    poses, losses = recover_pose(volume, target_frame, init_poses, cfg)
+    poses, losses = recover_pose(volume, target_frame, init_poses, cfg, graphs)
     return poses, losses, torch.argmin(losses[:, -1])
 
 
@@ -202,30 +247,35 @@ def sample_init_poses(generator: torch.Generator, center, radius: float, rot_sca
 
 
 def recover_pose_annealed(volume, target_frame, init_pose: TransducerPose,
-                          cfg: AnnealedPoseConfig):
+                          cfg: AnnealedPoseConfig, graphs: bool | None = None):
     """Coarse-to-fine recovery (``pose_recovery.py:171-207``): for each phase
-    a fresh two-group Adam with cosine-decayed rates on the blurred frames.
+    a fresh two-group Adam with cosine-decayed rates on the blurred frames,
+    one captured CUDA graph a phase per ``graphs`` (module docstring).
     ``init_pose`` may be a batch of starts.  Returns ``(pose, losses)`` with
     the phases' losses concatenated, ``(..., sum of steps)``."""
     device = _device(volume)
+    graphed = use_graphs(graphs, device)
     base = cfg.as_base()
     pose = _leaves(init_pose, device)
     target = _f32(target_frame, device)
-    losses = []
+    losses = _losses(pose, sum(int(p[3]) for p in cfg.phases))
+    done = 0
     for sigma, lr_pos, lr_rot, steps in cfg.phases:
         optimizer = make_pose_optimizer(pose, lr_pos, lr_rot)
         target_b = gaussian_blur_frame(target, sigma)
-        for t in range(steps):
-            set_cosine_lr(optimizer, (lr_pos, lr_rot), t, steps)
-            losses.append(pose_step(volume, target_b, pose, optimizer, base, sigma))
-    return _detached(pose), _trajectory(losses)
+        step = capture(lambda: pose_step(volume, target_b, pose, optimizer, base, sigma),
+                       graphed, f"recover_pose_annealed step (sigma {sigma:g})", device)
+        scan(step, losses[..., done:done + steps],
+             before=lambda t: set_cosine_lr(optimizer, (lr_pos, lr_rot), t, steps))
+        done += steps
+    return _detached(pose), losses
 
 
 def recover_pose_multistart_annealed(volume, target_frame, init_poses: TransducerPose,
-                                     cfg: AnnealedPoseConfig):
+                                     cfg: AnnealedPoseConfig, graphs: bool | None = None):
     """Annealed recovery from a batch of starts (``pose_recovery.py:210-220``);
     returns ``(poses, losses (B, steps), best)``."""
-    poses, losses = recover_pose_annealed(volume, target_frame, init_poses, cfg)
+    poses, losses = recover_pose_annealed(volume, target_frame, init_poses, cfg, graphs)
     return poses, losses, torch.argmin(losses[:, -1])
 
 
@@ -352,21 +402,25 @@ def pose_recovery_envelope(volume, true_pose: TransducerPose, cfg: AnnealedPoseC
 def recover_free(volume, target_frame, source0, directions0, num_samples: int,
                  render: RenderConfig = RenderConfig(attenuation_coeff=1e-4,
                                                      interp="trilinear"),
-                 lr: float = 1.0, steps: int = 100):
+                 lr: float = 1.0, steps: int = 100, graphs: bool | None = None):
     """Reference-parity recovery of free ``(source, directions)`` leaves by
-    Adam (``pose_recovery.py:443-479``).  Returns
+    Adam (``pose_recovery.py:443-479``), a captured CUDA graph per
+    ``graphs`` (module docstring).  Returns
     ``(source, directions, losses (steps,))``."""
     device = _device(volume)
+    graphed = use_graphs(graphs, device)
     source = _f32(source0, device).detach().clone().requires_grad_(True)
     directions = _f32(directions0, device).detach().clone().requires_grad_(True)
     target = _f32(target_frame, device)
-    optimizer = torch.optim.Adam([source, directions], lr=lr)
-    losses = []
-    for _ in range(steps):
+    optimizer = adam([source, directions], device, lr)
+
+    def step():
         optimizer.zero_grad(set_to_none=True)
         frame = _render(volume, source, directions, num_samples, render, with_idx=False)[1]
         loss = torch.mean((frame - target) ** 2)
         loss.backward()
         optimizer.step()
-        losses.append(loss.detach())
-    return source.detach(), directions.detach(), _trajectory(losses)
+        return loss.detach()
+
+    losses = scan(capture(step, graphed, "recover_free step", device), source.new_empty((steps,)))
+    return source.detach(), directions.detach(), losses

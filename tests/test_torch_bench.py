@@ -64,11 +64,20 @@ BENCH_REMOVED = {"target_fps", "gate_floors_fps", "jax_version", "trilinear_pall
 BENCH_ADDED = {"torch_version", "cuda_version", "launches", "launches_note", "tile_max_rel_err",
                "held_to_f64", "tile_workload_max_rel_err",
                "single_frame_latency_device_ms", "sweep_device_ms", "trilinear_device_ms",
-               "trilinear_bf16_device_ms", "train_step_device_ms", "pose_step_device_ms"}
+               "trilinear_bf16_device_ms", "train_step_device_ms", "pose_step_device_ms",
+               "graph_launches", "graph_equal", "single_frame_latency_eager_ms",
+               "single_frame_latency_eager_device_ms", "sweep_eager_ms", "sweep_eager_device_ms",
+               "trilinear_eager_ms", "trilinear_eager_device_ms", "trilinear_bf16_eager_ms",
+               "trilinear_bf16_eager_device_ms", "train_step_eager_ms",
+               "train_step_eager_device_ms", "pose_step_eager_ms", "pose_step_eager_device_ms"}
 APPS_ADDED = {"launches", "launches_note", "parity_max_rel_err", "tile_max_rel_err", "held_to_f64",
               "pass",
               "gates", "sweep_device_ms_per_pose", "train_step_device_ms",
-              "train_step_ssim_device_ms", "pose_grad_step_device_ms"}
+              "train_step_ssim_device_ms", "pose_grad_step_device_ms",
+              "graph_launches", "graph_equal", "sweep_eager_ms_per_pose",
+              "sweep_eager_device_ms_per_pose", "train_step_eager_ms", "train_step_eager_device_ms",
+              "train_step_ssim_eager_ms", "train_step_ssim_eager_device_ms",
+              "pose_grad_step_eager_ms", "pose_grad_step_eager_device_ms"}
 JAX_IMPORT = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|flax|optax|diffus_tpu)(\.|\s|$)",
                         re.MULTILINE)
 
@@ -541,3 +550,16 @@ def test_first_trilinear_call_is_as_far_from_f64_in_jax(tmp_path):
     r = simulate_rays(torch.from_numpy(vol).double(), torch.from_numpy(src[1]).double(),
                       torch.from_numpy(dirs[ray:ray + 1]).double(), 512, "trilinear_plain")[1]
     assert float(r[0, :sample].min()) < -0.99
+
+
+@pytest.mark.parametrize("which", ["bench", "apps"])
+def test_cpu_times_the_eager_path_alone(records, which):
+    """Off the card no graph is captured: the eager times beside the graphs'
+    are None, no replay launched anything, and nothing was compared."""
+    record = records[which][1]
+    graphed = bt.GRAPHED if which == "bench" else bapps.GRAPHED
+    assert set(record["graph_launches"]) == set(graphed)
+    assert all(n == 0 for counts in record["graph_launches"].values() for n in counts.values())
+    assert all(v is None for k, v in record.items() if "_eager_" in k)
+    assert all(v is None for v in record["graph_equal"].values())
+    assert record["gates"]["graph_launches"] and record["gates"]["graph_equal"]

@@ -861,3 +861,228 @@ def test_trilinear_bf16_config_renders_on_the_card(cuda):
     want = render_frame(vol.cpu(), src.cpu(), dirs.cpu(), 40, c)[3]
     assert torch.isfinite(frame).all()
     torch.testing.assert_close(frame.cpu(), want, rtol=1e-4, atol=1e-4 * float(want.abs().max()))
+
+
+# -- captured CUDA graphs (diffus_tpu_torch/utils/graphs.py) -----------------------
+
+
+_GRAPH_KERNELS = ("echo_scan", "trilinear_sample", "echo_scan_bwd", "trilinear_bwd")
+
+
+def _graph_scene(cuda):
+    from diffus_tpu_torch.types import BeamGeometry, RenderConfig
+
+    vol = torch.from_numpy(brain_phantom_3d((48, 48, 48))).to(cuda)
+    cfg = RenderConfig(attenuation_coeff=1e-4, interp="trilinear_fused", use_pallas=True)
+    return vol, BeamGeometry(16, 40), cfg
+
+
+@pytest.mark.cuda
+def test_service_tier_replay_equals_eager(cuda):
+    """A graphed service's frames equal the eager service's bit for bit; each
+    request counts one K1 and one K2 launch through the replay; no host
+    synchronisation inside a replayed request."""
+    from diffus_tpu_torch.serve import RendererService
+    from diffus_tpu_torch.utils import graphs
+
+    vol, geom, cfg = _graph_scene(cuda)
+    svc = RendererService(vol, geom, cfg, batch_tiers=(1, 4), device=cuda, coalesce=False)
+    eager = RendererService(vol, geom, cfg, batch_tiers=(1, 4), device=cuda, coalesce=False,
+                            graphs=False)
+    svc.warmup()
+    assert sorted(svc.graph_captures()["default"]) == [1, 4]
+    tiers = svc._scenes["default"].graphs
+    assert tiers[1]._pool is tiers[4]._pool is not None   # the scene's one pool
+    srcs = torch.tensor([[24.0, 2.0, 24.0], [23.5, 2.5, 24.5], [24.5, 1.5, 23.0]], device=cuda)
+    for p in (1, 3):
+        before = (echo_fused.launches, march_trilinear_fused.launches,
+                  graphs.replayed["echo_scan"])
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = svc.render(srcs[:p])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert (echo_fused.launches, march_trilinear_fused.launches,
+                graphs.replayed["echo_scan"]) == tuple(b + 1 for b in before)
+        assert torch.equal(got, eager.render(srcs[:p]))
+
+
+def _pose_problem(cuda):
+    from diffus_tpu_torch.train import pose_recovery as pr
+    from diffus_tpu_torch.types import TransducerPose
+
+    vol, geom, cfg = _graph_scene(cuda)
+    true = TransducerPose.create([24.0, 2.0, 24.0], device=cuda)
+    with torch.no_grad():
+        target = pr.render_pose(vol, true, pr.PoseRecoveryConfig(geom, cfg))
+    init = pr.sample_init_poses(torch.Generator(device=cuda).manual_seed(0),
+                                [24.0, 2.0, 24.0], 1.5, 0.03, 4)
+    return vol, target, init, pr.AnnealedPoseConfig(geom, cfg, phases=((2.0, 0.3, 0.02, 8),))
+
+
+@pytest.mark.cuda
+def test_recovery_replays_equal_eager(cuda):
+    """Five replayed steps (after the three eager warm-up steps) give the
+    eager descent's poses and losses bit for bit, and count K1, K2, K1b and
+    K2b through the replays."""
+    from diffus_tpu_torch.train import pose_recovery as pr
+    from diffus_tpu_torch.utils import graphs
+
+    vol, target, init, cfg = _pose_problem(cuda)
+    torch.use_deterministic_algorithms(True)
+    try:
+        before = graphs.replayed.copy()
+        poses, losses = pr.recover_pose_annealed(vol, target, init, cfg)
+        replayed = {k: graphs.replayed[k] - before[k] for k in _GRAPH_KERNELS}
+        e_poses, e_losses = pr.recover_pose_annealed(vol, target, init, cfg, graphs=False)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert replayed == dict.fromkeys(_GRAPH_KERNELS, 8 - graphs.WARMUP)
+    assert torch.equal(losses, e_losses)
+    assert torch.equal(poses.position, e_poses.position)
+    assert torch.equal(poses.rotvec, e_poses.rotvec)
+
+
+@pytest.mark.cuda
+def test_recovery_step_replay_has_no_host_sync(cuda):
+    from diffus_tpu_torch.train import pose_recovery as pr
+    from diffus_tpu_torch.utils import graphs
+
+    vol, target, init, cfg = _pose_problem(cuda)
+    pose = pr._leaves(init, cuda)
+    opt = pr.make_pose_optimizer(pose, 0.3, 0.02)
+    step = graphs.Graphed(lambda: pr.pose_step(vol, target, pose, opt, cfg.as_base()))
+    while not step.captured:
+        step()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pr.set_cosine_lr(opt, (0.3, 0.02), 4, 8)
+        loss = step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert loss.shape == (4,) and bool(torch.isfinite(loss).all())
+
+
+@pytest.mark.cuda
+def test_training_replays_equal_eager(cuda):
+    """Three replayed training steps give the eager run's losses and weights
+    bit for bit (deterministic algorithms: the splat's scatter-add); a
+    replayed step synchronises nothing."""
+    from diffus_tpu_torch.impedance.mlp import init_params
+    from diffus_tpu_torch.phantoms import t1_phantom_3d
+    from diffus_tpu_torch.train import ImpedanceTrainConfig, train_impedance_scan
+    from diffus_tpu_torch.train.impedance_train import make_optimizer, make_train_step
+    from diffus_tpu_torch.types import RenderConfig
+    from diffus_tpu_torch.utils import graphs
+
+    t1 = torch.from_numpy(t1_phantom_3d((24, 24, 24))).to(cuda)
+    dirs = fan_directions_2d([0.0, 1.0], np.radians(40.0), 8, device=cuda)
+    src = torch.tensor([12.0, 1.0, 12.25], device=cuda)
+    cfg = ImpedanceTrainConfig(num_samples=20, slice_index=12, image_shape=(32, 32),
+                               epochs=graphs.WARMUP + 3,
+                               render=RenderConfig(attenuation_coeff=1e-4,
+                                                   interp="trilinear_fused", use_pallas=True))
+    target = torch.rand((32, 32), generator=torch.Generator().manual_seed(0)).to(cuda)
+    mask = torch.ones_like(target, dtype=torch.bool)
+    runs = {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for graphed in (None, False):
+            model = init_params(torch.Generator().manual_seed(0), cfg.hidden, cuda)
+            before = graphs.replayed.copy()
+            _, losses = train_impedance_scan(model, t1, target, mask, src, dirs, cfg, graphed)
+            runs[graphed] = (losses, [p.detach() for p in model.parameters()],
+                             {k: graphs.replayed[k] - before[k] for k in _GRAPH_KERNELS})
+        model = init_params(torch.Generator().manual_seed(0), cfg.hidden, cuda)
+        step = make_train_step(model, make_optimizer(model, cfg), t1, target, mask, dirs, cfg)
+        while not step.captured:
+            step(src)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            step(src)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert runs[None][2] == dict.fromkeys(_GRAPH_KERNELS, 3)
+    assert runs[False][2] == dict.fromkeys(_GRAPH_KERNELS, 0)
+    assert torch.equal(runs[None][0], runs[False][0])
+    for p, q in zip(runs[None][1], runs[False][1]):
+        assert torch.equal(p, q)
+
+
+@pytest.mark.cuda
+def test_concurrent_renders_on_one_tier(cuda):
+    """Eight threads render one pose each on one graphed tier at once (no
+    coalescing): each gets its own frame, the eager service's."""
+    import threading
+
+    from diffus_tpu_torch.serve import RendererService
+
+    vol, geom, cfg = _graph_scene(cuda)
+    svc = RendererService(vol, geom, cfg, batch_tiers=(1,), device=cuda, coalesce=False)
+    eager = RendererService(vol, geom, cfg, batch_tiers=(1,), device=cuda, coalesce=False,
+                            graphs=False)
+    svc.warmup()
+    srcs = [torch.tensor([[20.0 + i, 2.0, 24.0 - 0.5 * i]], device=cuda) for i in range(8)]
+    got = [None] * 8
+
+    def render(i):
+        for _ in range(20):
+            got[i] = svc.render(srcs[i]).clone()
+
+    threads = [threading.Thread(target=render, args=(i,)) for i in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads)
+    for i in range(8):
+        assert torch.equal(got[i], eager.render(srcs[i])), i
+
+
+@pytest.mark.cuda
+def test_capturable_adam_is_close_to_plain_adam(cuda):
+    """The card's Adam (``make_optimizer`` there: capturable, its bias
+    correction and step size formed on the device from float64 step
+    counts) gives updates within 6e-6 of plain Adam's, relative to the
+    update, over five steps on the same gradients.  Capturable Adam's own
+    float32 counts put its first update 1.19e-05 away in chip_smoke.py's
+    phase 16, float64 counts 2.98e-06."""
+    from diffus_tpu_torch.impedance.mlp import init_params
+    from diffus_tpu_torch.train import ImpedanceTrainConfig, make_optimizer
+
+    model = init_params(torch.Generator().manual_seed(0), (32, 32), cuda)
+    twin = init_params(torch.Generator().manual_seed(0), (32, 32), cuda)
+    cap = make_optimizer(model, ImpedanceTrainConfig())
+    plain = torch.optim.Adam(twin.parameters(), lr=ImpedanceTrainConfig().lr)
+    assert cap.param_groups[0]["capturable"] and not plain.param_groups[0]["capturable"]
+    x = torch.linspace(-2.0, 2.0, 64, device=cuda)[:, None]
+    for _ in range(5):
+        start = [p.detach().clone() for p in model.parameters()]
+        for m, opt in ((model, cap), (twin, plain)):
+            opt.zero_grad(set_to_none=True)
+            (m(x) ** 2).mean().backward()
+        for p, q in zip(model.parameters(), twin.parameters()):
+            q.grad.copy_(p.grad)
+        cap.step()
+        plain.step()
+        for p, q, s in zip(model.parameters(), twin.parameters(), start):
+            d_cap, d_plain = p.detach() - s, q.detach() - s
+            assert float((d_cap - d_plain).abs().max()) <= 6e-6 * float(d_plain.abs().max())
+            q.data.copy_(p.data)
+
+
+@pytest.mark.cuda
+def test_a_failed_capture_raises(cuda):
+    from diffus_tpu_torch.utils import graphs
+
+    x = torch.ones(4, device=cuda)
+    step = graphs.Graphed(lambda v: v * float(v.sum()), name="syncing step")
+    for _ in range(graphs.WARMUP):
+        step(x)
+    with pytest.raises(RuntimeError, match="capturing syncing step as a CUDA graph failed"):
+        step(x)

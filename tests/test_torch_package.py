@@ -36,7 +36,8 @@ MODULES = [
     "diffus_tpu_torch.io", "diffus_tpu_torch.io.nifti", "diffus_tpu_torch.io.native",
     "diffus_tpu_torch.io.datasets", "diffus_tpu_torch.io.pipeline", "diffus_tpu_torch.utils",
     "diffus_tpu_torch.utils.debug", "diffus_tpu_torch.utils.profiling",
-    "diffus_tpu_torch.utils.timing", "diffus_tpu_torch.viz", "diffus_tpu_torch.viz.plots",
+    "diffus_tpu_torch.utils.timing", "diffus_tpu_torch.utils.graphs",
+    "diffus_tpu_torch.viz", "diffus_tpu_torch.viz.plots",
     "diffus_tpu_torch.viz.video", "diffus_tpu_torch.viz.isosurface",
     "diffus_tpu_torch.viz.images", "diffus_tpu_torch.cli",
     "diffus_tpu_torch.parallel", "diffus_tpu_torch.parallel.mesh",
