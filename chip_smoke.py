@@ -2520,19 +2520,53 @@ def _serve_cli(path: str, dev, vol, card: str, work: str) -> str:
             f"--mesh-pose {n} stops: {refused.stderr.strip().splitlines()[-1]}")
 
 
+def _driver_cases(dev, vol, dirs, cfg, work: str) -> tuple:
+    """``(tcfg, cases, paths, t1_host)``: phase 12's multi-case driver
+    configuration, ``ImpedanceTrainConfig()``'s defaults with the render
+    ``cfg`` at start 110, and 4 NIfTI cases of the 256^3 T1 phantom in
+    ``work``, each an SSIM target rendered from ``vol`` at its own apex."""
+    from diffus_tpu_torch.io import save_nifti
+    from diffus_tpu_torch.ops.splat import differentiable_splat
+    from diffus_tpu_torch.phantoms import t1_phantom_3d
+    from diffus_tpu_torch.render.renderer import render_frame
+    from diffus_tpu_torch.train import CaseSpec, ImpedanceTrainConfig
+
+    tcfg = ImpedanceTrainConfig(render=dataclasses.replace(cfg, start=110))
+    t1_host = t1_phantom_3d(SHAPE)
+    offsets = ([0.0, 0.0, 0.0], [3.0, 0.0, -2.0], [-3.0, 1.0, 2.0], [2.0, -1.0, 3.0])
+    cases, paths = [], []
+    for i, off in enumerate(offsets):
+        paths.append(os.path.join(work, f"t1_{i}.nii"))
+        save_nifti(paths[-1], t1_host)
+        src = torch.tensor(APEX + off, dtype=torch.float32, device=dev)
+        x, y, _, frame = render_frame(vol, src, dirs, tcfg.num_samples, tcfg.render)
+        img = differentiable_splat(x.float(), y.float(), frame, *tcfg.image_shape,
+                                   tcfg.splat_sigma)
+        img = (img - img.min()) / (img.max() - img.min() + 1e-8)
+        cases.append(CaseSpec(t1=paths[-1], target=img.cpu().numpy(),
+                              mask=np.ones(tcfg.image_shape, bool),
+                              source=src.cpu().numpy(), directions=dirs.cpu().numpy()))
+    return tcfg, cases, paths, t1_host
+
+
+def _drive(cases, tcfg, mesh, epochs: int, **kw):
+    """``train_impedance_cases`` on ``cases``, batch 2, from TRAIN_SEED."""
+    from diffus_tpu_torch.train.driver import train_impedance_cases
+
+    return train_impedance_cases(torch.Generator().manual_seed(TRAIN_SEED), cases, tcfg,
+                                 epochs=epochs, batch_size=2, mesh=mesh, loader_threads=2, **kw)
+
+
 def _mesh_phase(dev, vol, svc, card: str) -> dict:
     """Phase 12: the (pose, ray) mesh, the meshed service, the multi-case
     driver, sharded recovery, the depth-sharded scan, tensor parallelism and
     the CLI's train-cases and mesh flags, at full width on the one card."""
     import shutil
 
-    from diffus_tpu_torch.geometry import fan_directions_2d
     from diffus_tpu_torch.impedance.mlp import init_params, train_on_table
     from diffus_tpu_torch.impedance.table import table_arrays
-    from diffus_tpu_torch.io import save_nifti
     from diffus_tpu_torch.kernels.propagation_cuda import echo_fused
     from diffus_tpu_torch.ops.propagation import echo_amplitudes
-    from diffus_tpu_torch.ops.splat import differentiable_splat
     from diffus_tpu_torch.parallel import (
         make_mesh,
         make_sharded_train_step,
@@ -2542,11 +2576,9 @@ def _mesh_phase(dev, vol, svc, card: str) -> dict:
         tp_train_on_table,
     )
     from diffus_tpu_torch.parallel.depth_scan import echo_amplitudes_depth_sharded
-    from diffus_tpu_torch.phantoms import t1_phantom_3d
     from diffus_tpu_torch.render.renderer import render_frame, render_sweep, simulate_rays
     from diffus_tpu_torch.serve import RendererService
-    from diffus_tpu_torch.train import CaseSpec, ImpedanceTrainConfig, synth_loss
-    from diffus_tpu_torch.train.driver import train_impedance_cases
+    from diffus_tpu_torch.train import synth_loss
     from diffus_tpu_torch.train.impedance_train import impedance_volume
     from diffus_tpu_torch.train.losses import masked_mse_edge_loss
     from diffus_tpu_torch.train.pose_recovery import (
@@ -2556,6 +2588,7 @@ def _mesh_phase(dev, vol, svc, card: str) -> dict:
         sample_init_poses,
     )
     from diffus_tpu_torch.types import BeamGeometry, RenderConfig, TransducerPose
+    from diffus_tpu_torch.utils import graphs
 
     rng = np.random.default_rng(12)
     totals, walls = {}, {}
@@ -2591,14 +2624,19 @@ def _mesh_phase(dev, vol, svc, card: str) -> dict:
     print("sharded_render_sweep at 256^3, 256 x 512, trilinear_fused + K1 vs render_sweep: "
           + "; ".join(report), flush=True)
     src = _sources(rng, 32).to(dev)
-    sweep_ms = {"render_sweep": _median_ms(lambda: render_sweep(vol, src, dirs, N_SAMPLES, cfg))}
-    for label, m in (("(1, 1)", one), ("(2, 4)", logical)):
-        sweep_ms[label] = _median_ms(lambda: sharded_render_sweep(m, vol, src, dirs, N_SAMPLES, cfg))
+    sweep_ms = {}
+    for graphed in (None, False):   # replays of a cached graph from the fourth call; eager
+        kind = "graphed" if graphed is None else "eager"
+        sweep_ms[f"render_sweep {kind}"] = _median_ms(
+            lambda: render_sweep(vol, src, dirs, N_SAMPLES, cfg, graphs=graphed))
+        for label, m in (("(1, 1)", one), ("(2, 4)", logical)):
+            sweep_ms[f"{label} {kind}"] = _median_ms(
+                lambda: sharded_render_sweep(m, vol, src, dirs, N_SAMPLES, cfg, graphs=graphed))
     print(f"times [{card}]: 32-pose sweep, median of 10 (host clock to a synchronize): "
           + ", ".join(f"{k} {v:.3f} ms" for k, v in sweep_ms.items()), flush=True)
     block_us = {k: _kernel_device_us(
-        lambda: sharded_render_sweep(logical, vol, src, dirs, N_SAMPLES, cfg), kernel, 5)
-        for k, kernel in (("K1", "echo_scan_kernel"), ("K2", "trilinear_march_kernel"))}
+        lambda: sharded_render_sweep(logical, vol, src, dirs, N_SAMPLES, cfg, graphs=False),
+        kernel, 5) for k, kernel in (("K1", "echo_scan_kernel"), ("K2", "trilinear_march_kernel"))}
     print(f"times [{card}]: the (2, 4) 32-pose sweep's blocks (4 poses x 64 rays), device time "
           f"per launch (profiler, 8 launches of each a sweep): K1 {block_us['K1']:.2f} us, K2 "
           f"{block_us['K2']:.2f} us", flush=True)
@@ -2625,29 +2663,13 @@ def _mesh_phase(dev, vol, svc, card: str) -> dict:
     os.makedirs(work, exist_ok=True)
     try:
         t0 = time.perf_counter()
-        tcfg = ImpedanceTrainConfig(render=dataclasses.replace(cfg, start=110))
-        t1_host = t1_phantom_3d(SHAPE)
-        offsets = ([0.0, 0.0, 0.0], [3.0, 0.0, -2.0], [-3.0, 1.0, 2.0], [2.0, -1.0, 3.0])
-        cases, paths = [], []
-        for i, off in enumerate(offsets):
-            paths.append(os.path.join(work, f"t1_{i}.nii"))
-            save_nifti(paths[-1], t1_host)
-            src = torch.tensor(APEX + off, dtype=torch.float32, device=dev)
-            x, y, _, frame = render_frame(vol, src, dirs, tcfg.num_samples, tcfg.render)
-            img = differentiable_splat(x.float(), y.float(), frame, *tcfg.image_shape,
-                                       tcfg.splat_sigma)
-            img = (img - img.min()) / (img.max() - img.min() + 1e-8)
-            cases.append(CaseSpec(t1=paths[-1], target=img.cpu().numpy(),
-                                  mask=np.ones(tcfg.image_shape, bool),
-                                  source=src.cpu().numpy(), directions=dirs.cpu().numpy()))
+        tcfg, cases, paths, t1_host = _driver_cases(dev, vol, dirs, cfg, work)
         walls["driver setup"] = time.perf_counter() - t0
         pose2 = make_mesh(2, 1, [dev] * 2)
         ckpt = os.path.join(work, "ckpt")
 
         def drive(epochs, **kw):
-            return train_impedance_cases(torch.Generator().manual_seed(TRAIN_SEED), cases, tcfg,
-                                         epochs=epochs, batch_size=2, mesh=pose2,
-                                         loader_threads=2, **kw)
+            return _drive(cases, tcfg, pose2, epochs, **kw)
 
         torch.use_deterministic_algorithms(True)
         try:
@@ -2658,9 +2680,10 @@ def _mesh_phase(dev, vol, svc, card: str) -> dict:
                                lambda: drive(1, checkpoint_dir=ckpt), bwd=True)
             _, rest = _meshed(totals, "driver resumed", True,
                               lambda: drive(2, checkpoint_dir=ckpt, resume=True), bwd=True)
-            # the same batches through the port's unsharded forward, one Adam
+            # the same batches through the port's unsharded forward, stepped by
+            # the Adam that the driver steps (the loops' own, capturable here)
             model = init_params(torch.Generator().manual_seed(TRAIN_SEED), tcfg.hidden, dev)
-            opt = torch.optim.Adam(model.parameters(), lr=tcfg.lr)
+            opt = graphs.adam(model.parameters(), dev, tcfg.lr)
             t1_dev = torch.from_numpy(t1_host).to(dev)
 
             def unsharded_step(group):
@@ -2711,14 +2734,17 @@ def _mesh_phase(dev, vol, svc, card: str) -> dict:
                                  torch.ones((2, *tcfg.image_shape), dtype=torch.bool),
                                  torch.from_numpy(np.stack([c.source for c in cases[:2]])),
                                  dirs.expand(2, -1, -1)), shard_rays=False)
-        step_ms = {"sharded (2, 1)": _median_ms(lambda: step_fn2(m2, opt2, b2), 5),
-                   "unsharded": _median_ms(lambda: unsharded_step(cases[:2]), 5)}
+        for _ in range(graphs.WARMUP + 1):   # its eager warm-up and its capture, untimed
+            step_fn2(m2, opt2, b2)
+        step_ms = {"sharded (2, 1), graphed": _median_ms(lambda: step_fn2(m2, opt2, b2), 5),
+                   "unsharded, eager": _median_ms(lambda: unsharded_step(cases[:2]), 5)}
         print(f"times [{card}]: SSIM training step of 2 scenes at full width, median of 5 (host "
               f"clock to a synchronize): " + ", ".join(f"{k} {v:.2f} ms" for k, v in
                                                        step_ms.items()), flush=True)
         print(f"driver: 4 NIfTI cases of the {SHAPE} T1 phantom, batch 2 on a (2, 1) mesh, SSIM "
               f"at ImpedanceTrainConfig()'s defaults, 2 epochs: losses {whole} "
-              f"({'equal to' if whole == want else 'within rtol 1e-6 of'} the unsharded loop); "
+              f"({'equal to' if whole == want else 'within rtol 1e-6 of'} the unsharded loop "
+              f"stepping the loops' Adam); "
               f"checkpoint at epoch 1 + resume equal to the uninterrupted run; masked_mse_edge "
               f"step on (1, 4): loss {float(l_sh):.6f} vs {float(l_ref):.6f}, gradients within "
               f"rtol 1e-4, atol 1e-6", flush=True)
@@ -4096,6 +4122,362 @@ def _graph_training_part(dev, vol, card: str, clock) -> dict:
             "capture_s": graph_step.capture_s, "run_s": run_s, "adam_vs_plain": worst}
 
 
+def _graph_path(card: str, clock, what: str, eager, graph, capture_s: float, launches: dict,
+                needed: tuple, n: int = 10) -> dict:
+    """One call of a graphed path against its eager call, after its
+    capture: no host sync in a replay, walls (eager, graph, graph, eager),
+    device ms a call, one replay's kernels holding ``needed``; prints its
+    line and returns its numbers."""
+    _no_sync(graph, what)
+    walls = _walls(eager, graph, n)
+    device = {k: _device_ms(clock, fn, min(walls[k]), n, f"{k} {what}")
+              for k, fn in (("eager", eager), ("graph", graph))}
+    names = _replay_kernels(graph, f"one replay of {what}", needed)
+    _graph_line(card, what, capture_s, walls, device, launches, names)
+    return {"walls": walls, "device_ms": device, "capture_s": capture_s, "launches": launches}
+
+
+def _run_s_text(run_s: dict) -> str:
+    return " / ".join(f"{s:.3f}" for s in (run_s["eager"][0], *run_s["graph"], run_s["eager"][1]))
+
+
+def _four_runs(run) -> tuple:
+    """``run(graphs)`` in the order eager, graph, graph, eager, each from the
+    counts at 0: ``(results by kind, seconds by kind, the graph runs'
+    launches through replays)``."""
+    results, run_s, launches = {}, {"eager": [], "graph": []}, None
+    for kind in ("eager", "graph", "graph", "eager"):
+        _counts_reset()
+        t0 = time.perf_counter()
+        results[kind] = run(None if kind == "graph" else False)
+        torch.cuda.synchronize()
+        run_s[kind].append(time.perf_counter() - t0)
+        if kind == "graph":
+            launches = _replays()
+    return results, run_s, launches
+
+
+def _want_launches(what: str, launches: dict, want: dict) -> None:
+    got = {k: launches.get(k, 0) for k in ("echo_scan", "trilinear_sample", "trilinear_idx",
+                                           "echo_scan_bwd", "trilinear_bwd", "gather_probe")}
+    expect = {k: want.get(k, 0) for k in got}
+    if got != expect:
+        raise AssertionError(f"{what}: launches through replays {got}, expected {expect}")
+
+
+def _graph_driver_part(dev, vol, card: str, clock) -> dict:
+    """``train_impedance_cases`` at phase 12's configuration (4 NIfTI cases of
+    the 256^3 T1 phantom, batch 2 on a (2, 1) mesh of the card, SSIM at
+    ``ImpedanceTrainConfig()``'s defaults, K1, K2 with idx, K1b, K2b) for 2
+    epochs, as phase 12, graphed and eager under deterministic algorithms:
+    losses and weights bit for bit; epoch 1 + a resume equal to the graphed
+    run; its step captured alone on the blocks each batch is placed into."""
+    from diffus_tpu_torch.geometry import fan_directions_2d
+    from diffus_tpu_torch.impedance.mlp import init_params
+    from diffus_tpu_torch.parallel import make_mesh, make_sharded_train_step, shard_batch
+    from diffus_tpu_torch.types import BeamGeometry, RenderConfig
+    from diffus_tpu_torch.utils.graphs import WARMUP
+
+    geom = BeamGeometry(N_RAYS, N_SAMPLES)
+    dirs = fan_directions_2d((0.0, 1.0), geom.opening_angle, N_RAYS, device=dev)
+    cfg = RenderConfig(attenuation_coeff=ATT, interp="trilinear_fused", use_pallas=True)
+    work = os.path.join(ROOT, ".scratch", f"graphs_{os.getpid()}")
+    os.makedirs(work, exist_ok=True)
+    epochs, mesh = 2, make_mesh(2, 1, [dev] * 2)
+    torch.use_deterministic_algorithms(True)
+    try:
+        tcfg, cases, _, t1_host = _driver_cases(dev, vol, dirs, cfg, work)
+        runs, run_s, launches = _four_runs(
+            lambda g: _drive(cases, tcfg, mesh, epochs, graphs=g))
+        (mg, hg), (me, he) = runs["graph"], runs["eager"]
+        if not (hg == he and all(torch.equal(a, b) for a, b in zip(mg.parameters(),
+                                                                  me.parameters()))):
+            raise AssertionError(f"driver: the graphed run differs from the eager one: {hg} vs "
+                                 f"{he}")
+        steps = epochs * len(cases) // 2
+        per = {k: 2 * (steps - WARMUP) for k in ("echo_scan", "trilinear_sample",
+                                                 "trilinear_idx", "echo_scan_bwd",
+                                                 "trilinear_bwd")}   # 2 scenes a step
+        _want_launches("driver", launches, per)
+        ckpt = os.path.join(work, "ckpt")
+        _, first = _drive(cases, tcfg, mesh, 1, checkpoint_dir=ckpt)
+        _, rest = _drive(cases, tcfg, mesh, epochs, checkpoint_dir=ckpt, resume=True)
+        if first + rest != hg:
+            raise AssertionError(f"driver: epoch 1 {first} + resumed {rest} != {hg}")
+        # the step alone: the graphed one on the blocks each batch is placed into
+        batch = (torch.from_numpy(np.stack([t1_host, t1_host])),
+                 torch.from_numpy(np.stack([c.target for c in cases[:2]])),
+                 torch.ones((2, *tcfg.image_shape), dtype=torch.bool),
+                 torch.from_numpy(np.stack([c.source for c in cases[:2]])),
+                 dirs.cpu().expand(2, -1, -1))
+        steps_fn = {}
+        for kind, g in (("graph", None), ("eager", False)):
+            step_fn, init_opt = make_sharded_train_step(mesh, tcfg, lr=tcfg.lr, graphs=g)
+            model = init_params(torch.Generator().manual_seed(TRAIN_SEED), tcfg.hidden, dev)
+            steps_fn[kind] = (step_fn, model, init_opt(model),
+                              shard_batch(mesh, batch, shard_rays=False))
+        step_g, model_g, opt_g, placed = steps_fn["graph"]
+        step_e, model_e, opt_e, eager_batch = steps_fn["eager"]
+        for _ in range(WARMUP + 1):
+            step_g(model_g, opt_g, shard_batch(mesh, batch, shard_rays=False, out=placed))
+        out = _graph_path(card, clock, "driver's sharded step (2 scenes on (2, 1), "
+                          f"ImpedanceTrainConfig(), {N_RAYS} x {tcfg.num_samples}, SSIM)",
+                          lambda: step_e(model_e, opt_e, eager_batch),
+                          lambda: step_g(model_g, opt_g, placed),
+                          step_g.graphs()[0].capture_s, launches, tuple(GRAPH_KERNEL_NAMES))
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"graphs [{card}]: train_impedance_cases, {len(cases)} NIfTI cases x {epochs} epochs "
+          f"on (2, 1): graphed equal to eager bit for bit (losses and weights, deterministic "
+          f"algorithms); epoch 1 + resumed = the graphed run; the whole run's seconds, eager / "
+          f"graph / graph / eager: {_run_s_text(run_s)}", flush=True)
+    return {**out, "run_s": run_s}
+
+
+def _graph_meshed_service_part(dev, vol, card: str, clock) -> dict:
+    """Phase 4's service on the (2, 4) mesh of the card at tiers 1, 8 and 32,
+    graphed against eager: frames bit for bit, one K1 and one K2 launch a
+    block (8) through each request's replay."""
+    from diffus_tpu_torch.parallel import make_mesh
+    from diffus_tpu_torch.serve import RendererService
+    from diffus_tpu_torch.types import BeamGeometry, RenderConfig
+
+    cfg = RenderConfig(attenuation_coeff=ATT, interp="trilinear_fused", use_pallas=True)
+    mesh = make_mesh(2, 4, [dev] * 8)
+    kw = dict(batch_tiers=TIERS, device=dev, mesh=mesh, coalesce=False)
+    graph = RendererService(vol, BeamGeometry(N_RAYS, N_SAMPLES), cfg, **kw)
+    eager = RendererService(vol, BeamGeometry(N_RAYS, N_SAMPLES), cfg, graphs=False, **kw)
+    warm_s = graph.warmup()
+    eager.warmup()
+    captures = graph.graph_captures()["default"]
+    rng = np.random.default_rng(161)
+    out = {"launches": {}}
+    for tier in TIERS:
+        src = _sources(rng, tier).to(dev)
+        _counts_reset()
+        got = graph.render(src)
+        torch.cuda.synchronize()
+        launches = _replays()
+        _want_launches(f"the meshed {tier}-pose request", launches,
+                       {"echo_scan": mesh.size, "trilinear_sample": mesh.size})
+        if not torch.equal(got, eager.render(src)):
+            raise AssertionError(f"the meshed {tier}-pose request: graphed frames differ from "
+                                 f"eager")
+        out[tier] = _graph_path(card, clock, f"meshed service (2, 4), {tier}-pose request",
+                                lambda: eager.render(src), lambda: graph.render(src),
+                                captures[tier], launches, ("echo_scan", "trilinear_sample"))
+        out["launches"] = {k: out["launches"].get(k, 0) + n for k, n in launches.items()}
+    print(f"graphs [{card}]: meshed service on (2, 4): warmup {warm_s:.2f} s; every tier's "
+          f"replay equal to eager bit for bit, no host sync inside", flush=True)
+    return out
+
+
+def _graph_sharded_recovery_part(dev, vol, card: str, clock) -> dict:
+    """Phase 12's sharded multistart (STARTS starts on the (2, 4) mesh of the
+    card, 64 x 128, 50 steps), graphed and eager under deterministic
+    algorithms: poses and losses bit for bit, one graphed descent over all
+    the starts; its step captured alone."""
+    from diffus_tpu_torch.parallel import make_mesh, sharded_recover_pose_multistart
+    from diffus_tpu_torch.train.pose_recovery import (
+        PoseRecoveryConfig,
+        _leaves,
+        pose_step,
+        render_pose,
+        sample_init_poses,
+    )
+    from diffus_tpu_torch.types import BeamGeometry, RenderConfig, TransducerPose
+    from diffus_tpu_torch.utils import graphs
+    from diffus_tpu_torch.utils.graphs import WARMUP, Graphed
+
+    cfg = RenderConfig(attenuation_coeff=ATT, interp="trilinear_fused", use_pallas=True)
+    pcfg = PoseRecoveryConfig(geometry=BeamGeometry(64, 128), render=cfg, lr=0.05, steps=50)
+    mesh = make_mesh(2, 4, [dev] * 8)
+    with torch.no_grad():
+        target = render_pose(vol, TransducerPose.create(APEX, device=dev), pcfg)
+    init = sample_init_poses(torch.Generator(device=dev).manual_seed(RECOVERY_SEED),
+                             APEX + [0.7, -0.4, 0.5], RADIUS, ROT_SCALE, STARTS)
+    torch.use_deterministic_algorithms(True)
+    try:
+        runs, run_s, launches = _four_runs(lambda g: sharded_recover_pose_multistart(
+            mesh, vol, target, init, pcfg, graphs=g))
+        (pg, lg, bg), (pe, le, be) = runs["graph"], runs["eager"]
+        if not (torch.equal(lg, le) and torch.equal(pg.position, pe.position)
+                and torch.equal(pg.rotvec, pe.rotvec) and int(bg) == int(be)):
+            raise AssertionError(f"sharded recovery: the graphed descent differs from the eager "
+                                 f"one: losses max abs {float((lg - le).abs().max()):.3e}")
+        _want_launches("sharded recovery", launches,
+                       dict.fromkeys(("echo_scan", "trilinear_sample", "echo_scan_bwd",
+                                      "trilinear_bwd"), pcfg.steps - WARMUP))
+
+        def stepper():
+            pose = _leaves(init, dev)
+            opt = graphs.adam([pose.position, pose.rotvec], dev, pcfg.lr)
+            return lambda: pose_step(vol, target, pose, opt, pcfg)
+
+        eager_step, graph_step = stepper(), Graphed(stepper(), name="sharded recovery step")
+        while not graph_step.captured:
+            graph_step()
+        out = _graph_path(card, clock, f"sharded recovery step ({STARTS} starts on (2, 4), "
+                          "64 x 128)", eager_step, graph_step, graph_step.capture_s, launches,
+                          tuple(GRAPH_KERNEL_NAMES))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    print(f"graphs [{card}]: sharded_recover_pose_multistart, {STARTS} starts on (2, 4) x "
+          f"{pcfg.steps} steps: graphed equal to eager bit for bit (poses, losses, best); the "
+          f"whole run's seconds, eager / graph / graph / eager: {_run_s_text(run_s)}",
+          flush=True)
+    return {**out, "run_s": run_s}
+
+
+def _graph_table_fit_part(dev, card: str, clock) -> dict:
+    """``fit_table_mlp`` at 1000 epochs, graphed and eager: losses and weights
+    bit for bit; an epoch captured alone.  No kernel of the port runs."""
+    from diffus_tpu_torch.impedance.mlp import fit_table_mlp, init_params
+    from diffus_tpu_torch.impedance.table import table_arrays
+    from diffus_tpu_torch.utils import graphs
+
+    tx, ty, _ = table_arrays()
+    runs, run_s, launches = _four_runs(lambda g: fit_table_mlp(
+        torch.Generator().manual_seed(0), tx, ty, epochs=1000, lr=0.01, device=dev, graphs=g))
+    (mg, lg), (me, le) = runs["graph"], runs["eager"]
+    if not (torch.equal(lg, le) and all(torch.equal(a, b) for a, b in zip(mg.parameters(),
+                                                                        me.parameters()))):
+        raise AssertionError("table fit: the graphed fit differs from the eager one")
+    _want_launches("table fit", launches, {})
+    x = torch.as_tensor(tx, dtype=torch.float32, device=dev)
+    y = torch.as_tensor(ty, dtype=torch.float32, device=dev)
+
+    def stepper():
+        model = init_params(torch.Generator().manual_seed(0), (32, 32), dev)
+        opt = graphs.adam(model.parameters(), dev, 0.01)
+
+        def step():
+            opt.zero_grad(set_to_none=True)
+            loss = torch.mean((model(x) - y) ** 2)
+            loss.backward()
+            opt.step()
+            return loss.detach()
+
+        return step
+
+    eager_step, graph_step = stepper(), graphs.Graphed(stepper(), name="table fit epoch")
+    while not graph_step.captured:
+        graph_step()
+    out = _graph_path(card, clock, "table fit epoch (1 -> 32 -> 32 -> 1, full batch)",
+                      eager_step, graph_step, graph_step.capture_s, launches, ())
+    print(f"graphs [{card}]: fit_table_mlp, 1000 epochs: graphed equal to eager bit for bit "
+          f"(losses {float(lg[0]):.6f} -> {float(lg[-1]):.6f}, weights); the whole fit's "
+          f"seconds, eager / graph / graph / eager: {_run_s_text(run_s)}", flush=True)
+    return {**out, "run_s": run_s}
+
+
+def _graph_score_part(dev, vol, card: str, clock) -> dict:
+    """``score_poses`` over ``recover_pose_global``'s grid about an apex 3
+    voxels off the truth at 64 x 128 (K1, K2 without idx), graphed and
+    eager: scores bit for bit; one chunk captured alone."""
+    from diffus_tpu_torch.train.pose_recovery import (
+        SCORE_CHUNK,
+        AnnealedPoseConfig,
+        gaussian_blur_frame,
+        global_grid,
+        pose_loss,
+        render_pose,
+        score_poses,
+    )
+    from diffus_tpu_torch.types import BeamGeometry, RenderConfig, TransducerPose
+    from diffus_tpu_torch.utils.graphs import WARMUP, Graphed
+
+    render = RenderConfig(attenuation_coeff=ATT, interp="trilinear_fused", use_pallas=True)
+    cfg = AnnealedPoseConfig(geometry=BeamGeometry(64, 128), render=render)
+    with torch.no_grad():
+        target = render_pose(vol, TransducerPose.create(APEX, device=dev), cfg.as_base())
+    pts = torch.from_numpy(global_grid(APEX + [3.0, 0.0, -2.0])).to(dev)
+    poses = TransducerPose(pts, torch.zeros_like(pts))
+    runs, run_s, launches = _four_runs(lambda g: score_poses(vol, target, poses, cfg, graphs=g))
+    if not torch.equal(runs["graph"], runs["eager"]):
+        raise AssertionError("score_poses: graphed scores differ from eager")
+    chunks = -(-len(pts) // SCORE_CHUNK)
+    _want_launches("score_poses", launches, {"echo_scan": chunks - WARMUP,
+                                            "trilinear_sample": chunks - WARMUP})
+    sigma = cfg.phases[0][0]
+    target_b = gaussian_blur_frame(target, sigma)
+    chunk = (pts[:SCORE_CHUNK], poses.rotvec[:SCORE_CHUNK])
+
+    def eager_chunk():
+        with torch.no_grad():
+            return pose_loss(vol, target_b, TransducerPose(*chunk), cfg.as_base(), sigma)
+
+    graph_chunk = Graphed(lambda p, r: pose_loss(vol, target_b, TransducerPose(p, r),
+                                                 cfg.as_base(), sigma), name="score chunk")
+    with torch.no_grad():
+        while not graph_chunk.captured:
+            graph_chunk(*chunk)
+        out = _graph_path(card, clock, f"score_poses chunk ({SCORE_CHUNK} poses, 64 x 128)",
+                          eager_chunk, lambda: graph_chunk(*chunk), graph_chunk.capture_s,
+                          launches, ("echo_scan", "trilinear_sample"))
+    print(f"graphs [{card}]: score_poses over recover_pose_global's grid ({len(pts)} "
+          f"candidates, {chunks} chunks, the last padded): graphed equal to eager bit for bit; "
+          f"a whole call's seconds, eager / graph / graph / eager: {_run_s_text(run_s)}",
+          flush=True)
+    return {**out, "run_s": run_s}
+
+
+def _graph_render_part(dev, vol, card: str, clock) -> dict:
+    """``render_bmode`` (K1, K2 with idx, the splat) and a 33-pose sweep with
+    artifacts from a generator (K1, K2 with idx), at 256 x 512, repeated
+    calls graphed from the fourth and eager under deterministic
+    algorithms: images and frames bit for bit, call for call, the graphed
+    sweep's generator registered with its capture."""
+    from diffus_tpu_torch.geometry import fan_directions_2d
+    from diffus_tpu_torch.render.renderer import render_bmode, render_sweep
+    from diffus_tpu_torch.types import BeamGeometry, RenderConfig
+    from diffus_tpu_torch.utils import graphs
+    from diffus_tpu_torch.utils.graphs import WARMUP
+
+    geom = BeamGeometry(N_RAYS, N_SAMPLES)
+    dirs = fan_directions_2d((0.0, 1.0), geom.opening_angle, N_RAYS, device=dev)
+    cfg = RenderConfig(attenuation_coeff=ATT, interp="trilinear_fused", use_pallas=True)
+    art = dataclasses.replace(cfg, artifacts=True, std_radial=0.05, std_local=0.2)
+    rng = np.random.default_rng(162)
+    src1, src33 = _sources(rng, 1).to(dev)[0], _sources(rng, 33).to(dev)
+    gens = {k: torch.Generator(device=dev).manual_seed(7) for k in ("graph", "eager")}
+    calls = {
+        "render_bmode": {k: (lambda g=g: render_bmode(vol, src1, dirs, N_SAMPLES, cfg, graphs=g))
+                         for k, g in (("graph", None), ("eager", False))},
+        "sweep": {k: (lambda k=k, g=g: render_sweep(vol, src33, dirs, N_SAMPLES, art,
+                                                    generator=gens[k], graphs=g)[3])
+                  for k, g in (("graph", None), ("eager", False))},
+    }
+    out = {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for name, fns in calls.items():
+            _counts_reset()
+            for call in range(WARMUP + 3):
+                got, want = fns["graph"](), fns["eager"]()
+                if not torch.equal(got, want):
+                    raise AssertionError(f"{name}: call {call + 1} graphed differs from eager")
+            launches = _replays()
+            _want_launches(name, launches, dict.fromkeys(
+                ("echo_scan", "trilinear_sample", "trilinear_idx"), 3))
+            graph = [g for g in graphs.CACHE.graphs() if g.captured and g.name == (
+                "render_bmode" if name == "render_bmode" else "render_sweep")][-1]
+            label = ("render_bmode (1 pose, 256 x 256 image)" if name == "render_bmode" else
+                     "render_sweep with artifacts (33 poses, generator)")
+            out[name] = _graph_path(card, clock, f"{label}, {N_RAYS} x {N_SAMPLES}",
+                                    fns["eager"], fns["graph"], graph.capture_s, launches,
+                                    ("echo_scan", "trilinear_sample"))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    print(f"graphs [{card}]: render_bmode and the 33-pose artifact sweep: {WARMUP + 3} calls "
+          f"each graphed from the {WARMUP + 1}th equal to eager bit for bit, the sweep's draws "
+          f"call for call (its generator registered with the capture)", flush=True)
+    out["launches"] = {k: sum(p["launches"].get(k, 0) for p in out.values())
+                       for k in ("echo_scan", "trilinear_sample", "trilinear_idx")}
+    return out
+
+
 def _graphs_subprocess(card: str) -> dict:
     """Phase 16 (:func:`_graphs_phase`) in a process of its own,
     ``chip_smoke.py --graphs``: in the whole script's process, after the
@@ -4126,8 +4508,14 @@ def _graphs_phase(dev, vol, card: str) -> dict:
     clock = Clock(dev)
     parts = {"service": _graph_service_part(dev, vol, card, clock),
              "recovery": _graph_recovery_part(dev, vol, card, clock),
-             "training": _graph_training_part(dev, vol, card, clock)}
-    totals = {k: sum(p["launches"][k] for p in parts.values())
+             "training": _graph_training_part(dev, vol, card, clock),
+             "driver": _graph_driver_part(dev, vol, card, clock),
+             "meshed service": _graph_meshed_service_part(dev, vol, card, clock),
+             "sharded recovery": _graph_sharded_recovery_part(dev, vol, card, clock),
+             "table fit": _graph_table_fit_part(dev, card, clock),
+             "score_poses": _graph_score_part(dev, vol, card, clock),
+             "renders": _graph_render_part(dev, vol, card, clock)}
+    totals = {k: sum(p["launches"].get(k, 0) for p in parts.values())
               for k in ("echo_scan", "trilinear_sample", "echo_scan_bwd", "trilinear_bwd",
                         "gather_probe")}
     return {"graph_launches": totals, **parts}

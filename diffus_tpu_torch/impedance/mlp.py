@@ -6,7 +6,13 @@ widths to every function; here the functions take the
 :class:`ImpedanceMLP` module itself, which carries both.
 :func:`diffus_tpu_torch.convert.mlp_state_from_flax` loads flax
 parameters into it, which is how the parity tests give both packages the
-same weights.  The JAX ``lax.scan`` over epochs is a Python loop.
+same weights.  The JAX fit is a jitted ``lax.scan`` over epochs; here
+on the card one epoch is a captured CUDA graph stepping the loops'
+capturable Adam, replayed for the rest, each epoch's loss written into a
+device tensor with no host synchronisation
+(:mod:`diffus_tpu_torch.utils.graphs`: ``graphs=None`` is graphs on a
+CUDA device and eager on the CPU, with today's Adam there; False runs
+eagerly on the card).
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ import torch
 from torch import nn
 
 from diffus_tpu_torch.impedance.preproc import brain_mask, zscore_normalize
+from diffus_tpu_torch.utils.graphs import adam, capture, scan, use_graphs
 
 # flax's lecun_normal draws from a normal truncated at +-2 standard
 # deviations and divides the scale by this factor, the standard deviation
@@ -67,9 +74,28 @@ def _device(model: nn.Module) -> torch.device:
     return next(model.parameters()).device
 
 
-def train_on_table(model: ImpedanceMLP, x, y, epochs: int = 5000, lr: float = 1e-3):
+def fit_epochs(params, loss_fn, epochs: int, lr: float, device, graphed: bool) -> torch.Tensor:
+    """``epochs`` full-batch Adam steps of ``params`` on ``loss_fn()``, one
+    captured CUDA graph replayed where ``graphed``.  Returns the ``(epochs,)``
+    losses, each taken before its step, as ``lax.scan`` returns them."""
+    optimizer = adam(params, device, lr)
+
+    def step():
+        optimizer.zero_grad(set_to_none=True)
+        loss = loss_fn()
+        loss.backward()
+        optimizer.step()
+        return loss.detach()
+
+    return scan(capture(step, graphed, "table fit epoch", device),
+                torch.empty((int(epochs),), device=device))
+
+
+def train_on_table(model: ImpedanceMLP, x, y, epochs: int = 5000, lr: float = 1e-3,
+                   graphs: bool | None = None):
     """Full-batch Adam fit of ``model`` to ``(x, y)`` pairs by MSE
-    (``mlp.py:38-70``).  Updates ``model`` in place.
+    (``mlp.py:38-70``), on the module's device, as a captured CUDA graph
+    per ``graphs`` (module docstring).  Updates ``model`` in place.
 
     Returns: ``(model, losses)``, ``losses`` ``(epochs,)``: the MSE before
     each step, as ``lax.scan`` returns them.
@@ -77,24 +103,20 @@ def train_on_table(model: ImpedanceMLP, x, y, epochs: int = 5000, lr: float = 1e
     dev = _device(model)
     x = torch.as_tensor(x, dtype=torch.float32, device=dev)
     y = torch.as_tensor(y, dtype=torch.float32, device=dev)
-    opt = torch.optim.Adam(model.parameters(), lr=lr)
-    losses = []
-    for _ in range(epochs):
-        opt.zero_grad(set_to_none=True)
-        loss = torch.mean((model(x) - y) ** 2)
-        loss.backward()
-        opt.step()
-        losses.append(loss.detach())
-    return model, torch.stack(losses) if losses else torch.zeros((0,), device=dev)
+    losses = fit_epochs(model.parameters(), lambda: torch.mean((model(x) - y) ** 2), epochs, lr,
+                        dev, use_graphs(graphs, dev))
+    return model, losses
 
 
 def fit_table_mlp(generator: torch.Generator, table_x, table_y,
                   hidden: Sequence[int] = (32, 32), epochs: int = 5000, lr: float = 1e-3,
-                  device=None):
+                  device="cuda", graphs: bool | None = None):
     """Init + fit on tissue-table pairs
-    (:func:`diffus_tpu_torch.impedance.table.table_arrays`)."""
+    (:func:`diffus_tpu_torch.impedance.table.table_arrays`), on the card
+    unless ``device`` says otherwise (``device="cpu"``), as JAX's fit runs
+    on the accelerator; ``graphs`` as :func:`train_on_table`'s."""
     model = init_params(generator, hidden, device)
-    return train_on_table(model, table_x, table_y, epochs=epochs, lr=lr)
+    return train_on_table(model, table_x, table_y, epochs=epochs, lr=lr, graphs=graphs)
 
 
 def _apply(model: ImpedanceMLP, values: torch.Tensor) -> torch.Tensor:

@@ -14,9 +14,17 @@ another from the same generator would.
 
 Main-path order (``renderer.py:351-364``): speckle arcs -> depth-dependent
 lateral blur -> sharpen.
+
+The blurs' banks, indices, masks and counts are built once per static
+key in numpy and kept on the device (:func:`_lateral_bank`,
+:func:`_axial_window`): a copy from pageable host memory waits for the
+card, a captured CUDA graph may not wait, and a graph reads them where
+they are, so they are never evicted.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -71,6 +79,32 @@ def add_speckle_arcs(image: torch.Tensor, generator: torch.Generator,
                         power_local)
 
 
+def _on_device(array: np.ndarray, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """``array`` as an ordinary tensor on ``device``, the copy finished."""
+    with torch.inference_mode(False):   # an ordinary tensor, which autograd may save
+        out = torch.as_tensor(array, dtype=dtype, device=device)
+    if out.is_cuda:
+        torch.cuda.current_stream(device).synchronize()
+    return out
+
+
+@functools.cache  # kept: a captured CUDA graph reads the tensors where they are
+def _lateral_bank(n_rays: int, n_samples: int, max_sigma: float, truncate: float, rmax: int,
+                  dtype: torch.dtype, device: torch.device) -> tuple:
+    """:func:`depth_dependent_lateral_blur`'s ``(n_samples, 2R+1)`` tap bank
+    and its symmetric-pad ray index on ``device``, made once per key."""
+    zs = np.arange(n_samples, dtype=np.float64)
+    sigmas = np.where(zs > 0, max_sigma * zs / max(n_samples - 1, 1), 1e-8)
+    offs = np.arange(-rmax, rmax + 1, dtype=np.float64)
+    with np.errstate(over="ignore", under="ignore"):
+        bank = np.exp(-0.5 * (offs[None, :] / sigmas[:, None]) ** 2)
+    radius_z = np.floor(truncate * sigmas + 0.5)
+    bank = np.where(np.abs(offs[None, :]) <= radius_z[:, None], bank, 0.0)
+    bank = bank / bank.sum(axis=1, keepdims=True)
+    index = np.pad(np.arange(n_rays), (rmax, rmax), mode="symmetric")
+    return _on_device(bank, dtype, device), _on_device(index, torch.int64, device)
+
+
 def depth_dependent_lateral_blur(image: torch.Tensor, max_sigma: float = 2.0,
                                  truncate: float = 4.0) -> torch.Tensor:
     """Across-ray Gaussian blur whose sigma grows linearly with depth,
@@ -85,18 +119,9 @@ def depth_dependent_lateral_blur(image: torch.Tensor, max_sigma: float = 2.0,
     rmax = default_radius(max_sigma, truncate)
     if rmax == 0 or n_samples == 1:
         return image
-    zs = np.arange(n_samples, dtype=np.float64)
-    sigmas = np.where(zs > 0, max_sigma * zs / max(n_samples - 1, 1), 1e-8)
-    offs = np.arange(-rmax, rmax + 1, dtype=np.float64)
-    with np.errstate(over="ignore", under="ignore"):
-        bank = np.exp(-0.5 * (offs[None, :] / sigmas[:, None]) ** 2)
-    radius_z = np.floor(truncate * sigmas + 0.5)
-    bank = np.where(np.abs(offs[None, :]) <= radius_z[:, None], bank, 0.0)
-    bank = bank / bank.sum(axis=1, keepdims=True)
-    bank = torch.as_tensor(bank, dtype=image.dtype, device=image.device)
-
-    index = np.pad(np.arange(n_rays), (rmax, rmax), mode="symmetric")
-    padded = torch.index_select(image, -2, torch.as_tensor(index, device=image.device))
+    bank, index = _lateral_bank(n_rays, n_samples, float(max_sigma), float(truncate), rmax,
+                                image.dtype, image.device)
+    padded = torch.index_select(image, -2, index)
     # windows[..., r, z, k] = padded[..., r + k, z]
     windows = padded.unfold(-2, 2 * rmax + 1, 1)
     return (windows * bank).sum(dim=-1)
@@ -150,26 +175,36 @@ def add_shadow(image: torch.Tensor, center_ray: int, width: int = 5,
     return image * factor[:, None]
 
 
+@functools.cache  # kept: a captured CUDA graph reads the tensors where they are
+def _axial_window(n_samples: int, max_kernel: int, dtype: torch.dtype,
+                  device: torch.device) -> tuple:
+    """:func:`depth_dependent_axial_blur`'s ``(hmax, counts, mask, keep)``
+    on ``device``, made once per key (``hmax`` < 1: nothing to blur, and
+    no tensors)."""
+    zs = np.arange(n_samples)
+    halves = ((max_kernel * (zs / max(n_samples - 1, 1))) // 2).astype(np.int64)
+    hmax = int(halves.max(initial=0))
+    if hmax < 1:
+        return hmax, None, None, None
+    offs = np.arange(-hmax, hmax + 1)
+    pos = zs[:, None] + offs[None, :]
+    valid = (np.abs(offs)[None, :] <= halves[:, None]) & (pos >= 0) & (pos < n_samples)
+    return (hmax, _on_device(valid.sum(axis=1), dtype, device), _on_device(valid, dtype, device),
+            _on_device(halves < 1, torch.bool, device))
+
+
 def depth_dependent_axial_blur(image: torch.Tensor, max_kernel: int = 7) -> torch.Tensor:
     """Axial box blur whose window grows with depth (``artifacts.py:136-172``):
     at depth z the mean over ``[z - half, z + half]`` with
     ``half = int((max_kernel z / (n - 1)) // 2)``; depths with ``half < 1``
     are left as they are."""
-    n_samples = image.shape[-1]
-    zs = np.arange(n_samples)
-    halves = ((max_kernel * (zs / max(n_samples - 1, 1))) // 2).astype(np.int64)
-    hmax = int(halves.max(initial=0))
+    hmax, counts, mask, keep = _axial_window(image.shape[-1], int(max_kernel), image.dtype,
+                                             image.device)
     if hmax < 1:
         return image
-    offs = np.arange(-hmax, hmax + 1)
-    pos = zs[:, None] + offs[None, :]
-    valid = (np.abs(offs)[None, :] <= halves[:, None]) & (pos >= 0) & (pos < n_samples)
-    counts = torch.as_tensor(valid.sum(axis=1), dtype=image.dtype, device=image.device)
     zeros = image.new_zeros(image.shape[:-1] + (hmax,))
     padded = torch.cat([zeros, image, zeros], dim=-1)
     # windows[..., z, k] = image[..., z + k - hmax]
     windows = padded.unfold(-1, 2 * hmax + 1, 1)
-    mask = torch.as_tensor(valid, dtype=image.dtype, device=image.device)
     blurred = (windows * mask).sum(dim=-1) / counts
-    keep = torch.as_tensor(halves < 1, device=image.device)
     return torch.where(keep, image, blurred)

@@ -124,20 +124,24 @@ def _chunk(axis, i: int, j: int, mesh: Mesh) -> tuple:
     raise ValueError(f"unknown mesh axis {axis!r}; use 'pose', 'ray' or ('pose', 'ray')")
 
 
-def place(x: torch.Tensor, sharding: NamedSharding) -> np.ndarray:
+def place(x: torch.Tensor, sharding: NamedSharding, out: np.ndarray | None = None) -> np.ndarray:
     """Split ``x`` as ``sharding`` says and copy each block to its device.
 
     Returns the ``(n_pose, n_ray)`` object array of blocks; block ``(i, j)``
     lies on ``mesh.devices[i, j]``.  A replicated block is copied once to
     each distinct device, so blocks on one device share a tensor.  A split
-    dim must divide its axis (pad first where padding is valid)."""
+    dim must divide its axis (pad first where padding is valid).  With
+    ``out`` (an earlier ``place`` of a tensor of the same shape and dtype
+    on the same sharding) each block is copied into ``out``'s, in place,
+    and ``out`` returned: one copy a block, to where a captured CUDA graph
+    reads it."""
     mesh = sharding.mesh
     for dim, axis in enumerate(sharding.spec):
         n = _chunk(axis, 0, 0, mesh)[1]
         if x.shape[dim] % n:
             raise ValueError(f"dim {dim} of shape {tuple(x.shape)} does not divide the mesh "
                              f"axis {axis!r} ({n})")
-    blocks = np.empty(mesh.devices.shape, dtype=object)
+    blocks = np.empty(mesh.devices.shape, dtype=object) if out is None else out
     made = {}
     for (i, j), dev in np.ndenumerate(mesh.devices):
         chunks = tuple(_chunk(a, i, j, mesh) for a in sharding.spec)
@@ -146,6 +150,6 @@ def place(x: torch.Tensor, sharding: NamedSharding) -> np.ndarray:
             for dim, (k, n) in enumerate(chunks):
                 size = x.shape[dim] // n
                 block = block.narrow(dim, k * size, size)
-            made[chunks, dev] = block.to(dev)
+            made[chunks, dev] = block.to(dev) if out is None else out[i, j].copy_(block)
         blocks[i, j] = made[chunks, dev]
     return blocks

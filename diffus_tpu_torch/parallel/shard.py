@@ -14,6 +14,16 @@ on the row's first device and the rest of the render runs there, so a
 result is the unsharded one whatever the mesh: a median or a max over a
 shard's rays would be another number.  Otherwise every block renders on
 its own device to the end (K1 too) and only the frames are gathered.
+
+On the card these run as captured CUDA graphs where JAX jits them: the
+sweep (``_sweep_jit``) as a cached graph per signature, the training step
+as a graph per batch shape, stepping the loops' capturable Adam, and the
+multistart descent as recovery's graphed loop.  A capture lives on one
+device, so that holds for a mesh whose devices are one card (every mesh
+of one card, such as ``make_mesh(2, 4, ["cuda:0"] * 8)``).  A mesh over
+distinct cards runs eagerly, and ``graphs=True`` there raises
+(:func:`~diffus_tpu_torch.utils.graphs.use_graphs_over`); the CPU runs
+eagerly.
 """
 
 from __future__ import annotations
@@ -36,6 +46,13 @@ from diffus_tpu_torch.render.renderer import _echo_frames, _on, _reflections, co
 from diffus_tpu_torch.train.impedance_train import impedance_volume, synth_loss
 from diffus_tpu_torch.train.losses import masked_mse_edge_loss
 from diffus_tpu_torch.types import RenderConfig, TransducerPose, Volume, _f32
+from diffus_tpu_torch.utils.graphs import (
+    Graphed,
+    adam,
+    cached_call,
+    use_graphs_for,
+    use_graphs_over,
+)
 
 _DEFAULT_CONFIG = RenderConfig()
 
@@ -117,9 +134,12 @@ def _sweep(mesh: Mesh, volumes: dict, sources, directions, num_samples: int,
 
 
 def sharded_render_sweep(mesh: Mesh, volume, sources, directions, num_samples: int,
-                         config: RenderConfig = _DEFAULT_CONFIG, step: float = 1.0):
+                         config: RenderConfig = _DEFAULT_CONFIG, step: float = 1.0,
+                         graphs: bool | None = None):
     """Multi-pose sweep with poses split over the mesh's ``pose`` axis and
     rays over ``ray``; the volume is copied once to each distinct device.
+    On a mesh of one card, a cached CUDA graph per signature (module
+    docstring, ``graphs``).
 
     Non-divisible sizes (the contract of JAX's, ``shard.py:68-81``): POSE
     counts that do not divide the pose axis are padded by repeating the last
@@ -137,8 +157,17 @@ def sharded_render_sweep(mesh: Mesh, volume, sources, directions, num_samples: i
       device; equal to :func:`~diffus_tpu_torch.render.renderer.render_sweep`'s.
     """
     vol = volume.data if isinstance(volume, Volume) else volume
-    idx, frames = _sweep(mesh, replicate(vol, mesh), sources, directions, num_samples, config,
-                         step, with_idx=True)
+    sources, directions = _on(vol, sources), _on(vol, directions)
+
+    def body(v, s, d):
+        return _sweep(mesh, replicate(v, mesh), s, d, num_samples, config, step, with_idx=True)
+
+    if use_graphs_for(graphs, [vol.device, *mesh.distinct()], (vol, sources, directions)):
+        idx, frames = cached_call("sharded_render_sweep", vol, (mesh, num_samples, config,
+                                                                float(step)),
+                                  body, (sources, directions))
+    else:
+        idx, frames = body(vol, sources, directions)
     return idx[..., 0], idx[..., 1], idx[..., 2], frames
 
 
@@ -170,7 +199,8 @@ class ShardedBatch(NamedTuple):
         return list(self.mesh.devices[i, :n]), list(self.directions[i, :n])
 
 
-def shard_batch(mesh: Mesh, batch, shard_rays: bool = True) -> ShardedBatch:
+def shard_batch(mesh: Mesh, batch, shard_rays: bool = True,
+                out: ShardedBatch | None = None) -> ShardedBatch:
     """Place a training batch ``(t1_volumes[B, ...], targets, masks,
     sources[B, 3], directions[B, R, 3])`` on the mesh: the scene axis split
     over ``pose``, and, with ``shard_rays``, the rays of ``directions`` over
@@ -179,7 +209,12 @@ def shard_batch(mesh: Mesh, batch, shard_rays: bool = True) -> ShardedBatch:
     Targets and masks are split over ``pose`` only: the frame loss
     normalizes over every ray of a frame, so it reads the whole frame on the
     row's first device.  Non-divisible scene or ray counts are an ERROR (JAX
-    ``shard.py:216-225``): padding scenes would change the mean loss."""
+    ``shard.py:216-225``): padding scenes would change the mean loss.
+
+    With ``out``, an earlier placement of a batch of the same shapes, each
+    block is copied into ``out``'s in place and ``out`` is returned: a
+    graphed step (:func:`make_sharded_train_step`) reads the blocks it was
+    captured on, so each batch reaches them in one copy."""
     t1, targets, masks, sources, directions = (torch.as_tensor(x) for x in batch)
     b, r = t1.shape[0], directions.shape[1]
     pose_m, ray_m = mesh.shape["pose"], mesh.shape["ray"]
@@ -188,12 +223,45 @@ def shard_batch(mesh: Mesh, batch, shard_rays: bool = True) -> ShardedBatch:
             f"training batch (scenes={b}, rays={r}) must divide the mesh "
             f"(pose={pose_m}, ray={ray_m}); padding is not applied to "
             "training batches because it would change the mean loss")
+    if out is not None and (out.mesh is not mesh or out.shard_rays != bool(shard_rays)):
+        raise ValueError("shard_batch(out=...) takes a batch placed on the same mesh, with the "
+                         "same shard_rays")
     by_pose = pose_sharding(mesh)
-    return ShardedBatch(
-        place(t1.float(), by_pose), place(targets.float(), by_pose), place(masks, by_pose),
-        place(sources.float(), by_pose),
-        place(directions.float(), pose_ray_sharding(mesh) if shard_rays else by_pose),
-        bool(shard_rays), mesh)
+    shardings = (by_pose, by_pose, by_pose, by_pose,
+                 pose_ray_sharding(mesh) if shard_rays else by_pose)
+    values = (t1.float(), targets.float(), masks, sources.float(), directions.float())
+    blocks = [place(x, sharding, None if out is None else out[k])
+              for k, (x, sharding) in enumerate(zip(values, shardings))]
+    return ShardedBatch(*blocks, bool(shard_rays), mesh) if out is None else out
+
+
+_BLOCKS = ("t1", "targets", "masks", "sources", "directions")
+
+
+def _flatten(batch: ShardedBatch) -> tuple:
+    """``(tensors, rebuild)``: the batch's distinct block tensors, in order,
+    and ``rebuild(tensors)``, the batch with its blocks taken from such a
+    list (blocks that shared a tensor share one again)."""
+    tensors, index, layout = [], {}, []
+    for field in _BLOCKS:
+        grid = getattr(batch, field)
+        ids = np.empty(grid.shape, dtype=object)
+        for ij, t in np.ndenumerate(grid):
+            ids[ij] = index.setdefault(id(t), len(tensors))
+            if ids[ij] == len(tensors):
+                tensors.append(t)
+        layout.append(ids)
+
+    def rebuild(ts) -> ShardedBatch:
+        grids = []
+        for ids in layout:
+            grid = np.empty(ids.shape, dtype=object)
+            for ij, k in np.ndenumerate(ids):
+                grid[ij] = ts[k]
+            grids.append(grid)
+        return batch._replace(**dict(zip(_BLOCKS, grids)))
+
+    return tensors, rebuild
 
 
 def _replicas(model: torch.nn.Module):
@@ -212,7 +280,7 @@ def _replicas(model: torch.nn.Module):
     return on
 
 
-def make_sharded_train_step(mesh: Mesh, cfg, lr: float = 0.01):
+def make_sharded_train_step(mesh: Mesh, cfg, lr: float = 0.01, graphs: bool | None = None):
     """Data-parallel renderer-in-the-loop training step over the mesh
     (``shard.py:121-203``).
 
@@ -233,17 +301,29 @@ def make_sharded_train_step(mesh: Mesh, cfg, lr: float = 0.01):
       device: pose parallelism only.
 
     ``cfg`` is an :class:`~diffus_tpu_torch.train.impedance_train.ImpedanceTrainConfig`.
-    Returns ``(step_fn, init_opt)``: ``init_opt(model)`` makes the Adam
-    (``optax.adam(lr)``'s counterpart) and ``step_fn(model, optimizer,
-    batch)`` takes one step on a :func:`shard_batch` batch, updating both in
-    place, and returns the loss (detached, before the step).
+    Returns ``(step_fn, init_opt)``: ``init_opt(model)`` makes the loops'
+    Adam (``optax.adam(lr)``'s counterpart,
+    :func:`~diffus_tpu_torch.utils.graphs.adam`: capturable on the card)
+    and ``step_fn(model, optimizer, batch)`` takes one step on a
+    :func:`shard_batch` batch, updating both in place, and returns the
+    loss (detached, before the step).
+
+    On a mesh of one card (module docstring, ``graphs``) ``step_fn`` is a
+    captured CUDA graph per (model, optimizer, batch shapes): zero-grad,
+    the replicas' ``.to()``, forward, backward and the Adam step.  Its
+    first steps run eagerly; it is captured on the blocks of the batch it
+    is then given, which it reads from there on: a caller that places each
+    batch into them (``shard_batch(..., out=batch)``) copies each block
+    once, and another batch is copied into them.  ``step_fn.graphs()``
+    lists its :class:`~diffus_tpu_torch.utils.graphs.Graphed` steps.
     """
     if cfg.loss not in ("ssim", "masked_mse_edge"):
         raise ValueError(f"unknown sharded objective cfg.loss={cfg.loss!r} "
                          "(use 'ssim' or 'masked_mse_edge')")
+    graphed = use_graphs_over(graphs, mesh.distinct())
 
     def init_opt(model) -> torch.optim.Adam:
-        return torch.optim.Adam(model.parameters(), lr=lr)
+        return adam(model.parameters(), mesh.first, lr)
 
     def row_losses(replica, batch: ShardedBatch, i: int) -> list:
         home = batch.mesh.devices[i, 0]
@@ -267,7 +347,7 @@ def make_sharded_train_step(mesh: Mesh, cfg, lr: float = 0.01):
             out.append(masked_mse_edge_loss(frame, target, mask, cfg.edge_weight))
         return out
 
-    def step_fn(model, optimizer, batch: ShardedBatch) -> torch.Tensor:
+    def step(model, optimizer, batch: ShardedBatch) -> torch.Tensor:
         first = batch.mesh.first
         optimizer.zero_grad(set_to_none=True)
         replica = _replicas(model)
@@ -278,15 +358,36 @@ def make_sharded_train_step(mesh: Mesh, cfg, lr: float = 0.01):
         optimizer.step()
         return loss.detach()
 
+    captured = {}   # (model, optimizer, blocks' shapes) -> (model, optimizer, Graphed)
+
+    def step_fn(model, optimizer, batch: ShardedBatch) -> torch.Tensor:
+        if not graphed:
+            return step(model, optimizer, batch)
+        tensors, rebuild = _flatten(batch)
+        key = (id(model), id(optimizer), tuple((tuple(t.shape), t.dtype) for t in tensors))
+        if key not in captured:
+            if not all(group["capturable"] for group in optimizer.param_groups):
+                raise ValueError("a captured sharded step replays the optimizer's update, which "
+                                 "needs torch.optim.Adam(..., capturable=True), as init_opt "
+                                 "gives on the card")
+            captured[key] = (model, optimizer, Graphed(
+                lambda *ts: step(model, optimizer, rebuild(ts)), name="sharded train step",
+                device=mesh.first, adopt=True))
+        return captured[key][2](*tensors)
+
+    step_fn.graphs = lambda: [graph for _, _, graph in captured.values()]
     return step_fn, init_opt
 
 
 def sharded_recover_pose_multistart(mesh: Mesh, volume, target_frame,
-                                    init_poses: TransducerPose, cfg):
+                                    init_poses: TransducerPose, cfg, graphs: bool | None = None):
     """Multistart pose recovery with the starts split over EVERY device of
     the mesh (``pose`` x ``ray`` flattened, ``shard.py:241-279``): the
-    descents are independent, so each device runs its share as one batched
-    :func:`~diffus_tpu_torch.train.pose_recovery.recover_pose_multistart`.
+    descents are independent, so each distinct device runs the starts of
+    its mesh positions as one batched
+    :func:`~diffus_tpu_torch.train.pose_recovery.recover_pose_multistart`,
+    on a mesh of one card one captured CUDA graph a step over all of them
+    (module docstring, ``graphs``).
 
     Start counts that do not divide the device count are padded by
     repeating the last start; the results are sliced back and ``best``
@@ -301,17 +402,28 @@ def sharded_recover_pose_multistart(mesh: Mesh, volume, target_frame,
     from diffus_tpu_torch.train.pose_recovery import recover_pose_multistart
 
     vol = volume.data if isinstance(volume, Volume) else volume
+    graphed = use_graphs_over(graphs, [vol.device, *mesh.distinct()])
     batch = init_poses.position.shape[0]
     every = NamedSharding(mesh, (AXES,))
     pos = place(_pad_axis(_f32(init_poses.position, vol.device), 0, mesh.size), every)
     rot = place(_pad_axis(_f32(init_poses.rotvec, vol.device), 0, mesh.size), every)
     volumes = replicate(vol, mesh)
     targets = replicate(_f32(target_frame, vol.device), mesh)
-    # eager, as the rest of the mesh runs (no CUDA graph per device)
-    runs = [recover_pose_multistart(volumes[d], targets[d], TransducerPose(pos[ij], rot[ij]),
-                                    cfg, graphs=False) for ij, d in np.ndenumerate(mesh.devices)]
+    cells = {}   # device -> its mesh positions, in mesh order
+    for ij, d in np.ndenumerate(mesh.devices):
+        cells.setdefault(d, []).append(ij)
+    block = pos[0, 0].shape[0]
+    done = {}    # mesh position -> (position, rotvec, losses) of its starts
+    for d, group in cells.items():
+        poses, losses, _ = recover_pose_multistart(
+            volumes[d], targets[d], TransducerPose(torch.cat([pos[ij] for ij in group]),
+                                                   torch.cat([rot[ij] for ij in group])),
+            cfg, graphs=graphed)
+        for k, ij in enumerate(group):
+            rows = slice(k * block, (k + 1) * block)
+            done[ij] = (poses.position[rows], poses.rotvec[rows], losses[rows])
     first = mesh.first
-    position = torch.cat([p.position.to(first) for p, _, _ in runs])[:batch]
-    rotvec = torch.cat([p.rotvec.to(first) for p, _, _ in runs])[:batch]
-    losses = torch.cat([loss.to(first) for _, loss, _ in runs])[:batch]
+    order = [done[ij] for ij in np.ndindex(mesh.devices.shape)]
+    position, rotvec, losses = (torch.cat([part[k].to(first) for part in order])[:batch]
+                                for k in range(3))
     return TransducerPose(position, rotvec), losses, torch.argmin(losses[:, -1])

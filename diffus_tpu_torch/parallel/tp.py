@@ -18,8 +18,9 @@ from __future__ import annotations
 
 import torch
 
-from diffus_tpu_torch.impedance.mlp import ImpedanceMLP
+from diffus_tpu_torch.impedance.mlp import ImpedanceMLP, fit_epochs
 from diffus_tpu_torch.parallel.mesh import Mesh, NamedSharding, place
+from diffus_tpu_torch.utils.graphs import use_graphs_over
 
 
 def _is_column(i: int, n_layers: int) -> bool:
@@ -109,24 +110,23 @@ def tp_shard_params(mesh: Mesh, model: ImpedanceMLP, axis: str = "ray") -> TPPar
 
 
 def tp_train_on_table(mesh: Mesh, model: ImpedanceMLP, x, y, epochs: int = 1000,
-                      lr: float = 1e-3, axis: str = "ray"):
+                      lr: float = 1e-3, axis: str = "ray", graphs: bool | None = None):
     """Tensor-parallel table fit: :func:`tp_shard_params`, then the loop of
     :func:`~diffus_tpu_torch.impedance.mlp.train_on_table` (full-batch Adam
-    on the MSE, the loss taken before each step) on the shards.
+    on the MSE, the loss taken before each step) on the shards.  Where the
+    axis's devices are one card the epoch is a captured CUDA graph
+    replayed for the rest, as ``train_on_table``'s; over distinct cards it
+    runs eagerly and ``graphs=True`` raises
+    (:func:`~diffus_tpu_torch.utils.graphs.use_graphs_over`).
 
     Returns ``(params, losses)``: the :class:`TPParams`, still split
     (``params.state_dict()`` gathers them), and the ``(epochs,)`` losses on
     the mesh's first device."""
     params = tp_shard_params(mesh, model, axis)
     home = params.devices[0]
+    graphed = use_graphs_over(graphs, params.devices)
     xs = torch.as_tensor(x, dtype=torch.float32, device=home).reshape(-1, 1)
     ys = torch.as_tensor(y, dtype=torch.float32, device=home).reshape(-1, 1)
-    opt = torch.optim.Adam(params.parameters(), lr=lr)
-    losses = []
-    for _ in range(int(epochs)):
-        opt.zero_grad(set_to_none=True)
-        loss = torch.mean((params(xs) - ys) ** 2)
-        loss.backward()
-        opt.step()
-        losses.append(loss.detach())
-    return params, torch.stack(losses) if losses else torch.zeros((0,), device=home)
+    losses = fit_epochs(params.parameters(), lambda: torch.mean((params(xs) - ys) ** 2), epochs,
+                        lr, home, graphed)
+    return params, losses

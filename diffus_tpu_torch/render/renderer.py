@@ -22,6 +22,14 @@ XLA drops that unread output of JAX's jitted renders, and K2 then writes
 no idx.  The pulse, envelope and artifact stages are
 plain PyTorch (the JAX package computes them outside Pallas too).
 
+On the card :func:`render_sweep` and :func:`render_bmode`, which JAX
+jits, replay a captured CUDA graph per static signature once a signature
+has run eagerly :data:`~diffus_tpu_torch.utils.graphs.WARMUP` times
+(:func:`~diffus_tpu_torch.utils.graphs.cached_call`; ``graphs``, as
+:func:`~diffus_tpu_torch.utils.graphs.use_graphs_for` resolves it); the
+artifacts' generator is registered with the capture, so that the replays
+draw what eager calls would.  A one-shot caller runs eagerly.
+
 The rest of the JAX renderer's TPU-only machinery (tile tables, pose
 chunking, placement warnings, ``:436-566``) is not ported.
 """
@@ -56,6 +64,7 @@ from diffus_tpu_torch.ops.sampling import (
     sample_trilinear_bf16,
 )
 from diffus_tpu_torch.types import RenderConfig, Volume
+from diffus_tpu_torch.utils.graphs import cached_call, use_graphs_for
 
 _DEFAULT_CONFIG = RenderConfig()
 
@@ -286,22 +295,40 @@ def frame_time_delays(spacing, directions, num_samples: int,
     return 2.0 * mm_per_step[:, None] * idx[None, :] / c
 
 
+def _generators(generator) -> tuple:
+    return () if generator is None else (generator,)
+
+
 def render_bmode(volume, source, directions, num_samples: int,
                  config: RenderConfig = _DEFAULT_CONFIG,
                  generator: torch.Generator | None = None, image_shape: tuple = (256, 256),
-                 sigma: float = 2.0, axes: tuple = (0, 2)) -> torch.Tensor:
-    """Fan frame + differentiable splat to a 2D image (``renderer.py:406-433``)."""
+                 sigma: float = 2.0, axes: tuple = (0, 2),
+                 graphs: bool | None = None) -> torch.Tensor:
+    """Fan frame + differentiable splat to a 2D image (``renderer.py:406-433``),
+    a cached CUDA graph per signature on the card (module docstring)."""
     from diffus_tpu_torch.ops.splat import splat_frame
 
-    x, y, z, intensities = render_frame(volume, source, directions, num_samples, config,
-                                        generator=generator)
-    return splat_frame((x, y, z), intensities, axes, image_shape, sigma)
+    vol = volume.data if isinstance(volume, Volume) else volume
+    source, directions = _on(vol, source), _on(vol, directions)
+    image_shape, axes = tuple(int(n) for n in image_shape), tuple(int(a) for a in axes)
+
+    def body(v, s, d):
+        x, y, z, intensities = render_frame(v, s, d, num_samples, config,
+                                            generator=generator)
+        return splat_frame((x, y, z), intensities, axes, image_shape, sigma)
+
+    if not use_graphs_for(graphs, [vol.device], (vol, source, directions)):
+        return body(vol, source, directions)
+    return cached_call("render_bmode", vol, (num_samples, config, image_shape, float(sigma), axes),
+                       body, (source, directions), _generators(generator))
 
 
 def render_sweep(volume, sources, directions, num_samples: int,
                  config: RenderConfig = _DEFAULT_CONFIG,
-                 generator: torch.Generator | None = None, step: float = 1.0):
-    """Multi-pose sweep as one batched render (``renderer.py:456-615``).
+                 generator: torch.Generator | None = None, step: float = 1.0,
+                 graphs: bool | None = None):
+    """Multi-pose sweep as one batched render (``renderer.py:456-615``), a
+    cached CUDA graph per signature on the card (module docstring).
 
     Args:
       sources: ``(P, 3)``; directions: ``(P, n_rays, 3)`` or shared ``(n_rays, 3)``.
@@ -314,7 +341,13 @@ def render_sweep(volume, sources, directions, num_samples: int,
     vol = volume.data if isinstance(volume, Volume) else volume
     sources = _on(vol, sources)
     directions = _on(vol, directions)
-    if directions.dim() == 2:
-        directions = directions.expand(sources.shape[0], -1, -1)
-    return render_frame(vol, sources, directions, num_samples, config, step=step,
-                        generator=generator)
+
+    def body(v, s, d):
+        if d.dim() == 2:
+            d = d.expand(s.shape[0], -1, -1)
+        return render_frame(v, s, d, num_samples, config, step=step, generator=generator)
+
+    if not use_graphs_for(graphs, [vol.device], (vol, sources, directions)):
+        return body(vol, sources, directions)
+    return cached_call("render_sweep", vol, (num_samples, config, float(step)), body,
+                       (sources, directions), _generators(generator))

@@ -18,8 +18,9 @@ device mesh (``mesh=``) a request's poses split over the mesh's ``pose``
 axis and its rays over ``ray`` (:mod:`diffus_tpu_torch.parallel`).
 
 On the card each scene's tier function is a captured CUDA graph, the JAX
-service's jitted ``render_sweep`` per tier (:mod:`diffus_tpu_torch.utils.graphs`);
-the meshed service runs eagerly.
+service's jitted ``render_sweep`` per tier (:mod:`diffus_tpu_torch.utils.graphs`),
+the meshed tier too where the mesh's devices are one card; a mesh over
+distinct cards runs eagerly.
 """
 
 from __future__ import annotations
@@ -43,7 +44,7 @@ from diffus_tpu_torch.train.pose_recovery import (
     sample_init_poses,
 )
 from diffus_tpu_torch.types import BeamGeometry, RenderConfig, TransducerPose
-from diffus_tpu_torch.utils.graphs import Graphed, Pool, use_graphs
+from diffus_tpu_torch.utils.graphs import Graphed, Pool, use_graphs_over
 
 
 class _Pending:
@@ -113,7 +114,9 @@ class RendererService:
     (:meth:`warmup` captures them; a tier not yet captured is captured at
     its first use) and eagerly on the CPU; False renders eagerly on the
     card, the graphs' reference; True on the CPU raises.  Recoveries run
-    the same way.  A meshed service runs eagerly.
+    the same way.  A meshed service whose mesh is one card captures each
+    meshed tier as one graph; over distinct cards it runs eagerly, and
+    True raises (:func:`~diffus_tpu_torch.utils.graphs.use_graphs_over`).
 
     ``mesh`` (:func:`~diffus_tpu_torch.parallel.make_mesh`) serves over a
     (pose, ray) device mesh: each request's padded tier splits its poses
@@ -182,9 +185,8 @@ class RendererService:
         self.directions = fan_directions_2d(
             median_direction, geometry.opening_angle, geometry.n_rays, device=self.device)
         self._mesh = mesh
-        if mesh is not None and graphs:
-            raise ValueError("the meshed service runs eagerly: pass graphs=None or False")
-        self._graphs = mesh is None and use_graphs(graphs, self.device)
+        self._graphs = use_graphs_over(graphs, [self.device]
+                                       + ([] if mesh is None else mesh.distinct()))
         if mesh is not None:
             ray_m = mesh.shape.get("ray", 1)
             if geometry.n_rays % ray_m and (
@@ -295,32 +297,37 @@ class RendererService:
                 return b
         return self.batch_tiers[-1]
 
-    def _frames(self, sc: _Scene, sources) -> torch.Tensor:
-        """``render_sweep(sc.volume, sources, self.directions, ...)[3]``: one
-        fan for every pose, no sample coordinates; over the mesh when the
-        service has one."""
-        args = (sources, self.directions, self.geometry.num_samples, self.config,
+    def _tier_fn(self, sc: _Scene):
+        """``sources -> render_sweep(sc.volume, sources, self.directions,
+        ...)[3]``: one fan for every pose, no sample coordinates; over the
+        mesh when the service has one.  It closes over the volume (or its
+        replicas), the fan and the config, not over the scene or the
+        service, so that a graph of it goes with the scene."""
+        args = (self.directions, self.geometry.num_samples, self.config,
                 float(self.geometry.step))
         if self._mesh is not None:
             from diffus_tpu_torch.parallel import sharded_sweep_frames
 
-            return sharded_sweep_frames(self._mesh, sc.replicas, *args)
+            mesh, replicas = self._mesh, sc.replicas
+            return lambda sources: sharded_sweep_frames(mesh, replicas, sources, *args)
+        volume = sc.volume
+        return lambda sources: _render(volume, sources, *args, with_idx=False)[1]
+
+    def _frames(self, sc: _Scene, sources) -> torch.Tensor:
+        """The scene's tier function (:meth:`_tier_fn`) on ``sources``, its
+        captured graph on a graphed service."""
         if self._graphs:
             return self._tier_graph(sc, sources.shape[0])(sources)
-        return _render(sc.volume, *args, with_idx=False)[1]
+        return self._tier_fn(sc)(sources)
 
     def _tier_graph(self, sc: _Scene, tier: int) -> Graphed:
         """The scene's tier function as a :class:`Graphed`, made at its
-        first use.  It closes over the volume, the fan and the config, not
-        over the scene or the service, so that it goes with the scene."""
+        first use, in the scene's pool."""
         with self._lock:
             graph = sc.graphs.get(tier)
             if graph is None:
-                volume, args = sc.volume, (self.directions, self.geometry.num_samples,
-                                           self.config, float(self.geometry.step))
-                graph = sc.graphs[tier] = Graphed(
-                    lambda sources: _render(volume, sources, *args, with_idx=False)[1],
-                    name=f"the {tier}-pose tier", device=self.device, pool=sc.graph_pool)
+                graph = sc.graphs[tier] = Graphed(self._tier_fn(sc), name=f"the {tier}-pose tier",
+                                                  device=self.device, pool=sc.graph_pool)
         return graph
 
     def warmup(self, scene: str | None = None) -> float:

@@ -6,7 +6,10 @@
 
 T1 volumes stream from disk through the prefetching loader (decode on
 worker threads, overlapped with the step) as host stacks, and each batch's
-scenes go from the host straight to their pose devices of the mesh.
+scenes go from the host straight to their pose devices of the mesh, into
+the blocks the step reads: on a mesh of one card the step is a captured
+CUDA graph (``graphs``, :func:`~diffus_tpu_torch.parallel.make_sharded_train_step`),
+and each batch reaches it in one copy a block.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ import torch
 
 from diffus_tpu_torch.impedance.mlp import init_params
 from diffus_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
-from diffus_tpu_torch.train.impedance_train import ImpedanceTrainConfig
+from diffus_tpu_torch.train.impedance_train import ImpedanceTrainConfig, load_optimizer_state
 from diffus_tpu_torch.train.metrics import MetricsLogger
 
 # diffus_tpu_torch.parallel is imported inside train_impedance_cases: its
@@ -83,7 +86,8 @@ def train_impedance_cases(generator: torch.Generator, cases: Sequence[CaseSpec],
                           cfg: ImpedanceTrainConfig = ImpedanceTrainConfig(), epochs: int = 1,
                           batch_size: int = 4, mesh=None, checkpoint_dir: Optional[str] = None,
                           checkpoint_every: int = 1, metrics_path: Optional[str] = None,
-                          loader_threads: int = 0, resume: bool = False):
+                          loader_threads: int = 0, resume: bool = False,
+                          graphs: bool | None = None):
     """Train the impedance MLP over many cases, data-parallel.
 
     Args:
@@ -101,6 +105,10 @@ def train_impedance_cases(generator: torch.Generator, cases: Sequence[CaseSpec],
       metrics_path: JSONL metrics, one line per step.  Each line reads the
         loss on the host; without it the losses stay on the device until
         the end.
+      graphs: None steps a captured CUDA graph on a mesh of one card and
+        eagerly on the CPU or over distinct cards; False steps eagerly on
+        the card; True where no graph can run raises
+        (:func:`~diffus_tpu_torch.utils.graphs.use_graphs_over`).
     Returns:
       ``(model, history)``: the trained :class:`ImpedanceMLP` and the
       per-step losses as floats.
@@ -116,16 +124,16 @@ def train_impedance_cases(generator: torch.Generator, cases: Sequence[CaseSpec],
         raise ValueError(
             f"len(cases)={len(cases)} must divide into batch_size={batch_size} "
             f"batches that divide the mesh pose axis ({pose_m})")
-    step_fn, init_opt = make_sharded_train_step(mesh, cfg, lr=cfg.lr)
+    step_fn, init_opt = make_sharded_train_step(mesh, cfg, lr=cfg.lr, graphs=graphs)
     model = init_params(generator, cfg.hidden, mesh.first)
     optimizer = init_opt(model)
     ckpt = os.path.join(checkpoint_dir, "latest") if checkpoint_dir else None
     start_epoch = 0
     if resume and ckpt and os.path.exists(ckpt):
-        # the optimizer's step counts stay on the CPU, as a fresh Adam keeps them
+        # saved on either device: the step counts go where this optimizer keeps them
         state = load_checkpoint(ckpt, map_location="cpu")
         model.load_state_dict(state["params"])
-        optimizer.load_state_dict(state["opt_state"])
+        load_optimizer_state(optimizer, state["opt_state"])
         start_epoch = int(state["epoch"])
 
     def save(epoch: int) -> None:
@@ -135,13 +143,14 @@ def train_impedance_cases(generator: torch.Generator, cases: Sequence[CaseSpec],
     history = []   # device scalars: float() per step would wait for each step
     step = start_epoch * (len(cases) // batch_size)
     last_saved = start_epoch
+    placed = None  # the blocks every batch is copied into
     with MetricsLogger(metrics_path) as log:
         for epoch in range(start_epoch, epochs):
             for batch in _case_batches(cases, batch_size, loader_threads):
                 # ssim targets are splatted images: the rays stay whole (the
                 # splat couples them); frame losses split the rays too
-                loss = step_fn(model, optimizer,
-                               shard_batch(mesh, batch, shard_rays=cfg.loss != "ssim"))
+                placed = shard_batch(mesh, batch, shard_rays=cfg.loss != "ssim", out=placed)
+                loss = step_fn(model, optimizer, placed)
                 history.append(loss)
                 if metrics_path is not None:
                     log.log(step, epoch=epoch, loss=float(loss))

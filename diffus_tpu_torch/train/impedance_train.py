@@ -211,7 +211,7 @@ def train_impedance(generator: torch.Generator, t1_volume, us_real, source, dire
     if pretrain_table:
         tx, ty, _ = table_arrays()
         model, _ = fit_table_mlp(generator, tx, ty, hidden=cfg.hidden, epochs=1000, lr=0.01,
-                                 device=t1.device)
+                                 device=t1.device, graphs=graphs)
     else:
         model = init_params(generator, cfg.hidden, t1.device)
     return train_impedance_scan(model, t1, us_norm, mask, source, directions, cfg, graphs)

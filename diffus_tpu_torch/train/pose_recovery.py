@@ -27,8 +27,9 @@ first update, as optax counts.  Each phase starts a fresh Adam.
 On the card each descent is a captured CUDA graph, JAX's jitted
 ``lax.scan``: the first steps run eagerly (they allocate Adam's state and
 fill every cache), then one :func:`pose_step` is captured per phase and
-replayed for the rest (:func:`~diffus_tpu_torch.utils.graphs.scan`).
-The loops take ``graphs`` (:func:`~diffus_tpu_torch.utils.graphs.use_graphs`:
+replayed for the rest (:func:`~diffus_tpu_torch.utils.graphs.scan`),
+and :func:`score_poses` (jitted in JAX) replays one captured chunk over
+its candidates.  The loops and the score take ``graphs`` (:func:`~diffus_tpu_torch.utils.graphs.use_graphs`:
 None is graphs on a CUDA volume, eager on the CPU; False runs eagerly on
 the card).  The loops' Adam is capturable on the card, graphed or not
 (:func:`~diffus_tpu_torch.utils.graphs.adam`: its step count, bias
@@ -282,41 +283,46 @@ def recover_pose_multistart_annealed(volume, target_frame, init_poses: Transduce
 SCORE_CHUNK = 8  # poses a score_poses render takes at once
 
 
-def score_poses(volume, target_frame, poses: TransducerPose,
-                cfg: AnnealedPoseConfig) -> torch.Tensor:
+def score_poses(volume, target_frame, poses: TransducerPose, cfg: AnnealedPoseConfig,
+                graphs: bool | None = None) -> torch.Tensor:
     """Coarse-blur MSE of each candidate pose, forward renders only, in
     chunks of :data:`SCORE_CHUNK` poses (``pose_recovery.py:235-272``).  The
     blur is the schedule's first phase's, the widest basin the descent
     sees.  Returns ``(n,)`` scores; the chunk bounds memory (the global
-    stage scores hundreds of candidates) and does not change them."""
+    stage scores hundreds of candidates) and does not change them.
+
+    The last chunk is padded by repeating its last pose, and its scores
+    sliced back, so that every chunk has one shape: on the card one chunk
+    is a captured CUDA graph, replayed over the candidates (``graphs``,
+    module docstring)."""
     device = _device(volume)
+    graphed = use_graphs(graphs, device)
     base = cfg.as_base()
     sigma = cfg.phases[0][0]
-    position, rotvec = _f32(poses.position, device), _f32(poses.rotvec, device)
+    n = poses.position.shape[0]
+    position = _pad_rows(_f32(poses.position, device), SCORE_CHUNK)
+    rotvec = _pad_rows(_f32(poses.rotvec, device), SCORE_CHUNK)
+    scores = position.new_empty(position.shape[0])
     with torch.no_grad():
         target_b = gaussian_blur_frame(_f32(target_frame, device), sigma)
-        scores = [pose_loss(volume, target_b, TransducerPose(position[i:i + SCORE_CHUNK],
-                                                             rotvec[i:i + SCORE_CHUNK]),
-                            base, sigma)
-                  for i in range(0, position.shape[0], SCORE_CHUNK)]
-    return torch.cat(scores)
+        chunk = capture(lambda p, r: pose_loss(volume, target_b, TransducerPose(p, r), base,
+                                               sigma), graphed, "score_poses chunk", device)
+        for i in range(0, position.shape[0], SCORE_CHUNK):
+            rows = slice(i, i + SCORE_CHUNK)
+            scores[rows] = chunk(position[rows], rotvec[rows])
+    return scores[:n]
 
 
-def recover_pose_global(volume, target_frame, center, cfg: AnnealedPoseConfig,
-                        generator: torch.Generator, candidates: int = 256,
-                        radius: float = 8.0, rot_scale: float = 0.05, keep: int = 6,
-                        spacing: float | None = None):
-    """Global-then-local recovery for large initial errors
-    (``pose_recovery.py:275-339``).
+def _pad_rows(x: torch.Tensor, multiple: int) -> torch.Tensor:
+    """``x`` with its last row repeated up to a multiple of ``multiple`` rows."""
+    pad = (-x.shape[0]) % multiple
+    return torch.cat([x, x[-1:].expand(pad, -1)]) if pad else x
 
-    Stage 1 scores a cubic grid of positions ``spacing`` apart (default
-    ``clip(radius / 3, 1, 2)``, coarsened by 1.26x until at most
-    ``candidates`` points lie in the ``radius`` ball about ``center``), plus
-    the center, with :func:`score_poses`, and keeps the best ``keep``.
-    Stage 2 runs the annealed multistart descent from them: the best seed
-    keeps the prior's rotation (0), the others get ``rot_scale`` normal
-    rotations from ``generator``.  Returns ``(poses, losses, best)``.
-    """
+
+def global_grid(center, radius: float = 8.0, candidates: int = 256,
+                spacing: float | None = None) -> np.ndarray:
+    """The positions :func:`recover_pose_global` scores, ``(n, 3)`` float32:
+    the center, then a cubic grid about it (see there)."""
     center = np.asarray(torch.as_tensor(center).detach().cpu(), np.float32)
     s = float(spacing) if spacing is not None else max(1.0, min(2.0, float(radius) / 3.0))
     while True:
@@ -327,15 +333,34 @@ def recover_pose_global(volume, target_frame, center, cfg: AnnealedPoseConfig,
         if len(grid) <= int(candidates):
             break
         s *= 1.26
-    pts = np.concatenate([np.zeros((1, 3), np.float32), grid]) + center[None]
+    return np.concatenate([np.zeros((1, 3), np.float32), grid]) + center[None]
+
+
+def recover_pose_global(volume, target_frame, center, cfg: AnnealedPoseConfig,
+                        generator: torch.Generator, candidates: int = 256,
+                        radius: float = 8.0, rot_scale: float = 0.05, keep: int = 6,
+                        spacing: float | None = None, graphs: bool | None = None):
+    """Global-then-local recovery for large initial errors
+    (``pose_recovery.py:275-339``).
+
+    Stage 1 scores a cubic grid of positions ``spacing`` apart (default
+    ``clip(radius / 3, 1, 2)``, coarsened by 1.26x until at most
+    ``candidates`` points lie in the ``radius`` ball about ``center``), plus
+    the center, with :func:`score_poses`, and keeps the best ``keep``.
+    Stage 2 runs the annealed multistart descent from them: the best seed
+    keeps the prior's rotation (0), the others get ``rot_scale`` normal
+    rotations from ``generator``.  Both stages run per ``graphs`` (module
+    docstring).  Returns ``(poses, losses, best)``.
+    """
+    pts = global_grid(center, radius, candidates, spacing)
     init = TransducerPose(position=torch.from_numpy(pts), rotvec=torch.zeros((len(pts), 3)))
-    scores = score_poses(volume, target_frame, init, cfg).cpu().numpy()
+    scores = score_poses(volume, target_frame, init, cfg, graphs).cpu().numpy()
     order = np.argsort(scores)[:int(keep)]
     rots = rot_scale * torch.randn((len(order), 3), generator=generator,
                                    device=generator.device)
     rots[0] = 0.0  # the best-scored seed keeps the prior's rotation
     seeds = TransducerPose(position=torch.from_numpy(pts[order]), rotvec=rots)
-    return recover_pose_multistart_annealed(volume, target_frame, seeds, cfg)
+    return recover_pose_multistart_annealed(volume, target_frame, seeds, cfg, graphs)
 
 
 def pose_recovery_benchmark(volume, true_pose: TransducerPose, cfg: AnnealedPoseConfig,

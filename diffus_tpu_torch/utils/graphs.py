@@ -14,7 +14,13 @@ kernels with no Python and no per-op dispatch between them.
 Graphs run on the card only.  An entry point takes ``graphs=None``
 (:func:`use_graphs`): graphs on a CUDA device, eager PyTorch on the CPU;
 ``graphs=False`` runs eagerly on the card, the reference the graphs are
-held to; ``graphs=True`` on the CPU raises.
+held to; ``graphs=True`` on the CPU raises.  A capture lives on one
+device, so work spread over several distinct devices (a mesh over
+several cards) runs eagerly, and ``graphs=True`` there raises
+(:func:`use_graphs_over`).  A function that JAX jits once per static
+signature and that a caller calls again and again (``render_sweep``,
+``render_bmode``) keeps its graphs in a :class:`GraphCache`, each tied to
+the volume it reads.
 
 The kernels' wrappers count their launches in Python, which a replay does
 not run.  A wrapper counts through :func:`count`, with the stream it
@@ -30,6 +36,7 @@ from __future__ import annotations
 import collections
 import threading
 import time
+import weakref
 
 import torch
 
@@ -66,6 +73,44 @@ def use_graphs(graphs: bool | None, device) -> bool:
         raise ValueError(f"CUDA graphs run on a CUDA device, not {device}; pass graphs=None or "
                          f"False")
     return bool(graphs)
+
+
+def _one_device(device) -> torch.device:
+    """``device`` with its index: ``cuda`` names the current card."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def use_graphs_over(graphs: bool | None, devices) -> bool:
+    """:func:`use_graphs` for work spread over ``devices`` (a mesh's, with
+    the device of what it reads): a capture lives on one device, so where
+    they are one device it is that device's rule, and where they are
+    several None runs eagerly and True raises."""
+    distinct = list(dict.fromkeys(_one_device(d) for d in devices))
+    if len(distinct) == 1:
+        return use_graphs(graphs, distinct[0])
+    if graphs:
+        raise ValueError(f"a CUDA graph is captured on one device, and this work spans "
+                         f"{[str(d) for d in distinct]}; pass graphs=None or False")
+    return False
+
+
+def use_graphs_for(graphs: bool | None, devices, tensors=()) -> bool:
+    """:func:`use_graphs_over` for one call of a function that a caller may
+    also differentiate or call inside a capture of its own: a replay
+    records nothing for autograd, so where a tensor needs a gradient it
+    runs eagerly (and True raises), and inside a capture it runs eagerly,
+    as part of the enclosing graph."""
+    if not use_graphs_over(graphs, devices):
+        return False
+    if torch.is_grad_enabled() and any(t.requires_grad for t in _tensors(list(tensors))):
+        if graphs:
+            raise ValueError("a CUDA graph's replay records nothing for autograd, and an input "
+                             "needs a gradient; pass graphs=None or False")
+        return False
+    return not torch.cuda.is_current_stream_capturing()
 
 
 def _tensors(tree) -> list:
@@ -110,7 +155,16 @@ class Graphed:
     inputs' copies, then every call copies its inputs into those buffers,
     replays the graph and returns copies of the outputs, or writes them
     into ``out`` (a tensor, or a tuple matching the outputs).  A capture
-    that fails raises; nothing falls back to eager.
+    that fails raises; nothing falls back to eager.  With ``adopt`` the
+    capture keeps the very tensors it was called with as its inputs: a
+    caller that writes each call's values into them in place and passes
+    them again has nothing copied in (the sharded step's batch, which
+    ``shard_batch(..., out=)`` writes).
+
+    ``generators``: the CUDA generators that ``fn`` draws from,
+    registered with the capture (``CUDAGraph.register_generator_state``):
+    each replay then draws what the next eager call from the generator's
+    state would, and advances it as that call does.
 
     Calls from several threads are serialised by a lock: copy-in, replay
     and copy-out share the graph's buffers.  Each is queued on the current
@@ -119,8 +173,10 @@ class Graphed:
     memory, its side stream and its lock.
     """
 
-    def __init__(self, fn, name: str = "graph", device=None, pool: Pool | None = None):
+    def __init__(self, fn, name: str = "graph", device=None, pool: Pool | None = None,
+                 generators: tuple = (), adopt: bool = False):
         self.fn, self.name = fn, name
+        self.generators, self.adopt = tuple(generators), bool(adopt)
         self.device = torch.device("cuda", torch.cuda.current_device()) if device is None \
             else torch.device(device)
         self.capture_s = None
@@ -183,8 +239,10 @@ class Graphed:
 
     def _capture(self, inputs) -> None:
         t0 = time.perf_counter()
-        self._inputs = [x.detach().clone() for x in inputs]
+        self._inputs = list(inputs) if self.adopt else [x.detach().clone() for x in inputs]
         graph, side = torch.cuda.CUDAGraph(), self._stream()
+        for generator in self.generators:
+            graph.register_generator_state(generator)
         pool = None if self._pool is None else self._pool.handle
         launches = _recording[side.cuda_stream] = {}
         try:
@@ -236,6 +294,66 @@ def adam(params, device, lr: float = 1e-3) -> torch.optim.Adam:
 def capture(fn, graphed: bool, name: str, device):
     """``fn`` as a :class:`Graphed` where ``graphed``, else ``fn`` itself."""
     return Graphed(fn, name=name, device=device) if graphed else fn
+
+
+class GraphCache:
+    """:class:`Graphed` functions kept by static signature, each tied to the
+    tensor it reads (a volume), as ``jax.jit`` keeps a compiled function a
+    signature.  At most ``size`` are kept, the least recently used going
+    first, and an entry goes when its tensor is freed, so that no graph
+    outlives the memory it reads.  ``make(ref)`` builds an entry's
+    :class:`Graphed` from a weak reference to the tensor: a graph that
+    held the tensor would keep it alive."""
+
+    def __init__(self, size: int = 8):
+        self.size = size
+        self._entries = collections.OrderedDict()  # (id(tensor), key) -> (Graphed, finalizer)
+        self._lock = threading.RLock()   # a tensor may be freed, and evicted, inside get
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def graphs(self) -> list:
+        """The kept :class:`Graphed` functions, least recently used first."""
+        with self._lock:
+            return [graph for graph, _ in self._entries.values()]
+
+    def get(self, tensor: torch.Tensor, key, make) -> Graphed:
+        full = (id(tensor), key)
+        with self._lock:
+            entry = self._entries.get(full)
+            if entry is not None:
+                self._entries.move_to_end(full)
+                return entry[0]
+            graph = make(weakref.ref(tensor))
+            self._entries[full] = (graph, weakref.finalize(tensor, self._evict, full))
+            while len(self._entries) > self.size:
+                _, (_, finalizer) = self._entries.popitem(last=False)
+                finalizer.detach()
+            return graph
+
+    def _evict(self, full) -> None:
+        with self._lock:
+            self._entries.pop(full, None)
+
+
+CACHE = GraphCache()  # the graphs of render_sweep, render_bmode and the sharded sweep
+
+
+def cached_call(name: str, volume: torch.Tensor, key, body, inputs: tuple,
+                generators: tuple = ()):
+    """``body(volume, *inputs)`` through the :data:`CACHE` entry of its static
+    signature: ``key`` (the static arguments, hashable), the inputs' shapes
+    and dtypes, the volume's, and the generators.  Its first
+    :data:`WARMUP` calls run eagerly, as a :class:`Graphed` does."""
+    signature = (name, key, tuple(volume.shape), volume.dtype, str(volume.device),
+                 tuple((tuple(x.shape), x.dtype) for x in inputs), generators)
+
+    def make(ref):
+        return Graphed(lambda *xs: body(ref(), *xs), name=name, device=volume.device,
+                       generators=generators)
+
+    return CACHE.get(volume, signature, make)(*inputs)
 
 
 def scan(step, out: torch.Tensor, before=None, inputs: tuple = ()) -> torch.Tensor:

@@ -1086,3 +1086,230 @@ def test_a_failed_capture_raises(cuda):
         step(x)
     with pytest.raises(RuntimeError, match="capturing syncing step as a CUDA graph failed"):
         step(x)
+
+
+# -- the paths graphed since: the sharded step and the driver, the meshed
+# -- service, sharded recovery, the table fits, score_poses and the renders --
+
+
+def _replayed_since(before) -> dict:
+    from diffus_tpu_torch.utils import graphs
+
+    return {k: graphs.replayed[k] - before[k] for k in _GRAPH_KERNELS}
+
+
+def _no_sync_call(fn):
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("loss", ["ssim", "masked_mse_edge"])
+def test_driver_replays_equal_eager(cuda, loss):
+    """``train_impedance_cases`` on a (2, 1) mesh of one card: the graphed
+    steps give the eager run's losses and weights bit for bit
+    (deterministic algorithms), with K1, K2, K1b and K2b in every replay;
+    a replayed step synchronises nothing."""
+    from diffus_tpu_torch.impedance.mlp import init_params
+    from diffus_tpu_torch.parallel import make_mesh, make_sharded_train_step, shard_batch
+    from diffus_tpu_torch.phantoms import t1_phantom_3d
+    from diffus_tpu_torch.train import CaseSpec, ImpedanceTrainConfig, train_impedance_cases
+    from diffus_tpu_torch.types import RenderConfig
+    from diffus_tpu_torch.utils import graphs
+
+    t1 = t1_phantom_3d((24, 24, 24))
+    dirs = np.asarray(fan_directions_2d([0.0, 1.0], np.radians(40.0), 8))
+    cfg = ImpedanceTrainConfig(num_samples=20, slice_index=12, image_shape=(32, 32), loss=loss,
+                               render=RenderConfig(attenuation_coeff=1e-4,
+                                                   interp="trilinear_fused", use_pallas=True))
+    rng = np.random.default_rng(0)
+    shape = (32, 32) if loss == "ssim" else (8, 20)
+    cases = [CaseSpec(t1=t1 * (1 + 0.05 * k), target=rng.uniform(size=shape).astype(np.float32),
+                      mask=np.ones(shape, bool), source=np.array([12.0 + 0.3 * k, 1.0, 12.0],
+                                                                 np.float32),
+                      directions=dirs) for k in range(4)]
+    mesh = make_mesh(2, 1, [cuda] * 2)
+    runs = {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for graphed in (None, False):
+            before = graphs.replayed.copy()
+            model, history = train_impedance_cases(torch.Generator().manual_seed(0), cases, cfg,
+                                                   epochs=3, batch_size=2, mesh=mesh,
+                                                   graphs=graphed)
+            runs[graphed] = (history, [p.detach() for p in model.parameters()],
+                             _replayed_since(before))
+        step_fn, init_opt = make_sharded_train_step(mesh, cfg, lr=cfg.lr)
+        model = init_params(torch.Generator().manual_seed(0), cfg.hidden, cuda)
+        opt = init_opt(model)
+        batch = tuple(torch.from_numpy(np.stack([getattr(c, f) for c in cases[:2]]))
+                      for f in ("t1", "target", "mask", "source", "directions"))
+        placed = shard_batch(mesh, batch, shard_rays=loss != "ssim")
+        for _ in range(graphs.WARMUP + 1):
+            step_fn(model, opt, shard_batch(mesh, batch, shard_rays=loss != "ssim", out=placed))
+        assert torch.isfinite(_no_sync_call(lambda: step_fn(model, opt, placed)))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    # 6 steps of 2 scenes, each scene one launch of each kernel
+    assert runs[None][2] == dict.fromkeys(_GRAPH_KERNELS, 2 * (6 - graphs.WARMUP))
+    assert runs[False][2] == dict.fromkeys(_GRAPH_KERNELS, 0)
+    assert runs[None][0] == runs[False][0]
+    for p, q in zip(runs[None][1], runs[False][1]):
+        assert torch.equal(p, q)
+
+
+@pytest.mark.cuda
+def test_meshed_service_replay_equals_eager(cuda):
+    """A (2, 2) mesh of one card: each tier is one graph, its frames the
+    eager meshed service's and the unmeshed one's bit for bit, one K1 and
+    one K2 launch a block through the replay, no host sync inside."""
+    from diffus_tpu_torch.parallel import make_mesh
+    from diffus_tpu_torch.serve import RendererService
+    from diffus_tpu_torch.utils import graphs
+
+    vol, geom, cfg = _graph_scene(cuda)
+    mesh = make_mesh(2, 2, [cuda] * 4)
+    kw = dict(batch_tiers=(1, 4), device=cuda, coalesce=False)
+    svc = RendererService(vol, geom, cfg, mesh=mesh, **kw)
+    eager = RendererService(vol, geom, cfg, mesh=mesh, graphs=False, **kw)
+    plain = RendererService(vol, geom, cfg, graphs=False, **kw)
+    svc.warmup()
+    assert sorted(svc.graph_captures()["default"]) == [1, 4]
+    srcs = torch.tensor([[24.0, 2.0, 24.0], [23.5, 2.5, 24.5], [24.5, 1.5, 23.0]], device=cuda)
+    for p in (1, 3):
+        before = graphs.replayed.copy()
+        got = _no_sync_call(lambda: svc.render(srcs[:p]))
+        # the tier's 2 pose rows x 2 ray blocks each launch K1 and K2
+        assert _replayed_since(before) == {"echo_scan": 4, "trilinear_sample": 4,
+                                           "echo_scan_bwd": 0, "trilinear_bwd": 0}
+        assert torch.equal(got, eager.render(srcs[:p]))
+        assert torch.equal(got, plain.render(srcs[:p]))
+
+
+@pytest.mark.cuda
+def test_sharded_recovery_replays_equal_eager(cuda):
+    """Sharded multistart on a (2, 2) mesh of one card: one graphed descent
+    over every start, equal to its eager run bit for bit and to the
+    unsharded descent within rtol 1e-4."""
+    from diffus_tpu_torch.parallel import make_mesh, sharded_recover_pose_multistart
+    from diffus_tpu_torch.train import pose_recovery as pr
+    from diffus_tpu_torch.utils import graphs
+
+    vol, target, init, acfg = _pose_problem(cuda)
+    cfg = pr.PoseRecoveryConfig(acfg.geometry, acfg.render, lr=0.05, steps=8)
+    mesh = make_mesh(2, 2, [cuda] * 4)
+    torch.use_deterministic_algorithms(True)
+    try:
+        before = graphs.replayed.copy()
+        poses, losses, best = sharded_recover_pose_multistart(mesh, vol, target, init, cfg)
+        replayed = _replayed_since(before)
+        e_poses, e_losses, e_best = sharded_recover_pose_multistart(mesh, vol, target, init, cfg,
+                                                                    graphs=False)
+        r_poses, r_losses, _ = pr.recover_pose_multistart(vol, target, init, cfg)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert replayed == dict.fromkeys(_GRAPH_KERNELS, 8 - graphs.WARMUP)
+    assert torch.equal(losses, e_losses) and int(best) == int(e_best)
+    assert torch.equal(poses.position, e_poses.position)
+    torch.testing.assert_close(losses, r_losses, rtol=1e-4, atol=1e-7)
+
+
+@pytest.mark.cuda
+def test_table_fits_replay_equal_eager(cuda):
+    """``train_on_table`` and ``tp_train_on_table`` on a (1, 2) mesh of one
+    card: the graphed epochs give the eager fit's losses and weights bit
+    for bit, and a replayed epoch synchronises nothing."""
+    from diffus_tpu_torch.impedance.mlp import fit_epochs, init_params, train_on_table
+    from diffus_tpu_torch.impedance.table import table_arrays
+    from diffus_tpu_torch.parallel import make_mesh, tp_train_on_table
+
+    tx, ty, _ = table_arrays()
+    x, y = torch.as_tensor(tx).reshape(-1, 1), torch.as_tensor(ty).reshape(-1, 1)
+    fits = {}
+    for graphed in (None, False):
+        model, losses = train_on_table(init_params(torch.Generator().manual_seed(0), (32, 32),
+                                                   cuda), x, y, epochs=40, lr=0.01,
+                                       graphs=graphed)
+        tp, tp_losses = tp_train_on_table(make_mesh(1, 2, [cuda] * 2),
+                                          init_params(torch.Generator().manual_seed(0), (64, 64),
+                                                      cuda), tx, ty, epochs=20, graphs=graphed)
+        fits[graphed] = (losses, list(model.parameters()), tp_losses, tp.state_dict())
+    assert torch.equal(fits[None][0], fits[False][0]) and torch.equal(fits[None][2],
+                                                                      fits[False][2])
+    assert all(torch.equal(p, q) for p, q in zip(fits[None][1], fits[False][1]))
+    assert all(torch.equal(fits[None][3][k], v) for k, v in fits[False][3].items())
+    model = init_params(torch.Generator().manual_seed(0), (32, 32), cuda)
+    xs, ys = x.to(cuda), y.to(cuda)
+    losses = _no_sync_call(lambda: fit_epochs(model.parameters(),
+                                              lambda: torch.mean((model(xs) - ys) ** 2), 8, 0.01,
+                                              cuda, True))
+    assert losses.shape == (8,)
+
+
+@pytest.mark.cuda
+def test_score_poses_replays_equal_eager(cuda):
+    """``score_poses`` over 21 candidates (three chunks, the last padded):
+    one graphed chunk replayed, the eager scores bit for bit."""
+    from diffus_tpu_torch.train import pose_recovery as pr
+    from diffus_tpu_torch.types import TransducerPose
+    from diffus_tpu_torch.utils import graphs
+
+    vol, target, _, acfg = _pose_problem(cuda)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    poses = TransducerPose(24.0 + 2.0 * torch.rand((21, 3), generator=g, device=cuda),
+                           0.03 * torch.randn((21, 3), generator=g, device=cuda))
+    scores = {}
+    for graphed in (None, False):
+        before = graphs.replayed.copy()
+        scores[graphed] = pr.score_poses(vol, target, poses, acfg, graphs=graphed)
+        scores[graphed, "replays"] = _replayed_since(before)
+    assert scores[None].shape == (21,) and torch.equal(scores[None], scores[False])
+    assert scores[None, "replays"]["echo_scan"] == 0   # 3 chunks: all warm-up
+    pr.SCORE_CHUNK, chunk = 4, pr.SCORE_CHUNK
+    try:
+        before = graphs.replayed.copy()
+        got = pr.score_poses(vol, target, poses, acfg)
+        assert _replayed_since(before)["trilinear_sample"] == 6 - graphs.WARMUP
+        assert torch.equal(got, pr.score_poses(vol, target, poses, acfg, graphs=False))
+    finally:
+        pr.SCORE_CHUNK = chunk
+
+
+@pytest.mark.cuda
+def test_render_graphs_replay_eager_draws_and_frames(cuda):
+    """Repeated ``render_sweep`` calls with artifacts, graphed from their
+    fourth: each frame equals the eager call's from a generator of the same
+    seed, the generator registered with the capture; ``render_bmode``'s
+    replays equal eager (deterministic algorithms: the splat's scatter);
+    a replay synchronises nothing; a second graph reads no host constant."""
+    import dataclasses
+
+    from diffus_tpu_torch.render.renderer import render_bmode, render_sweep
+    from diffus_tpu_torch.utils import graphs
+
+    vol, geom, cfg = _graph_scene(cuda)
+    art = dataclasses.replace(cfg, artifacts=True)
+    dirs = fan_directions_2d([0.0, 1.0], np.radians(40.0), geom.n_rays, device=cuda)
+    srcs = torch.tensor([[24.0, 2.0, 24.0], [23.5, 2.5, 24.5], [24.5, 1.5, 23.0]], device=cuda)
+    gens = {k: torch.Generator(device=cuda).manual_seed(7) for k in (None, False)}
+    frames = {None: [], False: []}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for call in range(graphs.WARMUP + 3):
+            for graphed in (None, False):
+                run = lambda: render_sweep(vol, srcs, dirs, geom.num_samples, art,   # noqa: E731
+                                           generator=gens[graphed], graphs=graphed)[3]
+                frames[graphed].append(_no_sync_call(run) if graphed is None and
+                                       call > graphs.WARMUP else run())
+            images = [render_bmode(vol, srcs[0], dirs, geom.num_samples, cfg,
+                                   image_shape=(48, 48), graphs=g) for g in (None, False)]
+            assert torch.equal(images[0], images[1])
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for a, b in zip(frames[None], frames[False]):
+        assert torch.equal(a, b)
+    assert not torch.equal(frames[None][-1], frames[None][-2])     # new draws each call

@@ -30,6 +30,7 @@ from diffus_tpu_torch.impedance.mlp import ImpedanceMLP
 from diffus_tpu_torch.io import save_nifti
 from diffus_tpu_torch.parallel import make_mesh
 from diffus_tpu_torch.train import CaseSpec, ImpedanceTrainConfig, synth_loss, train_impedance_cases
+from diffus_tpu_torch.train.checkpoint import save_checkpoint
 from diffus_tpu_torch.types import RenderConfig
 from torch_parity import seeded
 
@@ -144,6 +145,29 @@ def test_driver_checkpoint_resume_round_trip(same_init, tmp_path):
     # every 2 epochs out of 3: epochs 2 and 3 (the last) are saved
     _port(_cases(), cfg, epochs=3, checkpoint_dir=str(tmp_path / "c3"), checkpoint_every=2)
     assert torch.load(os.path.join(tmp_path, "c3", "latest"), weights_only=True)["epoch"] == 3
+
+
+def test_driver_resumes_a_checkpoint_of_the_cards_adam(same_init, tmp_path):
+    """A checkpoint as the card's capturable Adam writes it (``capturable``
+    in each group, float64 step counts) resumes through
+    ``load_optimizer_state``: the optimizer keeps its own setting and
+    step counts, and epoch 1 + the resumed epoch is the whole run, bit for
+    bit."""
+    _, cfg = _cfgs()
+    ckpt = str(tmp_path / "ckpt")
+    whole_model, whole = _port(_cases(), cfg, epochs=2)
+    _, first = _port(_cases(), cfg, epochs=1, checkpoint_dir=ckpt)
+    path = os.path.join(ckpt, "latest")
+    state = torch.load(path, weights_only=True)
+    for group in state["opt_state"]["param_groups"]:
+        group["capturable"] = True
+    for st in state["opt_state"]["state"].values():
+        st["step"] = st["step"].double()
+    save_checkpoint(path, state)
+    resumed_model, rest = _port(_cases(), cfg, epochs=2, checkpoint_dir=ckpt, resume=True)
+    assert first + rest == whole
+    for a, b in zip(resumed_model.parameters(), whole_model.parameters()):
+        assert torch.equal(a, b)
 
 
 def test_driver_ssim_equals_the_unsharded_loop(same_init):

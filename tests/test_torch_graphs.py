@@ -20,16 +20,23 @@ import numpy as np
 import pytest
 import torch
 
+import diffus_tpu_torch.parallel.shard as shard
+import diffus_tpu_torch.render.renderer as renderer
 import diffus_tpu_torch.serve as serve
 from diffus_tpu_torch.geometry import fan_directions_2d
+from diffus_tpu_torch.impedance import mlp
 from diffus_tpu_torch.impedance.mlp import init_params
+from diffus_tpu_torch.ops import artifacts
+from diffus_tpu_torch.parallel import make_mesh, shard_batch, tp_train_on_table
 from diffus_tpu_torch.phantoms import brain_phantom_3d, t1_phantom_3d
 from diffus_tpu_torch.serve import RendererService
+from diffus_tpu_torch.train import driver
 from diffus_tpu_torch.train import impedance_train as ti
 from diffus_tpu_torch.train import pose_recovery as pr
 from diffus_tpu_torch.types import BeamGeometry, RenderConfig, TransducerPose
 from diffus_tpu_torch.utils import graphs
 
+CPU8 = [torch.device("cpu")] * 8
 GEOM = BeamGeometry(n_rays=8, num_samples=16)
 RENDER = RenderConfig(attenuation_coeff=1e-4, interp="trilinear")
 PHASES = ((2.0, 0.3, 0.02, 5), (0.0, 0.1, 0.005, 6))
@@ -260,9 +267,21 @@ def test_graphs_on_the_cpu_raise(scene):
 
 
 def test_meshed_service_refuses_graphs():
-    with pytest.raises(ValueError, match="meshed service runs eagerly"):
-        RendererService(np.ones((8, 8, 8), np.float32), GEOM, RENDER, device="cpu",
-                        mesh=object(), graphs=True)
+    """A meshed service captures its tiers where its mesh is one card; it
+    refuses ``graphs=True`` on a mesh over distinct cards (a capture lives
+    on one device) and on the CPU, and runs eagerly there by default."""
+    vol = np.ones((8, 8, 8), np.float32)
+    with pytest.raises(ValueError, match="captured on one device"):
+        RendererService(vol, GEOM, RENDER, device="cpu",
+                        mesh=make_mesh(1, 2, ["cuda:0", "cuda:1"]), graphs=True)
+    with pytest.raises(ValueError, match="CUDA graphs run on a CUDA device"):
+        RendererService(vol, GEOM, RENDER, device="cpu", mesh=make_mesh(2, 4, CPU8), graphs=True)
+    svc = RendererService(vol, GEOM, RENDER, batch_tiers=(1, 4), device="cpu",
+                          mesh=make_mesh(2, 4, CPU8))
+    assert svc._graphs is False
+    svc.warmup()
+    svc.render(np.full((2, 3), 4.0, np.float32))
+    assert svc.graph_captures() == {"default": {}}
 
 
 class _FakeGraphed:
@@ -293,7 +312,7 @@ def test_scene_swap_and_removal_drop_its_graphs(monkeypatch):
     they share the scene's one pool."""
     monkeypatch.setattr(serve, "Graphed", _FakeGraphed)
     monkeypatch.setattr(serve, "Pool", _FakePool)
-    monkeypatch.setattr(serve, "use_graphs", lambda graphs, device: graphs is not False)  # the card
+    monkeypatch.setattr(serve, "use_graphs_over", lambda graphs, devices: graphs is not False)
     _FakeGraphed.made = 0
     vol = brain_phantom_3d((24, 24, 24))
     eager = RendererService(vol, GEOM, RENDER, batch_tiers=(1, 4), device="cpu",
@@ -330,7 +349,7 @@ def test_a_queued_render_keeps_its_scenes_graph(monkeypatch):
     through the old scene's graph."""
     monkeypatch.setattr(serve, "Graphed", _FakeGraphed)
     monkeypatch.setattr(serve, "Pool", _FakePool)
-    monkeypatch.setattr(serve, "use_graphs", lambda graphs, device: graphs is not False)  # the card
+    monkeypatch.setattr(serve, "use_graphs_over", lambda graphs, devices: graphs is not False)
     vol = brain_phantom_3d((24, 24, 24))
     svc = RendererService(vol, GEOM, RENDER, batch_tiers=(2,), device="cpu", coalesce=False)
     assert svc._graphs
@@ -364,3 +383,347 @@ def test_service_eager_on_the_cpu_by_default():
     svc.render(np.full((2, 3), 4.0, np.float32))
     assert svc.graph_captures() == {"default": {}}
     assert svc._get_scene("default").graphs == {}
+
+
+# -- the paths graphed since: the sharded step and the driver, the meshed
+# -- service and sharded recovery, the table fits, score_poses, the renders --
+
+
+def test_graphs_over_devices_follow_one_device_or_run_eagerly():
+    """A capture lives on one device: work over one card (a mesh that names
+    it eight times, written with or without its index) is that card's
+    rule; over distinct devices None is eager and True raises."""
+    assert graphs.use_graphs_over(None, ["cuda:0"] * 8) is True
+    assert graphs.use_graphs_over(False, ["cuda:0"] * 8) is False
+    assert graphs.use_graphs_over(None, CPU8) is False
+    assert graphs.use_graphs_over(None, ["cuda:0", "cuda:1"]) is False
+    assert graphs.use_graphs_over(False, ["cuda:0", "cuda:1"]) is False
+    for devices in (["cuda:0", "cuda:1"], ["cpu", "cuda:0"]):
+        with pytest.raises(ValueError, match="captured on one device"):
+            graphs.use_graphs_over(True, devices)
+    with pytest.raises(ValueError, match="CUDA graphs run on a CUDA device"):
+        graphs.use_graphs_over(True, CPU8)
+
+
+def test_graphs_for_a_differentiated_call_run_eagerly():
+    """A replay records nothing for autograd: where an input needs a
+    gradient the call runs eagerly, and True raises."""
+    leaf = torch.ones(3, requires_grad=True)
+    assert graphs.use_graphs_for(None, ["cpu"], (leaf,)) is False
+    with pytest.raises(ValueError, match="CUDA graphs run on a CUDA device"):
+        graphs.use_graphs_for(True, ["cpu"], (leaf,))
+
+
+def _tiny_batch(loss: str = "masked_mse_edge"):
+    t1, us, src, dirs, cfg = _training()
+    cfg = dataclasses.replace(cfg, loss=loss)
+    depth = cfg.num_samples
+    shape = cfg.image_shape if loss == "ssim" else (dirs.shape[0], depth)
+    target = torch.rand((2,) + tuple(shape), generator=torch.Generator().manual_seed(5))
+    return cfg, (torch.stack([t1, t1 * 1.1]), target, torch.ones_like(target, dtype=torch.bool),
+                 torch.stack([src, src + 0.5]), dirs.expand(2, -1, -1))
+
+
+def _new_paths(scene):
+    """Each entry point that takes ``graphs`` since the sharded step, the
+    meshed service, the table fits, ``score_poses`` and the renders were
+    graphed: ``graphs -> run``, on the CPU."""
+    vol, target, init = scene
+    cfg, batch = _tiny_batch()
+
+    def sharded_step(g):
+        model = init_params(torch.Generator().manual_seed(0), cfg.hidden)
+        step_fn, init_opt = shard.make_sharded_train_step(make_mesh(2, 1, CPU8), cfg, graphs=g)
+        return step_fn(model, init_opt(model), shard_batch(make_mesh(2, 1, CPU8), batch))
+
+    cases = [driver.CaseSpec(t1=batch[0][k].numpy(), target=batch[1][k].numpy(),
+                             mask=batch[2][k].numpy(), source=batch[3][k].numpy(),
+                             directions=batch[4][k].numpy()) for k in range(2)]
+    tx, ty = np.linspace(0.0, 1.0, 8, dtype=np.float32), np.linspace(1.0, 2.0, 8, dtype=np.float32)
+    acfg = pr.AnnealedPoseConfig(GEOM, RENDER, phases=PHASES)
+    src, dirs = torch.tensor([[12.0, 2.0, 12.0]]), fan_directions_2d([0.0, 1.0], 0.6, 8)
+    return {
+        "sharded step": sharded_step,
+        "train_impedance_cases": lambda g: driver.train_impedance_cases(
+            torch.Generator().manual_seed(0), cases, cfg, batch_size=2,
+            mesh=make_mesh(2, 1, CPU8), graphs=g)[1],
+        "meshed service": lambda g: RendererService(
+            vol, GEOM, RENDER, batch_tiers=(1,), device="cpu", mesh=make_mesh(1, 2, CPU8),
+            coalesce=False, graphs=g).render(src),
+        "sharded_render_sweep": lambda g: shard.sharded_render_sweep(
+            make_mesh(1, 2, CPU8), vol, src, dirs, 16, RENDER, graphs=g)[3],
+        "sharded_recover_pose_multistart": lambda g: shard.sharded_recover_pose_multistart(
+            make_mesh(1, 2, CPU8), vol, target, init,
+            pr.PoseRecoveryConfig(GEOM, RENDER, lr=0.05, steps=2), graphs=g)[1],
+        "train_on_table": lambda g: mlp.train_on_table(
+            init_params(torch.Generator().manual_seed(0), (4,)), tx[:, None], ty[:, None],
+            epochs=3, graphs=g)[1],
+        "fit_table_mlp": lambda g: mlp.fit_table_mlp(
+            torch.Generator().manual_seed(0), tx[:, None], ty[:, None], (4,), epochs=3,
+            device="cpu", graphs=g)[1],
+        "tp_train_on_table": lambda g: tp_train_on_table(
+            make_mesh(1, 2, CPU8), init_params(torch.Generator().manual_seed(0), (4,)), tx, ty,
+            epochs=3, graphs=g)[1],
+        "score_poses": lambda g: pr.score_poses(vol, target, init, acfg, graphs=g),
+        "recover_pose_global": lambda g: pr.recover_pose_global(
+            vol, target, [12.0, 2.0, 12.0], acfg, torch.Generator().manual_seed(1),
+            candidates=9, radius=1.0, keep=2, graphs=g)[1],
+        "render_bmode": lambda g: renderer.render_bmode(vol, src[0], dirs, 16, RENDER,
+                                                        image_shape=(12, 12), graphs=g),
+        "render_sweep": lambda g: renderer.render_sweep(vol, src, dirs, 16, RENDER, graphs=g)[3],
+    }
+
+
+PATHS = ["sharded step", "train_impedance_cases", "meshed service", "sharded_render_sweep",
+         "sharded_recover_pose_multistart", "train_on_table", "fit_table_mlp",
+         "tp_train_on_table", "score_poses", "recover_pose_global", "render_bmode",
+         "render_sweep"]
+
+
+@pytest.mark.parametrize("path", PATHS)
+def test_new_graphed_paths_raise_on_the_cpu_and_run_eagerly_by_default(scene, path):
+    """``graphs=True`` on the CPU raises; None runs the eager path, whose
+    result is ``graphs=False``'s bit for bit, and captures nothing."""
+    run = _new_paths(scene)[path]
+    with pytest.raises(ValueError, match="CUDA graphs run on a CUDA device"):
+        run(True)
+    before = len(graphs.CACHE)
+    default, eager = run(None), run(False)
+    assert len(graphs.CACHE) == before
+    if isinstance(default, list):
+        assert default == eager
+    else:
+        assert torch.equal(default, eager)
+
+
+def test_fit_table_mlp_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch):
+    """Its default device is the card, as JAX's fit runs on the
+    accelerator; on a machine with none it raises rather than fit on the
+    CPU, which ``device="cpu"`` asks for."""
+    seen = []
+    monkeypatch.setattr(mlp, "init_params", lambda gen, hidden, device: seen.append(device) or
+                        init_params(gen, hidden, "cpu"))
+    mlp.fit_table_mlp(torch.Generator().manual_seed(0), np.zeros((4, 1), np.float32),
+                      np.ones((4, 1), np.float32), (4,), epochs=1)
+    assert [torch.device(d).type for d in seen] == ["cuda"]
+
+
+def test_train_on_table_is_a_loop_of_todays_adam_steps():
+    """On the CPU the scanned fit is today's loop: plain Adam, the loss
+    before each step, bit for bit."""
+    x = torch.linspace(0.0, 1.0, 16)[:, None]
+    y = 1.5 + x ** 2
+    model = init_params(torch.Generator().manual_seed(0), (8, 8))
+    twin = init_params(torch.Generator().manual_seed(0), (8, 8))
+    _, losses = mlp.train_on_table(model, x, y, epochs=7, lr=0.01)
+    opt, want = torch.optim.Adam(twin.parameters(), lr=0.01), []
+    for _ in range(7):
+        opt.zero_grad(set_to_none=True)
+        loss = torch.mean((twin(x) - y) ** 2)
+        loss.backward()
+        opt.step()
+        want.append(loss.detach())
+    assert torch.equal(losses, torch.stack(want))
+    assert all(torch.equal(p, q) for p, q in zip(model.parameters(), twin.parameters()))
+
+
+def test_the_sharded_step_steps_the_loops_adam(monkeypatch):
+    """``init_opt`` is the loops' Adam on the mesh's first device
+    (``graphs.adam``: today's Adam on the CPU, capturable on the card), so
+    the sharded and the unsharded loops step one optimizer rule."""
+    seen = []
+    monkeypatch.setattr(shard, "adam", lambda params, device, lr: seen.append((device, lr)) or
+                        graphs.adam(params, device, lr))
+    cfg, _ = _tiny_batch()
+    mesh = make_mesh(2, 1, CPU8)
+    _, init_opt = shard.make_sharded_train_step(mesh, cfg, lr=0.02)
+    opt = init_opt(init_params(torch.Generator().manual_seed(0), cfg.hidden))
+    assert seen == [(mesh.first, 0.02)]
+    assert type(opt) is torch.optim.Adam and not opt.param_groups[0]["capturable"]
+
+
+class _CountingGraphed(_FakeGraphed):
+    """A stand-in of ``Graphed`` that keeps the keywords it was made with."""
+
+    instances = []
+
+    def __init__(self, fn, name="graph", device=None, pool=None, generators=(), adopt=False):
+        super().__init__(fn, name, device, pool)
+        self.generators, self.adopt = generators, adopt
+        _CountingGraphed.instances.append(self)
+
+    def __call__(self, *inputs, out=None):
+        result = super().__call__(*inputs)
+        if out is None:
+            return result
+        out.copy_(result)
+        return out
+
+
+class _SaysCapturable(torch.optim.Adam):
+    """Today's Adam that says it is capturable, as the card's is: the CPU
+    cannot step a capturable Adam."""
+
+    def __init__(self, params, lr):
+        super().__init__(params, lr=lr)
+        for group in self.param_groups:
+            group["capturable"] = True
+
+    def step(self, closure=None):
+        for group in self.param_groups:
+            group["capturable"] = False
+        try:
+            return super().step(closure)
+        finally:
+            for group in self.param_groups:
+                group["capturable"] = True
+
+
+def test_a_graphed_sharded_step_captures_once_a_model_and_shape(monkeypatch):
+    """With graphs (``use_graphs_over`` patched to say the mesh is one
+    card): one graph a (model, optimizer, batch shapes), made to keep the
+    blocks it is captured on (``adopt``), which ``shard_batch(out=)``
+    writes in place; each step equals the eager step; a non-capturable
+    optimizer is refused before anything is captured."""
+    monkeypatch.setattr(shard, "Graphed", _CountingGraphed)
+    monkeypatch.setattr(shard, "use_graphs_over", lambda g, devices: g is not False)
+    _CountingGraphed.instances = []
+    cfg, batch = _tiny_batch()
+    mesh = make_mesh(2, 1, CPU8)
+    step_fn, _ = shard.make_sharded_train_step(mesh, cfg, lr=0.02)
+    eager_fn, _ = shard.make_sharded_train_step(mesh, cfg, lr=0.02, graphs=False)
+    model = init_params(torch.Generator().manual_seed(0), cfg.hidden)
+    twin = init_params(torch.Generator().manual_seed(0), cfg.hidden)
+    with pytest.raises(ValueError, match="capturable=True"):
+        step_fn(model, torch.optim.Adam(model.parameters(), lr=0.02), shard_batch(mesh, batch))
+    assert not _CountingGraphed.instances
+    opt, twin_opt = _SaysCapturable(model.parameters(), 0.02), _SaysCapturable(twin.parameters(),
+                                                                                 0.02)
+    placed = None
+    for k in range(3):
+        values = tuple(x * (1 + 0.1 * k) if x.is_floating_point() else x for x in batch)
+        blocks = None if placed is None else [t for t in shard._flatten(placed)[0]]
+        placed = shard_batch(mesh, values, out=placed)
+        if blocks is not None:   # written in place
+            assert all(a is b for a, b in zip(shard._flatten(placed)[0], blocks))
+        got = step_fn(model, opt, placed)
+        assert torch.equal(got, eager_fn(twin, twin_opt, shard_batch(mesh, values)))
+    assert len(_CountingGraphed.instances) == 1 and _CountingGraphed.instances[0].adopt
+    assert all(torch.equal(p, q) for p, q in zip(model.parameters(), twin.parameters()))
+
+
+def test_shard_batch_out_is_one_copy_into_the_same_blocks():
+    """``out=``: the blocks of an earlier placement take the new batch's
+    values in place; blocks that shared a tensor (a replicated row) still
+    share it; a batch placed on another mesh is refused."""
+    cfg, batch = _tiny_batch()
+    mesh = make_mesh(1, 4, CPU8)
+    first = shard_batch(mesh, tuple(x.clone() for x in batch))
+    tensors, rebuild = shard._flatten(first)
+    assert len(tensors) == 4 + 1 + 1 + 1 + 1          # the rays split, the rest one block
+    doubled = tuple(x * 2 if x.is_floating_point() else x for x in batch)
+    again = shard_batch(mesh, doubled, out=first)
+    assert again is first and all(a is b for a, b in zip(shard._flatten(again)[0], tensors))
+    want = shard_batch(mesh, doubled)
+    for field in shard._BLOCKS:
+        for got, ref in zip(getattr(again, field).flat, getattr(want, field).flat):
+            assert torch.equal(got, ref)
+    rebuilt = rebuild([t.clone() for t in tensors])
+    assert rebuilt.t1[0, 0] is rebuilt.t1[0, 3] and rebuilt.directions[0, 0] is not \
+        rebuilt.directions[0, 1]
+    with pytest.raises(ValueError, match="same mesh"):
+        shard_batch(make_mesh(1, 4, CPU8), batch, out=first)
+
+
+def test_the_meshed_service_graphs_its_tiers_over_one_card(monkeypatch):
+    """With graphs on a one-card mesh (``use_graphs_over`` patched to say
+    so), each scene's meshed tier is one graph in the scene's pool, and
+    its frames are the eager meshed service's and the unmeshed one's."""
+    monkeypatch.setattr(serve, "Graphed", _FakeGraphed)
+    monkeypatch.setattr(serve, "Pool", _FakePool)
+    monkeypatch.setattr(serve, "use_graphs_over", lambda g, devices: g is not False)
+    vol = brain_phantom_3d((24, 24, 24))
+    mesh = make_mesh(2, 4, CPU8)
+    kw = dict(batch_tiers=(1, 4), device="cpu", coalesce=False)
+    svc = RendererService(vol, GEOM, RENDER, mesh=mesh, **kw)
+    eager = RendererService(vol, GEOM, RENDER, mesh=mesh, graphs=False, **kw)
+    plain = RendererService(vol, GEOM, RENDER, graphs=False, **kw)
+    svc.warmup()
+    assert sorted(svc.graph_captures()["default"]) == [1, 4]
+    src = np.array([[12.0, 2.0, 12.0], [11.0, 2.5, 12.5]], np.float32)
+    got = svc.render(src)
+    assert torch.equal(got, eager.render(src)) and torch.equal(got, plain.render(src))
+
+
+def test_sharded_recovery_runs_one_descent_a_device():
+    """On a mesh that names one device eight times the starts run as one
+    batched descent, the unsharded one's (padding sliced back)."""
+    vol = torch.from_numpy(brain_phantom_3d((24, 24, 24)))
+    with torch.no_grad():
+        target = pr.render_pose(vol, TransducerPose.create([12.0, 2.0, 12.0]),
+                                pr.PoseRecoveryConfig(GEOM, RENDER))
+    init = pr.sample_init_poses(torch.Generator().manual_seed(2), [12.0, 2.0, 12.0], 1.0,
+                                0.02, 5)
+    cfg = pr.PoseRecoveryConfig(GEOM, RENDER, lr=0.05, steps=3)
+    calls = []
+    recover = pr.recover_pose_multistart
+
+    def counting(*args, **kwargs):
+        calls.append(args[2].position.shape[0])
+        return recover(*args, **kwargs)
+
+    pr.recover_pose_multistart = counting
+    try:
+        poses, losses, best = shard.sharded_recover_pose_multistart(make_mesh(2, 4, CPU8), vol,
+                                                                    target, init, cfg)
+    finally:
+        pr.recover_pose_multistart = recover
+    assert calls == [8]
+    want_poses, want_losses, want_best = pr.recover_pose_multistart(vol, target, init, cfg)
+    assert torch.equal(losses, want_losses) and int(best) == int(want_best)
+    assert torch.equal(poses.position, want_poses.position)
+
+
+def test_render_graphs_are_cached_a_signature_and_go_with_their_volume(monkeypatch):
+    """With graphs (patched to say the card is there): one cached graph a
+    static signature, the artifacts' generator registered with it, and the
+    entry gone once its volume is freed; the cache is bounded."""
+    monkeypatch.setattr(graphs, "Graphed", _CountingGraphed)
+    monkeypatch.setattr(renderer, "use_graphs_for", lambda g, devices, tensors: g is not False)
+    monkeypatch.setattr(graphs, "CACHE", graphs.GraphCache(size=3))
+    _CountingGraphed.instances = []
+    vol = torch.from_numpy(brain_phantom_3d((24, 24, 24)))
+    src, dirs = torch.tensor([[12.0, 2.0, 12.0]]), fan_directions_2d([0.0, 1.0], 0.6, 8)
+    art = dataclasses.replace(RENDER, artifacts=True)
+    gen = torch.Generator().manual_seed(3)
+    for _ in range(2):
+        frames = renderer.render_sweep(vol, src, dirs, 16, art, generator=gen)[3]
+        image = renderer.render_bmode(vol, src[0], dirs, 16, RENDER, image_shape=(12, 12))
+    assert len(_CountingGraphed.instances) == 2 and len(graphs.CACHE) == 2
+    assert [g.generators for g in _CountingGraphed.instances] == [(gen,), ()]
+    eager_gen = torch.Generator().manual_seed(3)
+    for _ in range(2):
+        want = renderer.render_sweep(vol, src, dirs, 16, art, generator=eager_gen, graphs=False)[3]
+    assert torch.equal(frames, want)
+    assert torch.equal(image, renderer.render_bmode(vol, src[0], dirs, 16, RENDER,
+                                                    image_shape=(12, 12), graphs=False))
+    for n in (20, 24, 28):                     # other signatures: the oldest go
+        renderer.render_sweep(vol, src, dirs, n, RENDER)
+    assert len(graphs.CACHE) == 3
+    del vol
+    gc.collect()
+    assert len(graphs.CACHE) == 0
+
+
+def test_a_second_artifact_call_builds_no_device_constant():
+    """The blurs' banks, indices, masks and counts are made once per key:
+    a second call on the same shapes makes none."""
+    image = torch.rand((2, 8, 40), generator=torch.Generator().manual_seed(0))
+    artifacts.depth_dependent_lateral_blur(image, 2.0)
+    artifacts.depth_dependent_axial_blur(image, 7)
+    before = (artifacts._lateral_bank.cache_info(), artifacts._axial_window.cache_info())
+    artifacts.depth_dependent_lateral_blur(image * 2, 2.0)
+    artifacts.depth_dependent_axial_blur(image * 2, 7)
+    after = (artifacts._lateral_bank.cache_info(), artifacts._axial_window.cache_info())
+    assert [a.misses for a in after] == [b.misses for b in before]
+    assert [a.hits for a in after] == [b.hits + 1 for b in before]

@@ -250,7 +250,7 @@ def test_train_on_table_matches_jax_and_fits():
     np.testing.assert_allclose(tl[:5], jl[:5], rtol=1e-4)
     assert tl[-1] < 0.1 * tl[0] and jl[-1] < 0.1 * jl[0]
     model2, losses = tmlp.fit_table_mlp(torch.Generator().manual_seed(0), tx_, ty_, epochs=300,
-                                        lr=0.01)
+                                        lr=0.01, device="cpu")
     assert isinstance(model2, tmlp.ImpedanceMLP)
     assert float(losses[-1]) < 0.1 * float(losses[0])
 

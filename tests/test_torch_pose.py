@@ -234,6 +234,33 @@ def test_score_poses_matches_jax_at_any_chunk(monkeypatch):
                                    got, rtol=1e-6, atol=0)
 
 
+@pytest.mark.parametrize("n", [5, 8, 13])
+def test_score_poses_pads_its_last_chunk_and_matches_jax(monkeypatch, n):
+    """Every chunk is SCORE_CHUNK poses (the last padded by repeating its
+    last pose, so that on the card one captured chunk replays over them
+    all); the scores, sliced back to ``n``, are JAX's."""
+    jcfg, tcfg = _cfgs(phases=((2.0, 0.2, 0.01, 5),))
+    target = _target(tcfg)
+    rng = seeded(n)
+    pos = (TRUE + rng.uniform(-1.5, 1.5, (n, 3))).astype(np.float32)
+    rot = (0.03 * rng.normal(size=(n, 3))).astype(np.float32)
+    want = np.asarray(jpr.score_poses(jnp.asarray(VOL24), jnp.asarray(target),
+                                      jt.TransducerPose(jnp.asarray(pos), jnp.asarray(rot)),
+                                      jcfg))
+    shapes, loss = [], tpr.pose_loss
+
+    def recording(volume, target_b, pose, cfg, sigma=0.0):
+        shapes.append(tuple(pose.position.shape))
+        return loss(volume, target_b, pose, cfg, sigma)
+
+    monkeypatch.setattr(tpr, "pose_loss", recording)
+    got = tpr.score_poses(torch.from_numpy(VOL24), target,
+                          tt.TransducerPose(torch.from_numpy(pos), torch.from_numpy(rot)), tcfg)
+    assert got.shape == (n,) and set(shapes) == {(tpr.SCORE_CHUNK, 3)}
+    assert len(shapes) == -(-n // tpr.SCORE_CHUNK)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6 * want.max())
+
+
 STARTS = (TRUE + np.array([[0.6, -0.4, 0.5], [-0.7, 0.3, -0.2], [0.2, 0.5, 0.9]],
                           np.float32), np.array([[0.0, 0.01, 0.0], [0.02, 0.0, -0.01],
                                                  [0.0, 0.0, 0.0]], np.float32))
