@@ -45,6 +45,7 @@ from diffus_tpu_torch.train.pose_recovery import (
 )
 from diffus_tpu_torch.types import BeamGeometry, RenderConfig, TransducerPose
 from diffus_tpu_torch.utils.graphs import Graphed, Pool, use_graphs_over
+from diffus_tpu_torch.utils.profiling import span
 
 
 class _Pending:
@@ -463,7 +464,14 @@ class RendererService:
           ``(P, n_rays, num_samples - start)`` frames: a tensor on the
           service's device for a request rendered alone, a CPU tensor for a
           request coalesced with others (``.cpu()`` serves both).
+
+        Under ``torch.profiler`` the whole request is the span
+        ``serve.render``.
         """
+        with span("serve.render"):
+            return self._request(sources, scene)
+
+    def _request(self, sources, scene: str) -> torch.Tensor:
         t0 = time.perf_counter()
         sc = self._get_scene(scene)
         sources = torch.as_tensor(sources, dtype=torch.float32, device=self.device)

@@ -28,7 +28,6 @@ import os
 from typing import Optional
 
 import torch
-from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from diffus_tpu_torch.impedance.mlp import (
@@ -45,6 +44,7 @@ from diffus_tpu_torch.train.losses import masked_mse_edge_loss, ssim_loss
 from diffus_tpu_torch.train.metrics import MetricsLogger
 from diffus_tpu_torch.types import RenderConfig, _f32
 from diffus_tpu_torch.utils.graphs import adam, capture, scan, use_graphs
+from diffus_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,11 +132,11 @@ def train_step(model: ImpedanceMLP, optimizer: torch.optim.Optimizer, t1_volume,
     ``train_step.forward``, ``train_step.backward`` and ``train_step.optimizer``.
     """
     optimizer.zero_grad(set_to_none=True)
-    with record_function("train_step.forward"):
+    with span("train_step.forward"):
         loss = synth_loss(model, t1_volume, us_real_norm, mask, source, directions, cfg)
-    with record_function("train_step.backward"):
+    with span("train_step.backward"):
         loss.backward()
-    with record_function("train_step.optimizer"):
+    with span("train_step.optimizer"):
         optimizer.step()
     return loss.detach()
 

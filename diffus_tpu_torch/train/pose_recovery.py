@@ -47,12 +47,12 @@ import math
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from diffus_tpu_torch.geometry.fan import pose_fan_directions
 from diffus_tpu_torch.render.renderer import _render
 from diffus_tpu_torch.types import BeamGeometry, RenderConfig, TransducerPose, Volume, _f32
 from diffus_tpu_torch.utils.graphs import adam, capture, scan, use_graphs
+from diffus_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -194,11 +194,11 @@ def pose_step(volume, target_blurred: torch.Tensor, pose: TransducerPose,
     detached.  The phases are ``torch.profiler`` ranges ``pose_step.forward``,
     ``pose_step.backward`` and ``pose_step.optimizer``."""
     optimizer.zero_grad(set_to_none=True)
-    with record_function("pose_step.forward"):
+    with span("pose_step.forward"):
         mse = pose_loss(volume, target_blurred, pose, cfg, sigma)
-    with record_function("pose_step.backward"):
+    with span("pose_step.backward"):
         mse.sum().backward()
-    with record_function("pose_step.optimizer"):
+    with span("pose_step.optimizer"):
         optimizer.step()
     return mse.detach()
 

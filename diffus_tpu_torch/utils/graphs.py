@@ -40,6 +40,8 @@ import weakref
 
 import torch
 
+from diffus_tpu_torch.utils.profiling import span
+
 WARMUP = 3  # eager calls before the capture: they allocate state and fill every cache
 
 replayed = collections.Counter()  # counter name -> launches made by replays
@@ -170,7 +172,9 @@ class Graphed:
     and copy-out share the graph's buffers.  Each is queued on the current
     stream of ``device`` (default: the current device).  ``capture_s`` is
     the capture's seconds.  Graphs given one :class:`Pool` share its
-    memory, its side stream and its lock.
+    memory, its side stream and its lock.  Under ``torch.profiler``, each
+    call's work inside the lock is a span (``span``): ``graph.warmup``,
+    ``graph.capture`` or ``graph.replay``, the graph's name after a colon.
     """
 
     def __init__(self, fn, name: str = "graph", device=None, pool: Pool | None = None,
@@ -195,26 +199,32 @@ class Graphed:
         with self._lock, torch.cuda.device(self.device):
             if self._graph is None and self._calls < WARMUP:
                 self._calls += 1
-                return self._eager(inputs, out)
+                with span("graph.warmup", self.name):
+                    return self._eager(inputs, out)
             if self._graph is None:
-                self._capture(inputs)
-            if len(inputs) != len(self._inputs):
-                raise ValueError(f"{self.name}: {len(inputs)} inputs, captured with "
-                                 f"{len(self._inputs)}")
-            for static, x in zip(self._inputs, inputs):
-                if x.shape != static.shape or x.dtype != static.dtype:
-                    raise ValueError(f"{self.name}: input {tuple(x.shape)} {x.dtype}, captured "
-                                     f"at {tuple(static.shape)} {static.dtype}")
-                static.copy_(x)
-            self._graph.replay()
-            for (name, fn, attr), n in self._launches.items():
-                setattr(fn, attr, getattr(fn, attr) + n)
-                replayed[name] += n
-            if out is None:
-                return _map(torch.clone, self._outputs)
-            for dst, src in zip(_tensors(out), _tensors(self._outputs)):
-                dst.copy_(src)
-            return out
+                with span("graph.capture", self.name):
+                    self._capture(inputs)
+            with span("graph.replay", self.name):
+                return self._replay(inputs, out)
+
+    def _replay(self, inputs, out):
+        if len(inputs) != len(self._inputs):
+            raise ValueError(f"{self.name}: {len(inputs)} inputs, captured with "
+                             f"{len(self._inputs)}")
+        for static, x in zip(self._inputs, inputs):
+            if x.shape != static.shape or x.dtype != static.dtype:
+                raise ValueError(f"{self.name}: input {tuple(x.shape)} {x.dtype}, captured "
+                                 f"at {tuple(static.shape)} {static.dtype}")
+            static.copy_(x)
+        self._graph.replay()
+        for (name, fn, attr), n in self._launches.items():
+            setattr(fn, attr, getattr(fn, attr) + n)
+            replayed[name] += n
+        if out is None:
+            return _map(torch.clone, self._outputs)
+        for dst, src in zip(_tensors(out), _tensors(self._outputs)):
+            dst.copy_(src)
+        return out
 
     def _stream(self) -> torch.cuda.Stream:
         """The graph's own side stream: the warm-up's, and the capture's."""

@@ -1088,6 +1088,46 @@ def test_a_failed_capture_raises(cuda):
         step(x)
 
 
+@pytest.mark.cuda
+def test_graph_spans_share_the_profilers_clock(cuda, tmp_path):
+    """A graph's calls under ``torch.profiler``: ``WARMUP`` warm-up spans,
+    one capture and a replay span a later call, each replay's kernels
+    (those its ``cudaGraphLaunch`` launched) starting after its span opens."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from diffus_tpu_torch.utils import graphs
+
+    x = torch.linspace(-4.0, 4.0, 1 << 16, device=cuda)
+    step = graphs.Graphed(lambda v: (v * 2.0 + 1.0).sin(), name="spanned step")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(graphs.WARMUP + 2):
+            step(x)
+        torch.cuda.synchronize(cuda)
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = [e for e in json.loads(path.read_text())["traceEvents"] if e.get("ph") == "X"]
+    spans = {}
+    for e in events:
+        if e.get("cat") == "user_annotation" and e["name"].startswith("graph."):
+            kind, _, of = e["name"].partition(":")
+            assert of == "spanned step"
+            spans.setdefault(kind, []).append(e)
+    assert {k: len(v) for k, v in spans.items()} == {
+        "graph.warmup": graphs.WARMUP, "graph.capture": 1, "graph.replay": 2}
+    launches = [e for e in events
+                if e.get("cat") == "cuda_runtime" and "GraphLaunch" in e["name"]]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    for s in spans["graph.replay"]:
+        inside = [e for e in launches if s["ts"] <= e["ts"] <= s["ts"] + s["dur"]]
+        assert len(inside) == 1
+        mine = [k for k in kernels
+                if k["args"].get("correlation") == inside[0]["args"]["correlation"]]
+        assert mine, "no kernel of the replay's launch in the trace"
+        assert min(k["ts"] for k in mine) >= s["ts"]
+
+
 # -- the paths graphed since: the sharded step and the driver, the meshed
 # -- service, sharded recovery, the table fits, score_poses and the renders --
 
