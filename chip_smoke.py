@@ -3766,6 +3766,24 @@ def _replays() -> dict:
                                             "echo_scan_bwd", "trilinear_bwd", "gather_probe")}
 
 
+@contextlib.contextmanager
+def _captures():
+    """The names of the graphs captured inside the block."""
+    from diffus_tpu_torch.utils.graphs import Graphed
+
+    names, capture = [], Graphed._capture
+
+    def counted(self, inputs):
+        names.append(self.name)
+        return capture(self, inputs)
+
+    Graphed._capture = counted
+    try:
+        yield names
+    finally:
+        Graphed._capture = capture
+
+
 def _no_sync(run, what: str):
     """``run()`` under ``torch.cuda.set_sync_debug_mode("error")``: raises if
     it synchronises with the host."""
@@ -3971,28 +3989,36 @@ def _graph_recovery_part(dev, vol, card: str, clock) -> dict:
         target = render_pose(vol, TransducerPose.create(APEX, device=dev), cfg.as_base())
     init = sample_init_poses(torch.Generator(device=dev).manual_seed(RECOVERY_SEED), APEX,
                              RADIUS, ROT_SCALE, STARTS)
-    runs, run_s = {}, {"eager": [], "graph": []}
+    runs, run_s, made, replayed = {"eager": [], "graph": []}, {"eager": [], "graph": []}, [], []
     torch.use_deterministic_algorithms(True)
     try:
         for kind in ("eager", "graph", "graph", "eager"):
             _counts_reset()
             t0 = time.perf_counter()
-            runs[kind] = recover_pose_multistart_annealed(
-                vol, target, init, cfg, graphs=None if kind == "graph" else False)
+            with _captures() as names:
+                runs[kind].append(recover_pose_multistart_annealed(
+                    vol, target, init, cfg, graphs=None if kind == "graph" else False))
             torch.cuda.synchronize()
             run_s[kind].append(time.perf_counter() - t0)
             if kind == "graph":
-                launches = _replays()
-        (pg, lg, _), (pe, le, _) = runs["graph"], runs["eager"]
-        if not (torch.equal(lg, le) and torch.equal(pg.position, pe.position)
-                and torch.equal(pg.rotvec, pe.rotvec)):
-            raise AssertionError(f"recovery: the graphed descent differs from the eager one: "
-                                 f"losses max abs {float((lg - le).abs().max()):.3e}")
+                replayed.append(_replays())
+                made.append(len(names))
+        if made != [len(GRAPH_PHASES), 0]:
+            raise AssertionError(f"recovery: the two graphed runs captured {made} graphs, "
+                                 f"expected one a phase in the first, which the second replays")
+        pe, le, _ = runs["eager"][0]
         want = steps - len(GRAPH_PHASES) * WARMUP   # a phase's first steps run eagerly
-        if any(launches[k] != want for k in ("echo_scan", "trilinear_sample", "echo_scan_bwd",
-                                             "trilinear_bwd")) or launches["trilinear_idx"]:
-            raise AssertionError(f"recovery: launches through replays {launches}, expected "
-                                 f"{want} each of K1, K2 (no idx), K1b, K2b")
+        for i, ((pg, lg, _), launches) in enumerate(zip(runs["graph"], replayed)):
+            if not (torch.equal(lg, le) and torch.equal(pg.position, pe.position)
+                    and torch.equal(pg.rotvec, pe.rotvec)):
+                raise AssertionError(f"recovery: graphed run {i + 1} differs from the eager "
+                                     f"one: losses max abs {float((lg - le).abs().max()):.3e}")
+            if any(launches[k] != want for k in ("echo_scan", "trilinear_sample",
+                                                 "echo_scan_bwd", "trilinear_bwd")) \
+                    or launches["trilinear_idx"]:
+                raise AssertionError(f"recovery: graphed run {i + 1}'s launches through "
+                                     f"replays {launches}, expected {want} each of K1, K2 "
+                                     f"(no idx), K1b, K2b")
         # the first phase's step, captured alone, as the loop captures it
         sigma, lr_pos, lr_rot, phase_steps = GRAPH_PHASES[0]
         target_b = gaussian_blur_frame(target, sigma)
@@ -4021,8 +4047,9 @@ def _graph_recovery_part(dev, vol, card: str, clock) -> dict:
           f"deterministic algorithms); the whole run's seconds, eager / graph / graph / eager: "
           + " / ".join(f"{s:.3f}" for s in (run_s["eager"][0], *run_s["graph"],
                                             run_s["eager"][1]))
-          + f" (each graphed phase: {WARMUP} eager steps, a capture, replays)",
-          flush=True)
+          + f" (each graphed phase: {WARMUP} eager steps, then replays; captures "
+          f"{made[0]} in the first graphed run, {made[1]} in the second, which replays the "
+          f"kept graphs; both equal to eager)", flush=True)
     return {"launches": launches, "walls": walls, "device_ms": device,
             "capture_s": graph_step.capture_s, "run_s": run_s}
 
@@ -4042,29 +4069,37 @@ def _graph_training_part(dev, vol, card: str, clock) -> dict:
     cfg = dataclasses.replace(cfg, epochs=GRAPH_EPOCHS)
     us_norm, mask = _normalized(target)
     args = (t1, us_norm, mask)
-    runs, run_s = {}, {"eager": [], "graph": []}
+    runs, run_s, made, replayed = {"eager": [], "graph": []}, {"eager": [], "graph": []}, [], []
     torch.use_deterministic_algorithms(True)
     try:
         for kind in ("eager", "graph", "graph", "eager"):
             model = init_params(torch.Generator().manual_seed(TRAIN_SEED), cfg.hidden, dev)
             _counts_reset()
             t0 = time.perf_counter()
-            _, losses = train_impedance_scan(model, *args, src, dirs, cfg,
-                                             graphs=None if kind == "graph" else False)
+            with _captures() as names:
+                _, losses = train_impedance_scan(model, *args, src, dirs, cfg,
+                                                 graphs=None if kind == "graph" else False)
             torch.cuda.synchronize()
             run_s[kind].append(time.perf_counter() - t0)
-            runs[kind] = (losses, [p.detach().clone() for p in model.parameters()])
+            runs[kind].append((losses, [p.detach().clone() for p in model.parameters()]))
             if kind == "graph":
-                launches = _replays()
-        (lg, pg), (le, pe) = runs["graph"], runs["eager"]
-        if not (torch.equal(lg, le) and all(torch.equal(a, b) for a, b in zip(pg, pe))):
-            raise AssertionError(f"training: the graphed run differs from the eager one: "
-                                 f"losses {lg.tolist()} vs {le.tolist()}")
+                replayed.append(_replays())
+                made.append(len(names))
+        if made != [1, 0]:
+            raise AssertionError(f"training: the two graphed runs captured {made} graphs, "
+                                 f"expected one in the first, which the second replays")
+        le, pe = runs["eager"][0]
         want = GRAPH_EPOCHS - WARMUP
-        if any(launches[k] != want for k in ("echo_scan", "trilinear_sample", "trilinear_idx",
-                                             "echo_scan_bwd", "trilinear_bwd")):
-            raise AssertionError(f"training: launches through replays {launches}, expected "
-                                 f"{want} each of K1, K2 (with idx), K1b, K2b")
+        for i, ((lg, pg), launches) in enumerate(zip(runs["graph"], replayed)):
+            if not (torch.equal(lg, le) and all(torch.equal(a, b) for a, b in zip(pg, pe))):
+                raise AssertionError(f"training: graphed run {i + 1} differs from the eager "
+                                     f"one: losses {lg.tolist()} vs {le.tolist()}")
+            if any(launches[k] != want for k in ("echo_scan", "trilinear_sample",
+                                                 "trilinear_idx", "echo_scan_bwd",
+                                                 "trilinear_bwd")):
+                raise AssertionError(f"training: graphed run {i + 1}'s launches through "
+                                     f"replays {launches}, expected {want} each of K1, K2 "
+                                     f"(with idx), K1b, K2b")
         eager_model = init_params(torch.Generator().manual_seed(TRAIN_SEED), cfg.hidden, dev)
         graph_model = init_params(torch.Generator().manual_seed(TRAIN_SEED), cfg.hidden, dev)
         eager_opt = make_optimizer(eager_model, cfg)
@@ -4090,7 +4125,9 @@ def _graph_training_part(dev, vol, card: str, clock) -> dict:
           f"eager bit for bit (losses and weights, deterministic algorithms); the whole run's "
           f"seconds, eager / graph / graph / eager: "
           + " / ".join(f"{s:.3f}" for s in (run_s["eager"][0], *run_s["graph"],
-                                            run_s["eager"][1])), flush=True)
+                                            run_s["eager"][1]))
+          + f" (captures: {made[0]} in the first graphed run, {made[1]} in the second, which "
+          f"replays the kept graph; both equal to eager)", flush=True)
     # the card's Adam (capturable: its bias correction and step size formed on
     # the device from float64 step counts) against plain Adam on the same
     # gradients: one step's update.  Capturable Adam's own float32 counts read

@@ -14,7 +14,9 @@ The JAX package jits one pure ``train_step`` and scans it over epochs.
 Here :func:`train_step` updates the module and its ``torch.optim.Adam`` in
 place; on the card :func:`make_train_step` captures it as a CUDA graph
 once per (module, optimizer, shapes), after its first steps run eagerly,
-and the epochs replay it (:mod:`diffus_tpu_torch.utils.graphs`).  The
+and the epochs replay it (:mod:`diffus_tpu_torch.utils.graphs`);
+:func:`train_impedance_scan` keeps its captured step across calls of one
+shape, for job after job of fresh weights.  The
 loops take ``graphs``: None is graphs on a CUDA volume and eager on the
 CPU, False runs eagerly on the card.  :func:`make_optimizer` gives a
 capturable Adam on the card (its step counts and bias correction on the
@@ -23,6 +25,7 @@ device), which the loops use graphed or not.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import os
 from typing import Optional
@@ -43,7 +46,16 @@ from diffus_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from diffus_tpu_torch.train.losses import masked_mse_edge_loss, ssim_loss
 from diffus_tpu_torch.train.metrics import MetricsLogger
 from diffus_tpu_torch.types import RenderConfig, _f32
-from diffus_tpu_torch.utils.graphs import adam, capture, scan, use_graphs
+from diffus_tpu_torch.utils.graphs import (
+    adam,
+    capture,
+    kept,
+    reset_adam,
+    reuse,
+    scan,
+    signature,
+    use_graphs,
+)
 from diffus_tpu_torch.utils.profiling import span
 
 
@@ -157,15 +169,57 @@ def make_train_step(model: ImpedanceMLP, optimizer: torch.optim.Optimizer, t1_vo
                          "torch.optim.Adam(..., capturable=True), as make_optimizer gives on "
                          "the card")
 
+    return capture(_step(model, optimizer, lambda: t1_volume, us_real_norm, mask, directions,
+                         cfg), graphed, "train_step", device)
+
+
+def _step(model, optimizer, volume, us_real_norm, mask, directions, cfg):
+    """:func:`train_step` on these tensors as ``step(source)``, the volume
+    ``volume()`` (a weak reference where the step is kept)."""
     def step(source):
-        return train_step(model, optimizer, t1_volume, us_real_norm, mask, source, directions,
+        return train_step(model, optimizer, volume(), us_real_norm, mask, source, directions,
                           cfg)
 
-    return capture(step, graphed, "train_step", device)
+    return step
 
 
 def _losses(t1_volume: torch.Tensor, steps: int) -> torch.Tensor:
     return t1_volume.new_empty((steps,))
+
+
+def _weights(model: torch.nn.Module) -> list:
+    return list(model.parameters()) + list(model.buffers())
+
+
+class _KeptTraining:
+    """:func:`train_impedance_scan`'s kept entry: a static copy of the
+    module, its Adam, the target, mask and fan, and the captured step
+    that reads them and the volume (through ``ref``)."""
+
+    def __init__(self, ref, model, us_real_norm, mask, directions, cfg):
+        self.model = copy.deepcopy(model)
+        self.optimizer = make_optimizer(self.model, cfg)
+        self.inputs = (us_real_norm.clone(), mask.clone(), directions.clone())
+        self.step = capture(_step(self.model, self.optimizer, ref, *self.inputs, cfg), True,
+                            "train_step", us_real_norm.device)
+
+    def run(self, model, us_real_norm, mask, source, directions, losses) -> torch.Tensor:
+        """One job: ``model``'s weights and these inputs into the static
+        state, Adam zeroed, the step re-armed and scanned; the trained
+        weights copied back into ``model``."""
+        def reset():
+            with torch.no_grad():
+                for static, x in zip(_weights(self.model) + list(self.inputs),
+                                     _weights(model) + [us_real_norm, mask, directions]):
+                    static.copy_(x)
+            reset_adam(self.optimizer)
+
+        reuse(self.step, reset)
+        scan(self.step, losses, inputs=(source,))
+        with torch.no_grad():
+            for x, static in zip(_weights(model), _weights(self.model)):
+                x.copy_(static)
+        return losses
 
 
 def train_impedance_scan(model: ImpedanceMLP, t1_volume, us_real_norm, mask, source,
@@ -173,13 +227,34 @@ def train_impedance_scan(model: ImpedanceMLP, t1_volume, us_real_norm, mask, sou
     """``cfg.epochs`` Adam steps from a fresh optimizer, replays of one
     captured step per ``graphs`` (:func:`make_train_step`).
 
+    Where graphs run, the captured step is kept across calls of one static
+    signature (the module's type and parameter shapes, ``cfg``, the
+    shapes of the target, mask, fan and source, the volume,
+    :func:`~diffus_tpu_torch.utils.graphs.kept`), with a static copy of
+    the module, its Adam and the target, mask and fan it reads.  A call
+    on a kept step copies ``model``'s weights and its inputs into those
+    in place, zeroes Adam's moments and step counts, runs the first steps
+    eagerly again and replays the kept graph, and copies the trained
+    weights back into ``model``: the same steps as a fresh capture's,
+    with no capture.  A call while another holds the kept step does the
+    same on an entry of its own, captured and not kept.
+
     Returns ``(model, losses)``: the module, trained in place, and the
     ``(epochs,)`` losses, each taken before its step.
     """
+    losses = _losses(t1_volume, cfg.epochs)
+    if use_graphs(graphs, t1_volume.device):
+        key = (type(model), model.training, cfg,
+               tuple((n, t.requires_grad) for n, t in model.named_parameters()),
+               signature(*_weights(model), us_real_norm, mask, source, directions))
+        with kept("train_impedance_scan", t1_volume, key,
+                  lambda ref: _KeptTraining(ref, model, us_real_norm, mask, directions,
+                                            cfg)) as entry:
+            return model, entry.run(model, us_real_norm, mask, source, directions, losses)
     optimizer = make_optimizer(model, cfg)
     step = make_train_step(model, optimizer, t1_volume, us_real_norm, mask, directions, cfg,
                            graphs)
-    return model, scan(step, _losses(t1_volume, cfg.epochs), inputs=(source,))
+    return model, scan(step, losses, inputs=(source,))
 
 
 def _inputs(t1_volume, us_real, mask, source, directions):

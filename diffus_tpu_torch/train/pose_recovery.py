@@ -27,7 +27,9 @@ first update, as optax counts.  Each phase starts a fresh Adam.
 On the card each descent is a captured CUDA graph, JAX's jitted
 ``lax.scan``: the first steps run eagerly (they allocate Adam's state and
 fill every cache), then one :func:`pose_step` is captured per phase and
-replayed for the rest (:func:`~diffus_tpu_torch.utils.graphs.scan`),
+replayed for the rest (:func:`~diffus_tpu_torch.utils.graphs.scan`);
+:func:`recover_pose_annealed` keeps its phases' graphs across calls of
+one shape, for recovery after recovery from other starts and targets;
 and :func:`score_poses` (jitted in JAX) replays one captured chunk over
 its candidates.  The loops and the score take ``graphs`` (:func:`~diffus_tpu_torch.utils.graphs.use_graphs`:
 None is graphs on a CUDA volume, eager on the CPU; False runs eagerly on
@@ -51,7 +53,16 @@ import torch
 from diffus_tpu_torch.geometry.fan import pose_fan_directions
 from diffus_tpu_torch.render.renderer import _render
 from diffus_tpu_torch.types import BeamGeometry, RenderConfig, TransducerPose, Volume, _f32
-from diffus_tpu_torch.utils.graphs import adam, capture, scan, use_graphs
+from diffus_tpu_torch.utils.graphs import (
+    adam,
+    capture,
+    kept,
+    reset_adam,
+    reuse,
+    scan,
+    signature,
+    use_graphs,
+)
 from diffus_tpu_torch.utils.profiling import span
 
 
@@ -247,28 +258,97 @@ def sample_init_poses(generator: torch.Generator, center, radius: float, rot_sca
     return TransducerPose(position=center[None] + offsets, rotvec=rots)
 
 
+def _phase(volume, pose: TransducerPose, target: torch.Tensor, phase: tuple,
+           base: PoseRecoveryConfig, graphed: bool, device) -> tuple:
+    """One annealed phase's ``(optimizer, target_b, step)``: a fresh
+    two-group Adam over ``pose``'s leaves, the blurred target, and
+    :func:`pose_step` on them, captured per ``graphed``; ``volume()``
+    gives the volume (a weak reference where the phase is kept)."""
+    sigma, lr_pos, lr_rot, _ = phase
+    optimizer = make_pose_optimizer(pose, lr_pos, lr_rot)
+    target_b = gaussian_blur_frame(target, sigma)
+
+    def step():
+        return pose_step(volume(), target_b, pose, optimizer, base, sigma)
+
+    return optimizer, target_b, capture(step, graphed,
+                                        f"recover_pose_annealed step (sigma {sigma:g})", device)
+
+
+def _anneal(cfg: AnnealedPoseConfig, phases, losses: torch.Tensor) -> None:
+    """Scan each phase's step (``phases``: :func:`_phase`'s, in order) over
+    its slice of ``losses``, its rates set before each update."""
+    done = 0
+    for (sigma, lr_pos, lr_rot, steps), (optimizer, _, step) in zip(cfg.phases, phases):
+        scan(step, losses[..., done:done + steps],
+             before=lambda t: set_cosine_lr(optimizer, (lr_pos, lr_rot), t, steps))
+        done += steps
+
+
+class _KeptDescent:
+    """:func:`recover_pose_annealed`'s kept entry: static pose leaves, the
+    target, and each phase's Adam, blurred target and captured step,
+    which read them and the volume (through ``ref``)."""
+
+    def __init__(self, ref, pose: TransducerPose, target: torch.Tensor,
+                 cfg: AnnealedPoseConfig, device):
+        self.pose, self.target = _leaves(pose, device), target.clone()
+        self.phases = [_phase(ref, self.pose, self.target, phase, cfg.as_base(), True, device)
+                       for phase in cfg.phases]
+
+    def run(self, pose: TransducerPose, target: torch.Tensor, cfg: AnnealedPoseConfig,
+            losses: torch.Tensor) -> TransducerPose:
+        """One recovery from ``pose``'s starts on ``target``: they go into the
+        static leaves and target, each phase's Adam is zeroed and its
+        blurred target formed again, each step re-armed; returns copies
+        of the final leaves, which the next recovery overwrites."""
+        with torch.no_grad():
+            self.pose.position.copy_(pose.position)
+            self.pose.rotvec.copy_(pose.rotvec)
+            self.target.copy_(target)
+        for (sigma, *_), (optimizer, target_b, step) in zip(cfg.phases, self.phases):
+            def reset():
+                reset_adam(optimizer)
+                if target_b is not self.target:
+                    target_b.copy_(gaussian_blur_frame(self.target, sigma))
+
+            reuse(step, reset)
+        _anneal(cfg, self.phases, losses)
+        return TransducerPose(position=self.pose.position.detach().clone(),
+                              rotvec=self.pose.rotvec.detach().clone())
+
+
 def recover_pose_annealed(volume, target_frame, init_pose: TransducerPose,
                           cfg: AnnealedPoseConfig, graphs: bool | None = None):
     """Coarse-to-fine recovery (``pose_recovery.py:171-207``): for each phase
     a fresh two-group Adam with cosine-decayed rates on the blurred frames,
     one captured CUDA graph a phase per ``graphs`` (module docstring).
     ``init_pose`` may be a batch of starts.  Returns ``(pose, losses)`` with
-    the phases' losses concatenated, ``(..., sum of steps)``."""
+    the phases' losses concatenated, ``(..., sum of steps)``.
+
+    Where graphs run, the phases' graphs are kept across calls of one
+    static signature (``cfg``, the starts' and the target's shapes, the
+    volume, :func:`~diffus_tpu_torch.utils.graphs.kept`), with static pose
+    leaves, the target and each phase's Adam and blurred target.  A call
+    on kept graphs copies its starts and target into those in place,
+    zeroes each Adam's moments and step counts, blurs the target again,
+    runs each phase's first steps eagerly again and replays its kept
+    graph: the same steps as fresh captures', with no capture.  The pose
+    it returns is a copy.  A call while another holds the kept graphs
+    does the same on an entry of its own, captured and not kept."""
     device = _device(volume)
-    graphed = use_graphs(graphs, device)
-    base = cfg.as_base()
     pose = _leaves(init_pose, device)
     target = _f32(target_frame, device)
     losses = _losses(pose, sum(int(p[3]) for p in cfg.phases))
-    done = 0
-    for sigma, lr_pos, lr_rot, steps in cfg.phases:
-        optimizer = make_pose_optimizer(pose, lr_pos, lr_rot)
-        target_b = gaussian_blur_frame(target, sigma)
-        step = capture(lambda: pose_step(volume, target_b, pose, optimizer, base, sigma),
-                       graphed, f"recover_pose_annealed step (sigma {sigma:g})", device)
-        scan(step, losses[..., done:done + steps],
-             before=lambda t: set_cosine_lr(optimizer, (lr_pos, lr_rot), t, steps))
-        done += steps
+    if use_graphs(graphs, device):
+        data = volume.data if isinstance(volume, Volume) else volume
+        with kept("recover_pose_annealed", data,
+                  (cfg, signature(pose.position, pose.rotvec, target)),
+                  lambda ref: _KeptDescent(ref, pose, target, cfg, device)) as entry:
+            return entry.run(pose, target, cfg, losses), losses
+    base = cfg.as_base()
+    _anneal(cfg, (_phase(lambda: volume, pose, target, phase, base, False, device)
+                  for phase in cfg.phases), losses)
     return _detached(pose), losses
 
 

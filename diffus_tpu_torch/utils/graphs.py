@@ -20,7 +20,16 @@ several cards) runs eagerly, and ``graphs=True`` there raises
 (:func:`use_graphs_over`).  A function that JAX jits once per static
 signature and that a caller calls again and again (``render_sweep``,
 ``render_bmode``) keeps its graphs in a :class:`GraphCache`, each tied to
-the volume it reads.
+the volume it reads.  So do the learning loops (``train_impedance_scan``,
+``recover_pose_annealed``), whose every call is a job of fresh weights or
+start poses over the same shapes: :func:`kept` holds their entry of one
+static signature in :data:`LOOPS`, the captured steps with the static
+state they read (a module or pose leaves, their Adam, the target, mask,
+fan or blurred targets).  A job on a kept entry writes its starting state
+into that state in place, zeroes Adam's moments and step counts
+(:func:`reset_adam`) and re-arms each graph (:func:`reuse`): its first
+:data:`WARMUP` steps run eagerly again, then it replays the graph it
+holds, with no second capture.
 
 The kernels' wrappers count their launches in Python, which a replay does
 not run.  A wrapper counts through :func:`count`, with the stream it
@@ -34,6 +43,7 @@ counter name, the part of them that replays made.
 from __future__ import annotations
 
 import collections
+import contextlib
 import threading
 import time
 import weakref
@@ -171,7 +181,9 @@ class Graphed:
     Calls from several threads are serialised by a lock: copy-in, replay
     and copy-out share the graph's buffers.  Each is queued on the current
     stream of ``device`` (default: the current device).  ``capture_s`` is
-    the capture's seconds.  Graphs given one :class:`Pool` share its
+    the capture's seconds.  :meth:`rearm` makes a graph that is kept for
+    another job run its next :data:`WARMUP` calls eagerly again, then
+    replay the graph it holds.  Graphs given one :class:`Pool` share its
     memory, its side stream and its lock.  Under ``torch.profiler``, each
     call's work inside the lock is a span (``span``): ``graph.warmup``,
     ``graph.capture`` or ``graph.replay``, the graph's name after a colon.
@@ -193,11 +205,23 @@ class Graphed:
 
     @property
     def captured(self) -> bool:
-        return self._graph is not None
+        """Whether the next call replays: the graph is captured, and not
+        re-armed for warm-up calls."""
+        return self._graph is not None and self._calls >= WARMUP
+
+    def rearm(self) -> bool:
+        """Run the next :data:`WARMUP` calls eagerly, as a fresh graph's
+        are (each a real call, which an optimizer's step hooks see), then
+        replay the graph already captured, with no second capture: for a
+        job on a kept graph whose state the caller has reset in place.
+        Returns whether a capture is held."""
+        with self._lock:
+            self._calls = 0
+            return self._graph is not None
 
     def __call__(self, *inputs, out=None):
         with self._lock, torch.cuda.device(self.device):
-            if self._graph is None and self._calls < WARMUP:
+            if self._calls < WARMUP:
                 self._calls += 1
                 with span("graph.warmup", self.name):
                     return self._eager(inputs, out)
@@ -291,6 +315,17 @@ def capturable_adam(params, lr=1e-3) -> torch.optim.Adam:
     return optimizer
 
 
+def reset_adam(optimizer: torch.optim.Optimizer) -> None:
+    """Zero an Adam's moments and step counts in place, where a captured
+    update reads them: what a fresh :func:`capturable_adam` starts with,
+    and what today's Adam makes at its first step."""
+    with torch.no_grad():
+        for state in optimizer.state.values():
+            for value in state.values():
+                if torch.is_tensor(value):
+                    value.zero_()
+
+
 def adam(params, device, lr: float = 1e-3) -> torch.optim.Adam:
     """The loops' Adam for parameters on ``device``: :func:`capturable_adam`
     on a CUDA device, graphed or not, so that a graph can replay its update
@@ -312,8 +347,9 @@ class GraphCache:
     signature.  At most ``size`` are kept, the least recently used going
     first, and an entry goes when its tensor is freed, so that no graph
     outlives the memory it reads.  ``make(ref)`` builds an entry's
-    :class:`Graphed` from a weak reference to the tensor: a graph that
-    held the tensor would keep it alive."""
+    :class:`Graphed` (in :data:`LOOPS`, a loop's graphs with their static
+    state) from a weak reference to the tensor: a graph that held the
+    tensor would keep it alive."""
 
     def __init__(self, size: int = 8):
         self.size = size
@@ -356,14 +392,58 @@ def cached_call(name: str, volume: torch.Tensor, key, body, inputs: tuple,
     signature: ``key`` (the static arguments, hashable), the inputs' shapes
     and dtypes, the volume's, and the generators.  Its first
     :data:`WARMUP` calls run eagerly, as a :class:`Graphed` does."""
-    signature = (name, key, tuple(volume.shape), volume.dtype, str(volume.device),
-                 tuple((tuple(x.shape), x.dtype) for x in inputs), generators)
-
     def make(ref):
         return Graphed(lambda *xs: body(ref(), *xs), name=name, device=volume.device,
                        generators=generators)
 
-    return CACHE.get(volume, signature, make)(*inputs)
+    return CACHE.get(volume, (name, key, signature(volume, *inputs), generators), make)(*inputs)
+
+
+def signature(*tensors) -> tuple:
+    """The shapes, dtypes and devices of ``tensors``, for a static key."""
+    return tuple((tuple(t.shape), t.dtype, str(t.device)) for t in tensors)
+
+
+LOOPS = GraphCache()  # the learning loops' kept entries (:func:`kept`)
+
+
+def _settings() -> tuple:
+    """The global settings that change which kernels a capture records."""
+    return (torch.are_deterministic_algorithms_enabled(),
+            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+
+
+@contextlib.contextmanager
+def kept(name: str, volume: torch.Tensor, key, make):
+    """Hold a learning loop's :data:`LOOPS` entry for one job.  Its static
+    signature is ``name``, ``key`` (hashable: the loop's configuration,
+    its module's or starts' shapes, its inputs' :func:`signature`), the
+    volume's and :func:`_settings`; on a miss ``make(ref)`` builds the
+    entry from a weak reference to ``volume``, through which its graphs
+    read it, and the entry goes when the volume is freed.  Yields the
+    entry, held by this job alone; where another job holds it, yields an
+    entry of this job's own from ``make``, whose graphs are captured and
+    not kept."""
+    full = (name, key, signature(volume), _settings())
+    hold, entry = LOOPS.get(volume, full, lambda ref: (threading.Lock(), make(ref)))
+    if not hold.acquire(blocking=False):
+        yield make(weakref.ref(volume))
+        return
+    try:
+        yield entry
+    finally:
+        hold.release()
+
+
+def reuse(graph: Graphed, reset) -> None:
+    """Make a kept graph ready for a new job: ``reset()`` writes the job's
+    starting state into the tensors the graph reads, in place, and the
+    graph is re-armed (:meth:`Graphed.rearm`).  Where it holds a capture,
+    the job runs on it, and under the profiler a ``graph.reuse`` span
+    (``:<graph name>``) covers the reset, as ``graph.capture`` marks a
+    graph that a job captures."""
+    with span("graph.reuse", graph.name) if graph.rearm() else contextlib.nullcontext():
+        reset()
 
 
 def scan(step, out: torch.Tensor, before=None, inputs: tuple = ()) -> torch.Tensor:

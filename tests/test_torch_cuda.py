@@ -1128,6 +1128,179 @@ def test_graph_spans_share_the_profilers_clock(cuda, tmp_path):
         assert min(k["ts"] for k in mine) >= s["ts"]
 
 
+# -- the learning loops' graphs kept across jobs (graphs.kept) ----------------------
+
+
+def _count_captures(monkeypatch) -> list:
+    """The names of the graphs captured from here on, and an empty
+    ``LOOPS``."""
+    from diffus_tpu_torch.utils import graphs
+
+    captured, capture = [], graphs.Graphed._capture
+
+    def counted(self, inputs):
+        captured.append(self.name)
+        return capture(self, inputs)
+
+    monkeypatch.setattr(graphs.Graphed, "_capture", counted)
+    monkeypatch.setattr(graphs, "LOOPS", graphs.GraphCache())
+    return captured
+
+
+def _count_updates() -> tuple:
+    """A step hook counting each optimizer's updates that ran Python (the
+    eager ones; a replay runs none), and its handle."""
+    from torch.optim.optimizer import register_optimizer_step_post_hook
+
+    counts = {}
+
+    def hook(opt, args, kwargs):
+        if not torch.cuda.is_current_stream_capturing():
+            counts[id(opt)] = counts.get(id(opt), 0) + 1
+
+    return counts, register_optimizer_step_post_hook(hook)
+
+
+def _t1(cuda):
+    from diffus_tpu_torch.phantoms import t1_phantom_3d
+
+    return torch.from_numpy(t1_phantom_3d((24, 24, 24))).to(cuda)
+
+
+def _kept_training_job(t1, k: int, graphed):
+    """Training job ``k`` on ``t1`` (its own weights, target and apex) at
+    ``WARMUP + 3`` epochs; its losses and trained weights."""
+    from diffus_tpu_torch.impedance.mlp import init_params
+    from diffus_tpu_torch.train import ImpedanceTrainConfig, train_impedance_scan
+    from diffus_tpu_torch.types import RenderConfig
+    from diffus_tpu_torch.utils import graphs
+
+    cuda = t1.device
+    dirs = fan_directions_2d([0.0, 1.0], np.radians(40.0), 8, device=cuda)
+    cfg = ImpedanceTrainConfig(num_samples=20, slice_index=12, image_shape=(32, 32),
+                               epochs=graphs.WARMUP + 3,
+                               render=RenderConfig(attenuation_coeff=1e-4,
+                                                   interp="trilinear_fused", use_pallas=True))
+    target = torch.rand((32, 32), generator=torch.Generator().manual_seed(k)).to(cuda)
+    src = torch.tensor([12.0 + 0.5 * k, 1.0, 12.25 - 0.25 * k], device=cuda)
+    model = init_params(torch.Generator().manual_seed(k), cfg.hidden, cuda)
+    _, losses = train_impedance_scan(model, t1, target, torch.ones_like(target, dtype=torch.bool),
+                                     src, dirs, cfg, graphed)
+    return losses, [p.detach().clone() for p in model.parameters()]
+
+
+@pytest.mark.cuda
+def test_kept_training_jobs_equal_eager_and_fresh_captures(cuda, monkeypatch):
+    """Three training jobs, each from other weights, a target and an apex
+    of its own, on one kept graph: equal to three ``graphs=False`` jobs
+    and to three that each capture afresh (``LOOPS`` emptied before each,
+    as before graphs were kept), bit for bit under deterministic
+    algorithms.  The kept jobs capture once, and each job's first
+    ``WARMUP`` updates, and no other, run Python (step hooks)."""
+    from diffus_tpu_torch.utils import graphs
+
+    t1 = _t1(cuda)
+    captured = _count_captures(monkeypatch)
+    counts, handle = _count_updates()
+    runs = {"kept": [], "eager": [], "fresh": []}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for k in range(3):
+            counts.clear()
+            runs["kept"].append(_kept_training_job(t1, k, None))
+            assert list(counts.values()) == [graphs.WARMUP], k
+        kept = list(captured)
+        for k in range(3):
+            runs["eager"].append(_kept_training_job(t1, k, False))
+        for k in range(3):
+            monkeypatch.setattr(graphs, "LOOPS", graphs.GraphCache())
+            runs["fresh"].append(_kept_training_job(t1, k, None))
+    finally:
+        torch.use_deterministic_algorithms(False)
+        handle.remove()
+    assert kept == ["train_step"] and len(captured) == 4
+    for k in range(3):
+        for other in ("eager", "fresh"):
+            (a, pa), (b, pb) = runs["kept"][k], runs[other][k]
+            assert torch.equal(a, b), (k, other)
+            assert all(torch.equal(p, q) for p, q in zip(pa, pb)), (k, other)
+
+
+@pytest.mark.cuda
+def test_kept_recoveries_equal_eager_and_fresh_captures(cuda, monkeypatch):
+    """Three two-phase recoveries, each from its own starts and target, on
+    kept graphs: equal to ``graphs=False`` and to fresh captures, poses
+    and losses bit for bit; one capture a phase over the three, each
+    phase's first ``WARMUP`` updates eager, and each returned pose a copy
+    that the next recovery leaves as it was."""
+    from diffus_tpu_torch.train import pose_recovery as pr
+    from diffus_tpu_torch.utils import graphs
+
+    vol, target, _, cfg = _pose_problem(cuda)
+    cfg = pr.AnnealedPoseConfig(cfg.geometry, cfg.render,
+                                phases=((2.0, 0.3, 0.02, 6), (0.0, 0.1, 0.005, 6)))
+
+    def recover(k, graphed):
+        init = pr.sample_init_poses(torch.Generator(device=cuda).manual_seed(k),
+                                    [24.0, 2.0, 24.0], 1.5, 0.03, 4)
+        poses, losses = pr.recover_pose_annealed(vol, target * (1.0 + 0.05 * k), init, cfg,
+                                                 graphed)
+        return poses, losses
+
+    captured = _count_captures(monkeypatch)
+    counts, handle = _count_updates()
+    runs, held = {"kept": [], "eager": [], "fresh": []}, []
+    torch.use_deterministic_algorithms(True)
+    try:
+        for k in range(3):
+            counts.clear()
+            runs["kept"].append(recover(k, None))
+            assert list(counts.values()) == [graphs.WARMUP] * 2, k
+            held.append((runs["kept"][k][0].position.clone(), runs["kept"][k][0].rotvec.clone()))
+        kept = list(captured)
+        for k in range(3):
+            runs["eager"].append(recover(k, False))
+        for k in range(3):
+            monkeypatch.setattr(graphs, "LOOPS", graphs.GraphCache())
+            runs["fresh"].append(recover(k, None))
+    finally:
+        torch.use_deterministic_algorithms(False)
+        handle.remove()
+    assert sorted(kept) == ["recover_pose_annealed step (sigma 0)",
+                            "recover_pose_annealed step (sigma 2)"]
+    assert len(captured) == 2 + 2 * 3
+    for k in range(3):
+        pk, lk = runs["kept"][k]
+        assert torch.equal(pk.position, held[k][0]) and torch.equal(pk.rotvec, held[k][1])
+        for other in ("eager", "fresh"):
+            po, lo = runs[other][k]
+            assert torch.equal(lk, lo), (k, other)
+            assert torch.equal(pk.position, po.position) and torch.equal(pk.rotvec, po.rotvec)
+
+
+@pytest.mark.cuda
+def test_a_traced_job_on_a_kept_graph_shows_reuse_and_no_capture(cuda, monkeypatch, tmp_path):
+    """Under ``torch.profiler``, a training job on a kept graph shows one
+    ``graph.reuse`` span (the host's ``user_annotation``, as the
+    benchmark reads it) and no ``graph.capture``; the job that captured
+    shows the reverse."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    t1, captured, spans = _t1(cuda), _count_captures(monkeypatch), []
+    for k in range(2):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _kept_training_job(t1, k, None)
+            torch.cuda.synchronize(cuda)
+        path = tmp_path / f"trace{k}.json"
+        prof.export_chrome_trace(str(path))
+        names = [e["name"].partition(":")[0] for e in json.loads(path.read_text())["traceEvents"]
+                 if e.get("ph") == "X" and e.get("cat") == "user_annotation"]
+        spans.append((names.count("graph.reuse"), names.count("graph.capture")))
+    assert spans == [(0, 1), (1, 0)] and captured == ["train_step"]
+
+
 # -- the paths graphed since: the sharded step and the driver, the meshed
 # -- service, sharded recovery, the table fits, score_poses and the renders --
 
