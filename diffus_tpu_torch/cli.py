@@ -12,7 +12,10 @@ subcommands, flags and outputs, on PyTorch.
 Volumes may be NIfTI files or .npy arrays; ``--impedance table|mlp|none``
 maps intensities through the tissue table, a trained MLP checkpoint
 (``--impedance-checkpoint``, written by ``train-impedance --checkpoint``),
-or not at all.  ``train-cases`` drives the multi-case training loop
+or not at all; ``render`` and ``sweep`` also take a CT in Hounsfield units,
+``--impedance ct`` (Schneider density times Webb's speed of sound) or
+``ct-crude`` (the closed form), as ``impedance/ct.py`` gives them.
+``train-cases`` drives the multi-case training loop
 (``train.driver.train_impedance_cases``: prefetching loader, device mesh,
 checkpoints, JSONL metrics) from a JSON manifest; ``serve`` runs the HTTP
 serving runtime (``serve.make_http_server``).  ``--mesh-pose``/``--mesh-ray``
@@ -117,6 +120,14 @@ def _maybe_impedance(vol: np.ndarray, mode: str, checkpoint: str | None,
 
         tx, ty = default_table_points(device=device)
         return tabular_impedance_volume(volume, tx, ty)
+    if mode == "ct":
+        from diffus_tpu_torch.impedance import schneider_webb_impedance
+
+        return schneider_webb_impedance(volume)
+    if mode == "ct-crude":
+        from diffus_tpu_torch.impedance import crude_ct_impedance
+
+        return crude_ct_impedance(volume)
     if mode == "mlp":
         # inference with a trained impedance MLP: the masked pipeline
         # (mask -> zscore -> MLP -> Z)
@@ -126,7 +137,8 @@ def _maybe_impedance(vol: np.ndarray, mode: str, checkpoint: str | None,
 
         with torch.no_grad():
             return impedance_volume_masked(_load_mlp(checkpoint, device), volume)
-    raise SystemExit(f"unknown --impedance mode {mode!r} (use: table, mlp, none)")
+    raise SystemExit(f"unknown --impedance mode {mode!r} (use: table, mlp, none, ct, "
+                     f"ct-crude)")
 
 
 def _device_arg(p: argparse.ArgumentParser):
@@ -136,7 +148,9 @@ def _device_arg(p: argparse.ArgumentParser):
 
 def _scene_args(p: argparse.ArgumentParser):
     p.add_argument("--volume", required=True, help="NIfTI or .npy volume")
-    p.add_argument("--impedance", default="table", choices=["table", "mlp", "none"])
+    p.add_argument("--impedance", default="table",
+                   choices=["table", "mlp", "none", "ct", "ct-crude"],
+                   help="ct, ct-crude: the volume is a CT in Hounsfield units")
     p.add_argument("--impedance-checkpoint", default=None,
                    help="checkpoint with trained MLP params (for --impedance mlp)")
     p.add_argument("--source", type=float, nargs=3, default=[128.0, 4.0, 128.0])

@@ -4,6 +4,8 @@
     speed of sound ``c(HU) = a*HU + b``, ``Z = rho * c``, applied to
     ``HU + 1000``;
 (b) the crude closed form ``Z = 1000*(1540 + 0.35*HU) + HU*(1540 + 0.35*HU)``.
+
+Under ``torch.profiler`` each map is a span, ``impedance.ct``.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ import numpy as np
 import torch
 
 from diffus_tpu_torch.impedance.table import interp
+from diffus_tpu_torch.utils.profiling import span
 
 # Schneider calibration points (HU, rho g/cm^3) — CT Render Lung cell 4
 SCHNEIDER_HU = np.array(
@@ -50,11 +53,13 @@ def speed_from_hu(hu: torch.Tensor, a: float = WEBB_A, b: float = WEBB_B) -> tor
 
 def schneider_webb_impedance(ct_hu: torch.Tensor) -> torch.Tensor:
     """``Z = rho(HU + 1000) * c(HU + 1000)``."""
-    hu = ct_hu + 1000.0
-    return density_from_hu(hu) * speed_from_hu(hu)
+    with span("impedance.ct"):
+        hu = ct_hu + 1000.0
+        return density_from_hu(hu) * speed_from_hu(hu)
 
 
 def crude_ct_impedance(ct_hu: torch.Tensor) -> torch.Tensor:
     """``Z = 1000*(1540 + 0.35*HU) + HU*(1540 + 0.35*HU)``."""
-    c = 1540.0 + 0.35 * ct_hu
-    return 1000.0 * c + ct_hu * c
+    with span("impedance.ct"):
+        c = 1540.0 + 0.35 * ct_hu
+        return 1000.0 * c + ct_hu * c

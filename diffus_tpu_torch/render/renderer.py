@@ -30,6 +30,13 @@ has run eagerly :data:`~diffus_tpu_torch.utils.graphs.WARMUP` times
 artifacts' generator is registered with the capture, so that the replays
 draw what eager calls would.  A one-shot caller runs eagerly.
 
+Under ``torch.profiler`` the span ``render.sweep`` covers a
+:func:`render_sweep` call and ``render.artifacts`` the artifact stack (in
+an eager call or a capture: a replay runs no Python).
+``_echo_frames.artifact_frames`` counts the frames through the stack
+through :func:`~diffus_tpu_torch.utils.graphs.count`, so each replay adds
+what its capture recorded.
+
 The rest of the JAX renderer's TPU-only machinery (tile tables, pose
 chunking, placement warnings, ``:436-566``) is not ported.
 """
@@ -64,7 +71,8 @@ from diffus_tpu_torch.ops.sampling import (
     sample_trilinear_bf16,
 )
 from diffus_tpu_torch.types import RenderConfig, Volume
-from diffus_tpu_torch.utils.graphs import cached_call, use_graphs_for
+from diffus_tpu_torch.utils.graphs import cached_call, count, use_graphs_for
+from diffus_tpu_torch.utils.profiling import span
 
 _DEFAULT_CONFIG = RenderConfig()
 
@@ -273,11 +281,18 @@ def _echo_frames(r, rho, num_samples: int, config: RenderConfig,
     if config.envelope:
         out = rf_to_bmode(out)
     if config.artifacts:
-        out = add_speckle_arcs(out, generator, std_radial=config.std_radial,
-                               std_local=config.std_local)
-        out = depth_dependent_lateral_blur(out, max_sigma=config.max_sigma)
-        out = sharpen(out, alpha=config.sharpen_alpha)
+        with span("render.artifacts"):
+            out = add_speckle_arcs(out, generator, std_radial=config.std_radial,
+                                   std_local=config.std_local)
+            out = depth_dependent_lateral_blur(out, max_sigma=config.max_sigma)
+            out = sharpen(out, alpha=config.sharpen_alpha)
+        stream = torch.cuda.current_stream(out.device).cuda_stream if out.is_cuda else 0
+        count("artifact_frames", _echo_frames, "artifact_frames", stream,
+              out.shape[:-2].numel())
     return out
+
+
+_echo_frames.artifact_frames = 0  # frames through the artifact stack so far, replays included
 
 
 def frame_time_delays(spacing, directions, num_samples: int,
@@ -338,16 +353,17 @@ def render_sweep(volume, sources, directions, num_samples: int,
     Returns:
       ``(x, y, z, frames)`` with a leading pose axis.
     """
-    vol = volume.data if isinstance(volume, Volume) else volume
-    sources = _on(vol, sources)
-    directions = _on(vol, directions)
+    with span("render.sweep"):
+        vol = volume.data if isinstance(volume, Volume) else volume
+        sources = _on(vol, sources)
+        directions = _on(vol, directions)
 
-    def body(v, s, d):
-        if d.dim() == 2:
-            d = d.expand(s.shape[0], -1, -1)
-        return render_frame(v, s, d, num_samples, config, step=step, generator=generator)
+        def body(v, s, d):
+            if d.dim() == 2:
+                d = d.expand(s.shape[0], -1, -1)
+            return render_frame(v, s, d, num_samples, config, step=step, generator=generator)
 
-    if not use_graphs_for(graphs, [vol.device], (vol, sources, directions)):
-        return body(vol, sources, directions)
-    return cached_call("render_sweep", vol, (num_samples, config, float(step)), body,
-                       (sources, directions), _generators(generator))
+        if not use_graphs_for(graphs, [vol.device], (vol, sources, directions)):
+            return body(vol, sources, directions)
+        return cached_call("render_sweep", vol, (num_samples, config, float(step)), body,
+                           (sources, directions), _generators(generator))
