@@ -13,6 +13,7 @@
     python3 chip_smoke.py --probe  # phases 1, 2 and 6: K3 against float64, beside its earlier design
     python3 chip_smoke.py --entry-points  # phases 1, 2 and 15, beside the parent's route
     python3 chip_smoke.py --graphs  # phases 1, 2 and 16: the captured CUDA graphs against eager
+    python3 chip_smoke.py --artifacts  # phases 1, 2 and 17: the artifact stack's kernel K4
 
 ``--requests`` times the serving path alone (latency and device-time split
 per tier: K1, K2, ``ray_points`` and the rest), ``--backward`` the
@@ -151,8 +152,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    (finite frames, each frame's max 1; K1's and K2's launches must rise);
    one frame is held against the plain path in float64 on the CPU; then
    ``render_sweep`` with the artifacts and a CUDA generator must repeat
-   from one seed, and the artifact stack on the card must equal the same
-   stack on the CPU fed the same noise; latency at each tier;
+   from one seed, launching K4 once a call, each frame within 1e-5 of its
+   largest value from the plain stack on the card fed the same noise, and
+   that stack must equal the same stack on the CPU; latency at each tier;
 10. pose recovery: ``svc.recover_pose`` on the phase-4 service (the
    annealed schedule's default 600 steps, 8 starts drawn like JAX's
    acceptance test, radius 1.5 and rot 0.03, around a ``render_pose``
@@ -295,7 +297,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    counts 1.19e-05).  Phases 7, 8 and 10 step with the loops' optimizers
    on every path, so their trajectory checks and step times hold the
    optimizer the loops ship.  The replays' launches go on the ``kernels``
-   line (``graph_launches``).
+   line (``graph_launches``);
+17. the artifact stack's kernel K4 (``csrc/artifact_stack.cu``) at the lung
+   view: 256 frames of 200 rays x 80 samples rendered from a 256^3 chest-CT
+   phantom mapped by ``schneider_webb_impedance`` (LUNG_*), artifacts off,
+   then the stack through the kernel and through its plain chain on the
+   same normals: each frame within 1e-5 of its largest value (the lateral
+   blur's sum order; in float64, within as many float64 ulps), and bit for
+   bit without the lateral blur
+   (``max_sigma`` 0.1); every artifacted ``render_sweep`` call launches
+   K4 once, eager and through replays; K4's time with the wrapper and
+   alone, the plain chain's (plain, kernel, kernel, plain), its bound, and
+   a graphed ``render_sweep`` call's.
 
 TF32 is off for matmuls and cuDNN (``torch.backends``), so no comparison
 depends on those defaults.  The line before the last is a JSON object of
@@ -347,6 +360,9 @@ N_RAYS, N_SAMPLES = 256, 512
 TIERS = (1, 8, 32)
 APEX = np.array([128.0, 4.0, 128.0])
 TRAIN_SEED = 1
+LUNG_CT, LUNG_RAYS, LUNG_SAMPLES, LUNG_START = 256, 200, 100, 20   # phase 17's lung view
+LUNG_APEX = (128.0, 204.0, 179.0)   # the bmode cell's apex [256, 408, 358] at half the CT's width
+LUNG_OPENING = 1.2 * 0.9157579425453843
 PULSE = 16                          # even: the pulse's N + 1 output is cropped
 STARTS, RADIUS, ROT_SCALE, RECOVERY_SEED = 8, 1.5, 0.03, 0   # JAX's acceptance distribution
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -625,6 +641,15 @@ def _held(what: str, kernel: dict, plain: dict, f64: dict, floor: float = 1e-3,
 
 def _held_text(rows: list) -> str:
     return ", ".join(f"{name} {e_k:.2e}/{e_p:.2e}" for name, e_k, e_p in rows)
+
+
+def _frame_gap(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest gap of frames ``(..., rays, samples)`` from ``want``'s,
+    each over its own frame's largest absolute value (an all-zero frame's
+    gap as it is)."""
+    got, want = got.double(), want.double()
+    scale = want.abs().amax(dim=(-2, -1), keepdim=True)
+    return float(((got - want).abs() / torch.where(scale > 0, scale, 1.0)).max())
 
 
 def _frame_rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -1589,6 +1614,7 @@ def _counts(what: str, idx: bool | None = None, bwd: bool = False) -> dict:
 
 def _image_formation_phase(dev, vol, rng, card: str) -> dict:
     """Phase 9: the enveloped service at full width, then the artifact stack."""
+    from diffus_tpu_torch.kernels.artifacts_cuda import artifact_stack
     from diffus_tpu_torch.ops.artifacts import (
         depth_dependent_lateral_blur,
         draw_speckle_arcs,
@@ -1610,12 +1636,16 @@ def _image_formation_phase(dev, vol, rng, card: str) -> dict:
     src8 = _sources(rng, 8).to(dev)
 
     _counts_reset()
+    artifact_stack.launches = 0
     frames = {p: svc.render(s) for p, s in requests.items()}
     sweeps = [render_sweep(vol, src8, svc.directions, N_SAMPLES, art,
                            generator=torch.Generator(device=dev).manual_seed(7))[3]
               for _ in range(2)]
     torch.cuda.synchronize()
     launches = _counts("image-formation path")
+    k4_launches = artifact_stack.launches
+    if k4_launches != len(sweeps):
+        raise AssertionError(f"{len(sweeps)} artifact sweeps launched K4 {k4_launches} times")
 
     for p, f in frames.items():
         if tuple(f.shape) != (p, N_RAYS, N_SAMPLES) or not bool(torch.isfinite(f).all()):
@@ -1646,18 +1676,26 @@ def _image_formation_phase(dev, vol, rng, card: str) -> dict:
     on_card = stack(clean, radial, local)
     on_cpu = stack(clean.cpu(), radial.cpu(), local.cpu())
     _assert_close(on_card.cpu(), on_cpu, 1e-5, 1e-6, "artifact stack, card vs CPU")
-    _assert_close(sweeps[0], on_card, 1e-6, 1e-7, "artifact sweep vs its stack")
+    # the sweep runs the stack through K4, whose lateral sums round in
+    # another order: each frame within 1e-5 of its largest value
+    sweep_gap = _frame_gap(sweeps[0], on_card)
+    if not sweep_gap <= 1e-5:
+        raise AssertionError(f"artifact sweep (K4) vs its plain stack: {sweep_gap:.3e} of a "
+                             f"frame's largest value")
     art_err = float((on_card.cpu() - on_cpu).abs().max())
     print(f"image formation: pulse {PULSE}, envelope; warmup {warm_s:.2f} s; requests of 5, "
-          f"32 poses ok, frame maxima 1; launches {launches}; enveloped frame vs f64 CPU "
-          f"{err:.3e}; artifact sweep (8 poses) repeats from one seed; card vs CPU on the "
-          f"same noise max_abs_err {art_err:.3e} (rtol 1e-5, atol 1e-6)", flush=True)
+          f"32 poses ok, frame maxima 1; launches {launches}, K4 {k4_launches}; enveloped "
+          f"frame vs f64 CPU {err:.3e}; artifact sweep (8 poses) repeats from one seed, "
+          f"{sweep_gap:.3e} of a "
+          f"frame's largest value from its plain stack; card vs CPU on the same noise "
+          f"max_abs_err {art_err:.3e} (rtol 1e-5, atol 1e-6)", flush=True)
     _tier_latencies(svc, rng, card, "enveloped request")
     art_ms = _event_ms(lambda: render_sweep(vol, src8, svc.directions, N_SAMPLES, art,
                                             generator=torch.Generator(device=dev)), 5)
     print(f"times [{card}]: render_sweep of 8 poses with pulse, envelope and artifacts "
           f"{art_ms:.3f} ms (CUDA events, mean of 5)", flush=True)
-    return {"launches": launches}
+    return {"launches": launches, "artifact_stack_launches": k4_launches,
+            "artifact_sweep_gap": sweep_gap}
 
 
 def _pose_grads(volume, target_b, position, rotvec, cfg, sigma: float):
@@ -4558,6 +4596,90 @@ def _graphs_phase(dev, vol, card: str) -> dict:
     return {"graph_launches": totals, **parts}
 
 
+def _artifact_stack_phase(dev, card: str) -> dict:
+    """Phase 17: the artifact stack's kernel K4 at the lung view against its
+    plain chain, its launches on ``render_sweep``'s path and its times."""
+    from diffus_tpu_torch.geometry import fan_directions_2d
+    from diffus_tpu_torch.impedance import schneider_webb_impedance
+    from diffus_tpu_torch.kernels.artifacts_cuda import artifact_stack, artifact_stack_plain
+    from diffus_tpu_torch.ops.artifacts import draw_speckle_arcs
+    from diffus_tpu_torch.phantoms import ct_lung_phantom_3d
+    from diffus_tpu_torch.render.renderer import render_sweep
+    from diffus_tpu_torch.types import RenderConfig
+    from diffus_tpu_torch.utils import graphs
+
+    vol = schneider_webb_impedance(torch.from_numpy(ct_lung_phantom_3d((LUNG_CT,) * 3)).to(dev))
+    cfg = RenderConfig(attenuation_coeff=ATT, start=LUNG_START, interp="nearest",
+                       use_pallas=True, artifacts=True, std_radial=0.01, std_local=0.15,
+                       max_sigma=4.0, sharpen_alpha=5.0)
+    params = (cfg.std_radial, cfg.std_local, cfg.max_sigma, cfg.sharpen_alpha)
+    dirs = fan_directions_2d((0.0, -1.0), LUNG_OPENING, LUNG_RAYS, device=dev)
+    # 256 apexes 0.5 voxel apart along axis 0, through the view's apex
+    srcs = torch.tensor(LUNG_APEX, device=dev).repeat(256, 1)
+    srcs[:, 0] += (torch.arange(256, device=dev) - 127.5) * 0.5
+    clean = render_sweep(vol, srcs, dirs, LUNG_SAMPLES,
+                         dataclasses.replace(cfg, artifacts=False))[3]
+    radial, local = draw_speckle_arcs(clean, torch.Generator(device=dev).manual_seed(7))
+    gap = _frame_gap(artifact_stack(clean, radial, local, *params),
+                     artifact_stack_plain(clean, radial, local, *params))
+    if not gap <= 1e-5:
+        raise AssertionError(f"K4 at the lung view: {gap:.3e} of a frame's largest value from "
+                             f"the plain chain")
+    # float64 frames launch the same kernel in double: as many float64 ulps
+    wide = [t.double() for t in (clean, radial, local)]
+    gap64 = _frame_gap(artifact_stack(*wide, *params), artifact_stack_plain(*wide, *params))
+    if not gap64 <= 1e-5 * 2.0 ** -29:
+        raise AssertionError(f"K4 in float64 at the lung view: {gap64:.3e} of a frame's largest "
+                             f"value from the plain chain")
+    no_blur = (cfg.std_radial, cfg.std_local, 0.1, cfg.sharpen_alpha)
+    if not torch.equal(artifact_stack(clean, radial, local, *no_blur),
+                       artifact_stack_plain(clean, radial, local, *no_blur)):
+        raise AssertionError("K4 without the lateral blur differs from the plain chain")
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    calls = graphs.WARMUP + 5
+    before, replayed = artifact_stack.launches, graphs.replayed["artifact_stack"]
+    for _ in range(calls):
+        render_sweep(vol, srcs, dirs, LUNG_SAMPLES, cfg, generator=gen)[3].sum().item()
+    launches = artifact_stack.launches - before
+    through = graphs.replayed["artifact_stack"] - replayed
+    if launches != calls or through != calls - graphs.WARMUP:
+        raise AssertionError(f"{calls} artifacted render_sweep calls launched K4 {launches} "
+                             f"times, {through} through replays")
+
+    def kernel():
+        return artifact_stack(clean, radial, local, *params)
+
+    def plain():
+        return artifact_stack_plain(clean, radial, local, *params)
+
+    ms, plain_ms, host_us = _paired_ms(kernel, plain, 20)
+    alone_us = _kernel_device_us(kernel, "artifact_stack_kernel", 20)
+    # echo and local normals in, the frame out, the radial normals; a pixel's
+    # 33 lateral multiply-adds, the Gaussian's 2 x 17 and ~10 more
+    bound = _bound(4.0 * (3 * clean.numel() + radial.numel()), clean.numel() * (66 + 34 + 10))
+    sweep_ms = _event_ms(lambda: render_sweep(vol, srcs, dirs, LUNG_SAMPLES, cfg,
+                                              generator=gen), 20)
+    print(f"K4 artifact stack at the lung view {tuple(clean.shape)} (max_sigma 4, alpha 5): "
+          f"{gap:.3e} of a frame's largest value from the plain chain "
+          f"({int((clean.abs().amax(dim=(1, 2)) > 0).sum())} frames hold an echo), "
+          f"{gap64:.3e} in float64, bit for "
+          f"bit without the lateral blur; {calls} render_sweep calls, {launches} launches "
+          f"({through} through replays)", flush=True)
+    print(f"times [{card}]: K4 {ms:.4f} ms with the wrapper (host {host_us:.1f} us a call), "
+          f"{alone_us:.2f} us alone (profiler), plain chain {plain_ms:.4f} ms (plain, kernel, "
+          f"kernel, plain; CUDA events, 20 calls); bound {bound['bound_ms'] * 1e3:.2f} us "
+          f"({bound['bound_by']}); a graphed 256-pose render_sweep with artifacts "
+          f"{sweep_ms:.4f} ms", flush=True)
+    return {"name": "artifact_stack", "route": "cuda",
+            "source": "diffus_tpu_torch/csrc/artifact_stack.cu", "replaces": None,
+            "launches": launches, "replay_launches": through, "max_frame_gap": gap,
+            "max_frame_gap_f64": gap64,
+            "ms": ms, "host_us": host_us, "device_us": alone_us, "plain_ms": plain_ms,
+            "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"], "library_ms": None,
+            "sweep_ms": sweep_ms, "shape": list(clean.shape)}
+
+
 def _phase4_service(dev):
     """``(volume, service)``: phase 4's service on the 256^3 phantom, nothing
     rendered yet; ``coalesce=False``: phases 4-5 time a request's render path
@@ -4829,6 +4951,8 @@ def main(argv=None) -> int:
                         help="only phase 6: K3 against float64, beside its earlier design")
     parser.add_argument("--graphs", action="store_true",
                         help="only phase 16: the hot paths as captured CUDA graphs against eager")
+    parser.add_argument("--artifacts", action="store_true",
+                        help="only phase 17: the artifact stack's kernel K4 at the lung view")
     parser.add_argument("--entry-points", action="store_true",
                         help="only phase 15: the entry points that name interp='trilinear', "
                              "each also timed on the parent's route")
@@ -4885,6 +5009,9 @@ def main(argv=None) -> int:
     if args.graphs:
         graphed = _graphs_phase(dev, _phase4_service(dev)[0], card)
         print("graph_launches " + json.dumps(graphed["graph_launches"]), flush=True)
+        return 0
+    if args.artifacts:
+        print(json.dumps({"kernels": [_artifact_stack_phase(dev, card)]}), flush=True)
         return 0
 
     import torch.nn.functional as F
@@ -5204,6 +5331,9 @@ def main(argv=None) -> int:
     graphed = _graphs_subprocess(card)
     print(f"times [{card}]: phase 16 {time.perf_counter() - t0:.2f} s", flush=True)
 
+    # -- 17. the artifact stack's kernel K4 at the lung view -------------------------
+    artifacts = _artifact_stack_phase(dev, card)
+
     kernels = [
         {"name": "echo_scan", "route": "cuda", "source": "diffus_tpu_torch/csrc/echo_scan.cu",
          "replaces": "diffus_tpu/kernels/propagation_pallas.py:45",
@@ -5285,6 +5415,9 @@ def main(argv=None) -> int:
                       ("serving_surface", surface), ("mesh", meshed), ("examples", examples),
                       ("bench", benches)):
         kernels[1][f"{path}_idx_launches"] = run["launches"]["trilinear_idx"]
+    artifacts["image_formation_launches"] = bmode["artifact_stack_launches"]
+    artifacts["image_formation_frame_gap"] = bmode["artifact_sweep_gap"]
+    kernels.append(artifacts)
     print(f"times [{card}]: the whole run {time.perf_counter() - t_start:.1f} s (build "
           f"included)", flush=True)
     print(json.dumps({"kernels": kernels}))

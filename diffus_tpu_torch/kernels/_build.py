@@ -58,6 +58,13 @@ _SIGNATURES = {
                                    ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
                                    ctypes.c_int, _c, _c, _c, ctypes.c_int, _c, _c, _c, _c, _c,
                                    _c),
+    # echo, radial, local, sr, sl, bank, pidx, qidx, zidx, taps, out, alpha, frames, nr, ns,
+    # k, stream
+    "diffus_artifact_stack": (_c, _c, _c, _c, _c, _c, _c, _c, _c, _c, _c, ctypes.c_float,
+                              ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int, _c),
+    # the same with float64 frames, tables and alpha
+    "diffus_artifact_stack_f64": (_c, _c, _c, _c, _c, _c, _c, _c, _c, _c, _c, ctypes.c_double,
+                                  ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int, _c),
     # table, partial, out, off, n_rows, m, n_buf, grid, stream
     "diffus_gather_probe": (_c, _c, _c, ctypes.c_int, ctypes.c_int64, ctypes.c_int,
                             ctypes.c_int, ctypes.c_int, _c),

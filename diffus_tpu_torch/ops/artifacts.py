@@ -13,7 +13,9 @@ so a batch of frames draws exactly what the same frames drawn one after
 another from the same generator would.
 
 Main-path order (``renderer.py:351-364``): speckle arcs -> depth-dependent
-lateral blur -> sharpen.
+lateral blur -> sharpen.  On the card the renderer runs the three as one
+kernel (:mod:`diffus_tpu_torch.kernels.artifacts_cuda`) that reads this
+module's tables; these functions are its plain version.
 
 The blurs' banks, indices, masks and counts are built once per static
 key in numpy and kept on the device (:func:`_lateral_bank`,
@@ -54,17 +56,36 @@ def draw_speckle_arcs(image: torch.Tensor, generator: torch.Generator):
             torch.stack(local).reshape(lead + (n_rays, n_samples)))
 
 
+POWER_RADIAL, POWER_LOCAL = 2.0, 1.5   # speckle_arcs's depth exponents
+SHARPEN_SIGMA = 1.0                     # the unsharp mask's Gaussian
+
+
+@functools.cache  # kept: a captured CUDA graph reads the tensors where they are
+def _speckle_scales(n_samples: int, std_radial: float, std_local: float, power_radial: float,
+                    power_local: float, dtype: torch.dtype, device: torch.device) -> tuple:
+    """:func:`speckle_arcs`'s per-depth standard deviations ``std (1 +
+    depth^p)`` over ``linspace(0, 1, n_samples)``, radial then local, on
+    ``device``, made once per key."""
+    with torch.inference_mode(False):   # ordinary tensors, which autograd may save
+        depth = torch.linspace(0.0, 1.0, n_samples, dtype=dtype, device=device)
+        radial = std_radial * (1.0 + depth ** power_radial)
+        local = std_local * (1.0 + depth ** power_local)
+    if radial.is_cuda:
+        torch.cuda.current_stream(device).synchronize()
+    return radial, local
+
+
 def speckle_arcs(image: torch.Tensor, radial: torch.Tensor, local: torch.Tensor,
                  std_radial: float = 0.1, std_local: float = 0.02,
-                 power_radial: float = 2.0, power_local: float = 1.5) -> torch.Tensor:
+                 power_radial: float = POWER_RADIAL,
+                 power_local: float = POWER_LOCAL) -> torch.Tensor:
     """Depth-growing multiplicative speckle from given normals
     (``artifacts.py:26-52``): per-depth radial factor
     ``1 + std_radial (1 + depth^p_r) radial`` times per-pixel grain
     ``1 + std_local (1 + depth^p_l) local``; negatives clipped to 0."""
-    n_samples = image.shape[-1]
-    depth = torch.linspace(0.0, 1.0, n_samples, dtype=image.dtype, device=image.device)
-    std_radial_z = std_radial * (1.0 + depth ** power_radial)
-    std_local_z = std_local * (1.0 + depth ** power_local)
+    std_radial_z, std_local_z = _speckle_scales(
+        image.shape[-1], float(std_radial), float(std_local), float(power_radial),
+        float(power_local), image.dtype, image.device)
     radial = 1.0 + std_radial_z * radial
     local = 1.0 + std_local_z * local
     return torch.clamp_min(image * radial[..., None, :] * local, 0.0)
@@ -72,7 +93,8 @@ def speckle_arcs(image: torch.Tensor, radial: torch.Tensor, local: torch.Tensor,
 
 def add_speckle_arcs(image: torch.Tensor, generator: torch.Generator,
                      std_radial: float = 0.1, std_local: float = 0.02,
-                     power_radial: float = 2.0, power_local: float = 1.5) -> torch.Tensor:
+                     power_radial: float = POWER_RADIAL,
+                     power_local: float = POWER_LOCAL) -> torch.Tensor:
     """:func:`speckle_arcs` with normals drawn from ``generator``."""
     radial, local = draw_speckle_arcs(image, generator)
     return speckle_arcs(image, radial, local, std_radial, std_local, power_radial,
@@ -130,7 +152,7 @@ def depth_dependent_lateral_blur(image: torch.Tensor, max_sigma: float = 2.0,
 def sharpen(image: torch.Tensor, alpha: float = 1.5) -> torch.Tensor:
     """Unsharp masking ``img + alpha (img - gaussian_blur(img, 1))``, clipped
     to each frame's range (``artifacts.py:95-101``)."""
-    sharp = image + alpha * (image - gaussian_blur(image, sigma=1.0))
+    sharp = image + alpha * (image - gaussian_blur(image, sigma=SHARPEN_SIGMA))
     return torch.minimum(torch.maximum(sharp, _frame_min(image)), _frame_max(image))
 
 

@@ -19,8 +19,11 @@ PyTorch versions, and ``trilinear_plain`` runs the plain sampler anywhere.
 :func:`_render` can leave the sample coordinates out,
 for callers that read the intensities alone (the service, pose recovery):
 XLA drops that unread output of JAX's jitted renders, and K2 then writes
-no idx.  The pulse, envelope and artifact stages are
-plain PyTorch (the JAX package computes them outside Pallas too).
+no idx.  The pulse and envelope stages are plain PyTorch (the JAX package
+computes them outside Pallas too); after the frames' normal draws, the
+artifact stack is one kernel on the card, K4
+(:func:`~diffus_tpu_torch.kernels.artifacts_cuda.artifact_stack`), and its
+plain chain elsewhere.
 
 On the card :func:`render_sweep` and :func:`render_bmode`, which JAX
 jits, replay a captured CUDA graph per static signature once a signature
@@ -47,13 +50,10 @@ import warnings
 
 import torch
 
+from diffus_tpu_torch.kernels.artifacts_cuda import artifact_stack
 from diffus_tpu_torch.kernels.propagation_cuda import echo_fused
 from diffus_tpu_torch.kernels.trilinear_cuda import march_trilinear_fused
-from diffus_tpu_torch.ops.artifacts import (
-    add_speckle_arcs,
-    depth_dependent_lateral_blur,
-    sharpen,
-)
+from diffus_tpu_torch.ops.artifacts import draw_speckle_arcs
 from diffus_tpu_torch.ops.bmode import rf_to_bmode
 from diffus_tpu_torch.ops.filters import convolve_pulse, gaussian_pulse
 from diffus_tpu_torch.ops.propagation import (
@@ -282,10 +282,10 @@ def _echo_frames(r, rho, num_samples: int, config: RenderConfig,
         out = rf_to_bmode(out)
     if config.artifacts:
         with span("render.artifacts"):
-            out = add_speckle_arcs(out, generator, std_radial=config.std_radial,
-                                   std_local=config.std_local)
-            out = depth_dependent_lateral_blur(out, max_sigma=config.max_sigma)
-            out = sharpen(out, alpha=config.sharpen_alpha)
+            radial, local = draw_speckle_arcs(out, generator)
+            out = artifact_stack(out, radial, local, std_radial=config.std_radial,
+                                 std_local=config.std_local, max_sigma=config.max_sigma,
+                                 alpha=config.sharpen_alpha)
         stream = torch.cuda.current_stream(out.device).cuda_stream if out.is_cuda else 0
         count("artifact_frames", _echo_frames, "artifact_frames", stream,
               out.shape[:-2].numel())
