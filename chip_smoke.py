@@ -4,14 +4,11 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --requests    # phases 1, 2 and the service's request times only
     python3 chip_smoke.py --backward    # phases 1, 2 and phase 5's K1b and K2b readings only
-    python3 chip_smoke.py --points-study   # phases 1, 2 and what K2b's points path spends on what
     python3 chip_smoke.py --recovery-step  # phases 1, 2 and phase 10's step and its K2b alone
     python3 chip_smoke.py --recovery-horizon [N]  # phases 1, 2 and phase 10's trajectory check
     python3 chip_smoke.py --training-horizon [N]  # phases 1, 2 and phase 7's trajectory check
-    python3 chip_smoke.py --horizon-study  # phase 10's trajectory check on edited copies of K2b
-    python3 chip_smoke.py --examples-study  # full_pipeline's stages 4 and 5 at each size, 3 ways
-    python3 chip_smoke.py --probe  # phases 1, 2 and 6: K3 against float64, beside its earlier design
-    python3 chip_smoke.py --entry-points  # phases 1, 2 and 15, beside the parent's route
+    python3 chip_smoke.py --probe  # phases 1, 2 and 6: K3 against float64, and its times
+    python3 chip_smoke.py --entry-points  # phases 1, 2 and 15
     python3 chip_smoke.py --graphs  # phases 1, 2 and 16: the captured CUDA graphs against eager
     python3 chip_smoke.py --artifacts  # phases 1, 2 and 17: the artifact stack's kernel K4
 
@@ -20,32 +17,14 @@ per tier: K1, K2, ``ray_points`` and the rest), ``--backward`` the
 backward kernels alone (phase 5's readings of K1b and K2b, on phase 3's
 inputs), each with whatever ``diffus_tpu_torch`` sits beside the script,
 so a copy of the script beside another checkout's package times that
-package.  ``--points-study`` copies the package once for each edit of
-``csrc/trilinear_bwd.cu`` in ``_POINTS_STUDY`` (the march alone, the
-sums in one block, the corner gathers, the grad load, other patch shapes,
-paired z loads) into
-``diffus_tpu_torch/build/study/``, builds the copies together and times
-K2b's points path in each (``--points-time``, in a process of its own).
-``--recovery-step`` times phase 10's recovery step, each step from its
-starts (the profiler's split), and K2b's points path alone on the inputs
-that step gives it, with L2 warm and after a write that evicts it, so a
-copy beside another checkout times that checkout's step on the same
+package.  ``--recovery-step`` times phase 10's recovery step, each step
+from its starts (the profiler's split), and K2b's points path alone on the
+inputs that step gives it, with L2 warm and after a write that evicts it,
+so a copy beside another checkout times that checkout's step on the same
 inputs.  ``--recovery-horizon`` and ``--training-horizon`` run phase 10's
 (phase 7's two) trajectory checks alone; with N they measure it over N
 steps, step by step, without failing past the horizon (how
 RECOVERY_HORIZON and TRAINING_HORIZON were chosen).
-``--training-study [N]`` measures phase 7's trajectory over N steps with
-one part of the kernel path swapped at a time (K1's pair or K2's for the
-plain versions, K1b or K2b for autograd through its plain version) and
-beside a witness of f32 rounding alone (the plain path from weights
-nudged one ulp), then the three ways at lower rates over the 50 epochs (how FALLS_LR and FALLS_STEPS were
-chosen).  ``--horizon-study`` runs phase 10's
-trajectory check in copies of the package built side by side under
-``diffus_tpu_torch/build/study/`` whose K2b sums the points' gradients in
-another correct order (64 slots a ray) or computes a wrong gradient (one
-corner weight's sign flipped): the first must pass, the second fail.
-``--examples-study`` runs full_pipeline's stages 4 and 5 at every size of
-PIPELINE_SIZES through the kernels, the plain path in f32 and in f64.
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -57,16 +36,13 @@ Phases, in order; any failure raises and the script exits non-zero:
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the main path's shapes (K1 echo scan on the reflection coefficients of
    a 32-pose batch, 8192 rays x 511 interfaces, parity and symmetric, with
-   a NaN row and d' = 0 rows; K2's points form on the 256^3 brain phantom
-   at 32 x 256 x 512 points, some outside and three with a NaN component);
-   K1 also against ``echo_chunked_plain``, its own evaluation order in
-   plain PyTorch, bit for bit, in every lane count it is built for; K2's
-   ray form (the renderer's) against ``march_trilinear`` bit for bit at
-   32 poses x 256 rays x 512 samples of the service's fan, with and
-   without idx, with a NaN source and poses outside the volume, in every
-   block tile it is built for with and without paired z loads, and
-   against the points form fed ``ray_points``; the backward kernels
-   against their twins bit for bit: K1b (``echo_backward_plain``) at
+   a NaN row and d' = 0 rows); K1 also against ``echo_chunked_plain``,
+   its own evaluation order in plain PyTorch, bit for bit, in every lane
+   count it is built for; K2 (the renderer's ray form) against
+   ``march_trilinear`` bit for bit at 32 poses x 256 rays x 512 samples
+   of the service's fan, with and without idx, with a NaN source and poses
+   outside the volume; the backward kernels against their twins bit for
+   bit: K1b (``echo_backward_plain``) at
    training's 256 rays x 401 interfaces (start 110) and recovery's 8 x 256
    x 511, on the nearest reflections with the NaN and d' = 0 rows (whose
    gradient is NaN) and on trilinear ones, parity and symmetric, at every
@@ -96,12 +72,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 5. times (CUDA events, after warm-up): K1 against its plain version at
    the 1-, 8- and 32-pose batches (256, 2048, 8192 rays x 511) and its
    device time per launch from ``torch.profiler`` there and at 8, 16 and
-   32 lanes per ray; K2's ray form, values only and with idx, against
-   its plain version, every block tile with and without paired z loads
-   (device time per launch), the points form alone and fed
-   ``ray_points`` (the renderer's way before the ray form), and
-   ``F.grid_sample`` (values only; checked against K2); each kernel's
-   bound (bytes over 3.35 TB/s or operations over 67 TFLOP/s, whichever
+   32 lanes per ray; K2, values only and with idx, against its plain
+   version and ``F.grid_sample`` (values only; checked against K2); each
+   kernel's bound (bytes over 3.35 TB/s or operations over 67 TFLOP/s, whichever
    is larger; K2's bytes count the distinct 32-byte volume sectors the
    corners touch, counted on the card); the request latency of each tier
    and its device time split (K1, K2, ``ray_points``, the rest) from
@@ -117,11 +90,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    5065, -7, M + 3; and 100000 rows, fewer than the period), on an
    M = 97 x 1024 table (period 1024) at 1000003 rows (not a whole number
    of periods) and one small case, each call equal bit for bit to a
-   repeat; the shipped kernel and the earlier design (every gathered row
-   fetched; ``csrc/study/gather_probe_every_row.cu``, built beside the
-   library in phase 2) timed in turns, alone (back to back and after an
-   L2 flush) and with the wrapper, beside the bound; then its entry
-   point ``diffus_tpu_torch.kernels.gather_probe.main`` (K3's path), whose
+   repeat; its time in two runs, alone (back to back and after an L2
+   flush) and with the wrapper, beside the bound; then its entry point
+   ``diffus_tpu_torch.kernels.gather_probe.main`` (K3's path), whose
    launches must rise;
 7. training path: ``train_impedance`` at ``ImpedanceTrainConfig``'s full
    defaults (MLP (32, 32), lr 0.01, 50 epochs, 512 samples, slice 128,
@@ -263,10 +234,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    where the echo scan puts the whole step's f32 far from f64.  The
    launches go on the ``kernels`` line (``entry_launches``, K3's read too;
    K2b's ``entry_bwd_volume_launches`` and ``entry_bwd_points_launches``).
-   ``--entry-points`` runs this phase alone and also times each entry
-   point on the parent's route (``trilinear`` as the plain sampler, which
-   must launch neither K2 nor K2b), in the order kernel, parent, parent,
-   kernel;
+   ``--entry-points`` runs this phase alone;
 16. the hot paths as captured CUDA graphs (``diffus_tpu_torch/utils/graphs.py``;
    every earlier phase that calls the service, a recovery loop or a
    training loop already runs its graphs), in a process of its own
@@ -323,7 +291,6 @@ import contextlib
 import copy
 import dataclasses
 import json
-import math
 import os
 import shutil
 import statistics
@@ -369,8 +336,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # The horizons of the trajectory checks of phases 10 and 7, each the last
 # step at which the check still keeps a start (:func:`_trajectory_check`:
 # the plain f32 path finite, its states and gradient within NEAR of f64),
-# measured with `--recovery-horizon 12`, `--training-horizon 8` and
-# `--training-study` (PERF.md, Findings): the recovery 2 (one start leaves
+# measured with `--recovery-horizon 12` and `--training-horizon 8`, and
+# at lower rates (PERF.md, Findings): the recovery 2 (one start leaves
 # at step 1, three at step 2, the rest at step 3); the training at lr 0.01
 # 5 (step 6 is the SSIM collapse: the plain f32 gradient 0.57 from f64's);
 # and at FALLS_LR, where the same scene's descent is not chaotic and its
@@ -909,59 +876,7 @@ def _backward_times(dev, vol, r_tri, src32, dirs, rng, card: str) -> dict:
     return out
 
 
-# K3's earlier design (every gathered row fetched), timed beside the
-# shipped kernel in phase 6: the parent's csrc/gather_probe.cu, kept with the
-# same C entry as diffus_tpu_torch/csrc/study/gather_probe_every_row.cu and
-# built alone into a library of its own; its wrapper launched 8-warp blocks,
-# 4 an SM
-PARENT_PROBE, PARENT_BLOCKS_PER_SM = "gather_probe_every_row", 4
 K3_KERNELS = ("gather_rows_kernel", "sum_partials_kernel")
-
-
-def _start_parent_probe_build() -> tuple:
-    """Start the ``nvcc`` of K3's earlier design into
-    ``diffus_tpu_torch/build/study/`` (phase 2 starts it beside the main
-    build; :func:`_parent_probe` collects it)."""
-    from diffus_tpu_torch.kernels import _build
-
-    out_dir = _build.BUILD_DIR / "study"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    lib = out_dir / f"lib{PARENT_PROBE}.so"
-    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(lib),
-           str(_build.SRC_DIR / "study" / f"{PARENT_PROBE}.cu")]
-    return lib, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                 text=True)
-
-
-def _parent_probe(build: tuple):
-    """The started build of K3's earlier design, loaded: a function
-    ``(offset, table, n_rows, n_buf) -> (1, 128)`` that launches it on its own
-    grid (not through K3's wrapper, so ``gather_probe.launches`` does not
-    count it); a failed build or launch raises."""
-    import ctypes
-
-    from diffus_tpu_torch.kernels import _build
-
-    path, proc = build
-    log = proc.communicate(timeout=600)[0]
-    if proc.returncode != 0:
-        raise RuntimeError(f"build of K3's earlier design failed:\n{log[-3000:]}")
-    lib = ctypes.CDLL(str(path))
-    lib.diffus_gather_probe.argtypes = _build._SIGNATURES["diffus_gather_probe"]
-    lib.diffus_gather_probe.restype = ctypes.c_int
-    print("K3's earlier design, build: " + " | ".join(_ptxas_report(log)), flush=True)
-    grid = PARENT_BLOCKS_PER_SM * torch.cuda.get_device_properties(0).multi_processor_count
-
-    def launch(off: int, table: torch.Tensor, n_rows: int, n_buf: int) -> torch.Tensor:
-        partial = torch.empty((grid, 128), dtype=torch.float32, device=table.device)
-        out = torch.empty((1, 128), dtype=torch.float32, device=table.device)
-        stream = torch.cuda.current_stream(table.device).cuda_stream
-        _build.check(lib.diffus_gather_probe(table.data_ptr(), partial.data_ptr(),
-                                             out.data_ptr(), off, n_rows, table.shape[0],
-                                             n_buf, grid, stream), "K3's earlier design")
-        return out
-
-    return launch
 
 
 def _k3_us(fn, what: str, flush: torch.Tensor | None = None) -> dict:
@@ -977,10 +892,9 @@ def _k3_us(fn, what: str, flush: torch.Tensor | None = None) -> dict:
     return {k: us for k, us in split.items() if k in K3_KERNELS}
 
 
-def _gather_probe_phase(dev, parent) -> dict:
+def _gather_probe_phase(dev) -> dict:
     """K3 against its plain versions and a float64 sum, bit for bit on
-    repeat; the shipped kernel and ``parent``, its earlier design
-    (:func:`_parent_probe`), timed in turns; then its entry point."""
+    repeat; its times alone and with the wrapper; then its entry point."""
     from diffus_tpu_torch.kernels import gather_probe as probe
 
     rng = np.random.default_rng(0)
@@ -1036,30 +950,21 @@ def _gather_probe_phase(dev, parent) -> dict:
 
     table = on_card[m]
     distinct = probe._schedule(m, n_rows)[0]
-    rows = np.remainder(5065 + 97 * np.arange(n_rows, dtype=np.int64), m)
-    counts = np.bincount(rows, minlength=m).astype(np.float64)
-    want = counts @ tables[m].astype(np.float64)
-    bound64 = 1e-6 * (counts @ np.abs(tables[m].astype(np.float64)))
-    x = parent(5065, table, n_rows, 8)[0]
-    ratio = float(np.max(np.abs(x.double().cpu().numpy() - want) / bound64))
-    if not ratio <= 1.0:
-        raise AssertionError(f"K3's earlier design: {ratio:.3g} x the float64 bound")
-    # the shipped kernel and the earlier design in turns (shipped first and
-    # last): their two kernels' device time a call, L2 warm and flushed, and
+    # two runs: its two kernels' device time a call, L2 warm and flushed, and
     # the wrapper's time back to back (CUDA events)
     flush = torch.empty(32 << 20, dtype=torch.float32, device=dev)
-    designs = {"shipped": lambda: probe._launch(5065, table, n_rows, 8),
-               "every_row": lambda: parent(5065, table, n_rows, 8)}
-    times = {name: {"us": [], "us_cold": [], "ms": [], "split": []} for name in designs}
-    for name in ("shipped", "every_row", "every_row", "shipped"):
-        fn = designs[name]
-        warm, cold = _k3_us(fn, f"K3 {name}"), _k3_us(fn, f"K3 {name}, L2 flushed", flush)
-        times[name]["us"].append(sum(warm.values()))
-        times[name]["us_cold"].append(sum(cold.values()))
-        times[name]["split"].append(cold)
-        times[name]["ms"].append(_event_ms(fn, 20))
-    variants = {name: {k: statistics.mean(t[k]) for k in ("us", "us_cold", "ms")} | {"runs": t}
-                for name, t in times.items()}
+
+    def fn():
+        return probe._launch(5065, table, n_rows, 8)
+
+    runs = {"us": [], "us_cold": [], "ms": [], "split": []}
+    for _ in range(2):
+        warm, cold = _k3_us(fn, "K3"), _k3_us(fn, "K3, L2 flushed", flush)
+        runs["us"].append(sum(warm.values()))
+        runs["us_cold"].append(sum(cold.values()))
+        runs["split"].append(cold)
+        runs["ms"].append(_event_ms(fn, 20))
+    ship = {k: statistics.mean(runs[k]) for k in ("us", "us_cold", "ms")}
 
     # the library's way, index_select + sum over precomputed row ids
     idx = torch.remainder(97 * torch.arange(n_rows, device=dev), m)
@@ -1074,17 +979,14 @@ def _gather_probe_phase(dev, parent) -> dict:
     # each distinct row read once (all M rows: 97 and M are coprime), one row
     # out; a multiply and an add a float of each distinct row
     bound = _bound(512.0 * (distinct + 1), 2.0 * 128 * distinct)
-    ship = variants["shipped"]
     print(f"K3 [{_card()}] at ({m}, 128) x {n_rows} rows, {distinct} distinct, n_buf 8: "
-          + "; ".join(f"{name} {v['us']:.2f} us alone back to back, {v['us_cold']:.2f} us "
-                      f"after an L2 flush, {v['ms']:.4f} ms with the wrapper (runs: "
-                      + ", ".join(f"{u:.2f}/{c:.2f}" for u, c in zip(v["runs"]["us"],
-                                                                     v["runs"]["us_cold"]))
-                      + "; flushed by kernel: "
-                      + ", ".join(f"{k} {us:.2f}" for k, us in v["runs"]["split"][-1].items())
-                      + ")" for name, v in variants.items())
-          + f"; bound {bound['bound_ms'] * 1e3:.2f} us ({bound['bound_by']}): the shipped "
-          f"kernel {bound['bound_ms'] * 1e3 / ship['us']:.1%} of it back to back, "
+          f"{ship['us']:.2f} us alone back to back, {ship['us_cold']:.2f} us after an L2 "
+          f"flush, {ship['ms']:.4f} ms with the wrapper (runs: "
+          + ", ".join(f"{u:.2f}/{c:.2f}" for u, c in zip(runs["us"], runs["us_cold"]))
+          + "; flushed by kernel: "
+          + ", ".join(f"{k} {us:.2f}" for k, us in runs["split"][-1].items())
+          + f"); bound {bound['bound_ms'] * 1e3:.2f} us ({bound['bound_by']}): "
+          f"{bound['bound_ms'] * 1e3 / ship['us']:.1%} of it back to back, "
           f"{bound['bound_ms'] * 1e3 / ship['us_cold']:.1%} after a flush, "
           f"{bound['bound_ms'] / ship['ms']:.1%} with the wrapper; the entry point "
           f"{record['cuda_gather_ns_per_row'] * per_call:.4f} ms a call with the wrapper "
@@ -1098,7 +1000,7 @@ def _gather_probe_phase(dev, parent) -> dict:
             "ms": record["cuda_gather_ns_per_row"] * per_call,
             "plain_ms": record["torch_take_ns_per_row"] * per_call,
             "device_us": ship["us"], "device_us_cold": ship["us_cold"],
-            "variants": variants, "library_ms": library_ms, **bound}
+            "runs": runs, "library_ms": library_ms, **bound}
 
 
 # rays of the served fan held to the float64 dense-solve oracle at full depth;
@@ -1502,7 +1404,7 @@ def _tier_latencies(svc, rng, card: str, label: str) -> None:
 
 def _request_profiles(svc, rng, card: str, label: str) -> dict:
     """Device time per request at each batch tier from ``torch.profiler``
-    over 5 requests, with K1's, K2's (either form) and ``ray_points``' part,
+    over 5 requests, with K1's, K2's and ``ray_points``' part,
     and the idle share of the profiled wall time.  ``ray_points`` is timed
     as the kernels launched inside a profiler range around the renderer's
     calls of it (none where K2's ray form computes the points)."""
@@ -1553,7 +1455,7 @@ def _counts_reset() -> None:
     from diffus_tpu_torch.kernels import gather_probe as probe
     from diffus_tpu_torch.utils import graphs
     from diffus_tpu_torch.kernels.propagation_cuda import echo_fused
-    from diffus_tpu_torch.kernels.trilinear_cuda import march_trilinear_fused, sample_trilinear_fused
+    from diffus_tpu_torch.kernels.trilinear_cuda import march_trilinear_fused
 
     graphs.replayed.clear()
     probe.gather_probe.launches = 0
@@ -1564,7 +1466,6 @@ def _counts_reset() -> None:
     march_trilinear_fused.bwd_launches = 0
     march_trilinear_fused.bwd_volume_launches = 0
     march_trilinear_fused.bwd_points_launches = 0
-    sample_trilinear_fused.launches = 0
 
 
 @contextlib.contextmanager
@@ -1581,21 +1482,19 @@ def _plain_only(what: str):
 
 
 def _counts(what: str, idx: bool | None = None, bwd: bool = False) -> dict:
-    """K1's, K2's and K3's launches since :func:`_counts_reset`: K2's ray
-    form (``trilinear_sample``), those of its launches that wrote an idx,
-    and its points form; K1b's and K2b's (``echo_scan_bwd``,
-    ``trilinear_bwd``).  Raises if K1 or K2's ray form never launched; for
-    ``idx`` False or True, unless no launch or every launch of the ray form
-    wrote an idx; and unless K1b and K2b both launched (``bwd``, a path that
-    takes gradients) or neither did."""
+    """K1's, K2's and K3's launches since :func:`_counts_reset`: K2's
+    (``trilinear_sample``) and those of its launches that wrote an idx;
+    K1b's and K2b's (``echo_scan_bwd``, ``trilinear_bwd``).  Raises if K1
+    or K2 never launched; for ``idx`` False or True, unless no launch or
+    every launch of K2 wrote an idx; and unless K1b and K2b both launched
+    (``bwd``, a path that takes gradients) or neither did."""
     from diffus_tpu_torch.kernels import gather_probe as probe
     from diffus_tpu_torch.kernels.propagation_cuda import echo_fused
-    from diffus_tpu_torch.kernels.trilinear_cuda import march_trilinear_fused, sample_trilinear_fused
+    from diffus_tpu_torch.kernels.trilinear_cuda import march_trilinear_fused
 
     launches = {"echo_scan": echo_fused.launches,
                 "trilinear_sample": march_trilinear_fused.launches,
                 "trilinear_idx": march_trilinear_fused.idx_launches,
-                "trilinear_points": sample_trilinear_fused.launches,
                 "gather_probe": probe.gather_probe.launches,
                 "echo_scan_bwd": echo_fused.bwd_launches,
                 "trilinear_bwd": march_trilinear_fused.bwd_launches}
@@ -2903,168 +2802,6 @@ def _backward_only(dev, card: str) -> int:
     return 0
 
 
-# Edits of csrc/trilinear_bwd.cu that --points-study times, to tell what K2b's
-# points path spends on what: (anchor, replacement), each anchor found once
-_SUMS = "#pragma unroll\n  for (int q = 0; q < kSums; ++q) lane_sums[rr][lane_of_ray][q] = acc[q];"
-_GATHER = "    if (c.in) load_corners<Off>(vol, c, h, w, v);"
-_NO_GATHER = "    if (c.in) for (int q = 0; q < 8; ++q) v[q] = c.fx * q + c.fz;"
-_SUMS_LAUNCH = ("  march_bwd_point_sums_kernel<<<sum_blocks, kThreads, 0, stream>>>(\n"
-                "      ray_src, dsrc_pose, ddir_pose, dsrc_sum, ddir_sum, static_cast<int>(p), "
-                "n_rays);\n")
-
-
-def _patch(rays: int) -> list:
-    return [("constexpr int kPatchRays = 4;", f"constexpr int kPatchRays = {rays};")]
-
-
-# K2's corner reads (trilinear.cu): one aligned float4 for z0 and z1 where
-# the rows are 16-byte aligned and z0 % 4 != 3; with ``warp``, only where
-# every active lane of the warp can
-_CORNERS = "// The 8 corners of a sample from the volume"
-_SCALAR_LOADS = ("  for (int q = 0; q < 4; ++q) v[2 * q] = __ldg(col[q] + c.z0), "
-                 "v[2 * q + 1] = __ldg(col[q] + c.z1);")
-
-
-def _paired(warp: bool = False) -> list:
-    pair = "c.z1 == c.z0 + 1 && (c.z0 & 3) != 3"
-    quad = ("  const bool quad = w % 4 == 0 && reinterpret_cast<unsigned long long>(vol) % 16 == 0"
-            + (f" && __all_sync(__activemask(), {pair});\n" if warp else ";\n"))
-    return [(_CORNERS, """__device__ __forceinline__ float2 z_pair(const float* __restrict__ col, int z0, int z1,
-                                         bool quad) {
-  if (quad && z1 == z0 + 1 && (z0 & 3) != 3) {
-    const float4 q = __ldg(reinterpret_cast<const float4*>(col + (z0 & ~3)));
-    const int lane = z0 & 3;
-    return lane == 0 ? make_float2(q.x, q.y)
-                     : (lane == 1 ? make_float2(q.y, q.z) : make_float2(q.z, q.w));
-  }
-  return make_float2(__ldg(col + z0), __ldg(col + z1));
-}
-
-""" + _CORNERS),
-            ("#pragma unroll\n" + _SCALAR_LOADS, quad + "#pragma unroll\n"
-             "  for (int q = 0; q < 4; ++q) {\n"
-             "    const float2 z = z_pair(col[q], c.z0, c.z1, quad);\n"
-             "    v[2 * q] = z.x, v[2 * q + 1] = z.y;\n"
-             "  }")]
-
-
-_POINTS_STUDY = {
-    "shipped": [],
-    "the march alone: no trees, no sums launch (one store keeps the lanes' sums)": [
-        (_SUMS, "  if (acc[0] == 1234.5f && acc[1] + acc[5] == 0.25f) ray_src[0] = acc[1];\n"
-                "  if (n > 0) return;\n" + _SUMS), (_SUMS_LAUNCH, "")],
-    "no corner gathers": [(_GATHER, _NO_GATHER)],
-    "no corner gathers, no grad load": [
-        (_GATHER, _NO_GATHER), ("  c.g = c.in ? __ldg(g_ray + k) : 0.0f;", "  c.g = 0.5f + c.t;")],
-    "the sums launch in one block": [
-        ("                                  : static_cast<unsigned>((3 * p + kWarps - 1) / kWarps);",
-         "                                  : 1u;")],
-    "patch 8 rays x 4 samples": _patch(8),
-    "patch 2 rays x 16 samples": _patch(2),
-    "patch 1 ray x 32 samples (a warp a ray)": _patch(1),
-    "paired z loads (one float4 for z0 and z1, as K2 reads them)": _paired(),
-    "paired z loads only where the whole warp pairs": _paired(warp=True),
-}
-
-
-def _recovery_inputs(dev):
-    """Phase 5's K2b points inputs: the 256^3 phantom, 8 sources, per-pose
-    fans (the service's fan with noise) and their values' gradient; and
-    ``recover_pose``'s kind of fans, the service's fan rotated by each pose
-    (rotvecs ~ N(0, ROT_SCALE))."""
-    from diffus_tpu_torch.geometry.fan import pose_fan_directions
-    from diffus_tpu_torch.types import BeamGeometry, TransducerPose
-
-    rng = np.random.default_rng(0)
-    vol, svc = _phase4_service(dev)
-    dirs = svc.directions
-    src8 = _sources(rng, 8).to(dev)
-    noise = torch.from_numpy(rng.normal(size=(8, N_RAYS, 3)).astype(np.float32)).to(dev)
-    noisy = (dirs[None] + 0.02 * noise).contiguous()
-    pose = TransducerPose.create(src8, torch.from_numpy(
-        rng.normal(0.0, ROT_SCALE, (8, 3)).astype(np.float32)).to(dev))
-    rotated = pose_fan_directions(pose, BeamGeometry(N_RAYS, N_SAMPLES)).contiguous()
-    g = torch.from_numpy(rng.normal(size=(8, N_RAYS, N_SAMPLES)).astype(np.float32)).to(dev)
-    return vol, src8, {"noisy": noisy, "rotated": rotated}, g
-
-
-def _graph_us(fn, iters: int) -> float:
-    """Device microseconds a call of ``fn``, the gaps between its launches
-    included and the host's time left out: ``iters`` calls captured in one
-    CUDA graph (after 3 on the capturing stream), replayed 10 times between
-    CUDA events."""
-    stream = torch.cuda.Stream()
-    stream.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(stream):
-        for _ in range(3):
-            fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, stream=stream):
-        for _ in range(iters):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(10):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) * 1e3 / (10 * iters)
-
-
-def _points_time(dev) -> int:
-    """``--points-time``: K2b's points path alone (its kernels' device time,
-    and a call's time in a CUDA graph, gaps between launches included) and
-    K2's ray form alone (values only) at recovery's 8 x 256 x 512, on both
-    kinds of fans; then K2b on the recovery step's own inputs, L2 warm and
-    flushed; one line."""
-    from diffus_tpu_torch.kernels import trilinear_cuda as k2
-
-    vol, src8, fans, g = _recovery_inputs(dev)
-    need = (False, True, True)
-    parts = []
-    for kind, d in fans.items():
-        bwd = _device_us_per_call(
-            lambda: k2._launch_march_bwd(vol, src8, d, N_SAMPLES, 1.0, g, need), 20,
-            f"K2b points, {kind} fans")
-        graph = _graph_us(lambda: k2._launch_march_bwd(vol, src8, d, N_SAMPLES, 1.0, g, need), 20)
-        fwd = _kernel_device_us(lambda: k2._launch_march(vol, src8, d, N_SAMPLES, 1.0, False),
-                                "trilinear_march_kernel", 20)
-        parts.append(f"{kind} fans: K2b points {bwd:.2f} us (in a CUDA graph {graph:.2f} us a "
-                     f"call), K2 forward {fwd:.2f} us")
-    args = _recovery_step_setup(dev)[1]
-    warm, cold = (sum(split.values()) for split in _k2b_us_warm_and_cold(dev, args))
-    graph = _graph_us(lambda: k2._launch_march_bwd(*args), 20)
-    parts.append(f"the recovery step's inputs: K2b points {warm:.2f} us (in a CUDA graph "
-                 f"{graph:.2f} us a call), {cold:.2f} us after a 128 MiB write")
-    print("; ".join(parts), flush=True)
-    return 0
-
-
-def _points_study(card: str, only: list) -> int:
-    """``--points-study [WORD ...]``: each edit of ``_POINTS_STUDY`` (those
-    whose names hold one of the words, if any are given, and the shipped
-    source) in a copy of the package under ``diffus_tpu_torch/build/study/``,
-    built together, then ``--points-time`` in each copy in turn (the shipped
-    copy first and last)."""
-    from diffus_tpu_torch.kernels import _build
-
-    study = {name: edits for name, edits in _POINTS_STUDY.items()
-             if name == "shipped" or not only or any(word in name for word in only)}
-    base = _build.BUILD_DIR / "study"
-    roots = _study_copies(base, study, "trilinear_bwd.cu")
-    for name in [*roots, "shipped"]:
-        run = subprocess.run([sys.executable, "chip_smoke.py", "--points-time"], cwd=roots[name],
-                             capture_output=True, text=True, timeout=600)
-        if run.returncode != 0:
-            raise RuntimeError(f"points study, {name}: exit {run.returncode}\n{run.stderr[-3000:]}")
-        print(f"points study [{card}], {name}: {run.stdout.strip().splitlines()[-1]}", flush=True)
-    shutil.rmtree(base, ignore_errors=True)
-    return 0
-
-
 def _recovery_step_setup(dev):
     """Phase 10's recovery step at its STARTS starts on the phase-4 service:
     ``(step, args)``, ``step()`` one ``pose_step`` from the starts (the pose
@@ -3159,11 +2896,9 @@ EXAMPLES = os.path.join(ROOT, "examples", "torch")
 OUT = os.path.join(ROOT, "diffus_tpu_torch", "build", "examples")   # git-ignored
 MODALITIES = ("ct", "ct-crude", "transcranial", "mri", "heart")
 VIEWS = ("front", "side", "third")
-# the sizes at which --examples-study runs full_pipeline's stages 4 and 5,
-# largest first; phase 13 runs them at the largest where each stage's own
-# assertion holds on the plain path in f64 and f32 and f32 ends near f64
-# (measured with --examples-study on the H100: PERF.md, Findings)
-PIPELINE_SIZES = (256, 192, 128, 96, 64, 48)
+# the sizes at which phase 13 runs full_pipeline's stages 4 and 5: the largest
+# where each stage's own assertion holds on the plain path in f64 and f32 and
+# f32 ends near f64 (measured on the H100 from 256 down: PERF.md, Findings)
 TRAIN_SIZE, POSE_SIZE = 48, 128
 # Runs an example script (argv[1:]) in this process, then prints the kernels'
 # launch counts on a line of their own, after the script's own lines
@@ -3199,9 +2934,8 @@ def _load_example(name: str):
 def _pipeline_stage(fp, stage: int, n: int, rays: int, path: str, dev) -> tuple:
     """full_pipeline's stage 4 (``(first loss, last loss)``) or 5 (``(position
     error before, after)``) on its scene and phantom of size ``n`` with
-    ``rays``, ``path`` ``kernel`` (f32, ``trilinear_fused`` and
-    ``use_pallas``: the script's run), ``plain`` (f32 ``trilinear_plain``) or
-    ``f64`` (the plain path in float64), on ``dev``.  The f64 stages are
+    ``rays``, ``path`` ``plain`` (f32 ``trilinear_plain``) or ``f64`` (the
+    plain path in float64), on ``dev``.  The f64 stages are
     the script's own steps in float64 (``train_step`` from the same
     initial weights, ``pose_step``) under a plain ``torch.optim.Adam``,
     not the program's own optimizer, so that a fault of that optimizer
@@ -3211,8 +2945,7 @@ def _pipeline_stage(fp, stage: int, n: int, rays: int, path: str, dev) -> tuple:
     from diffus_tpu_torch.train.pose_recovery import pose_step, render_pose
     from diffus_tpu_torch.types import RenderConfig, TransducerPose
 
-    render = RenderConfig(attenuation_coeff=ATT, interp="trilinear_fused", use_pallas=True) \
-        if path == "kernel" else RenderConfig(attenuation_coeff=ATT, interp="trilinear_plain")
+    render = RenderConfig(attenuation_coeff=ATT, interp="trilinear_plain")
     scene = fp.calibrate(n, rays)
     t1, z_true = fp.impedance(n, dev)
     if stage == 4:
@@ -3250,8 +2983,7 @@ def _pipeline_check(fp, dev, rays: int, card: str) -> None:
     loss falls; the position error falls) must hold in both, and the f32
     run must end near the f64 one (within a tenth of the f64 run's change),
     so that the script's run through the kernels at those sizes rides no
-    chaotic trajectory (ROADMAP queue C; ``--examples-study`` measures
-    every size)."""
+    chaotic trajectory (ROADMAP queue C)."""
     for stage, n in ((4, TRAIN_SIZE), (5, POSE_SIZE)):
         t0 = time.perf_counter()
         torch.use_deterministic_algorithms(True)
@@ -3357,38 +3089,6 @@ def _examples_phase(dev, card: str) -> dict:
             "wall_s": {name: run["wall_s"] for name, run in runs.items()}}
 
 
-def _examples_study(dev, card: str) -> int:
-    """``--examples-study``: full_pipeline's stages 4 and 5 at every size of
-    PIPELINE_SIZES and 256 rays, through the kernels, the plain path in f32
-    and in f64, without stopping at the first size that holds; and the
-    first parameter sums of the initial MLP (the CPU generator's draw)."""
-    from diffus_tpu_torch.impedance.mlp import init_params
-
-    fp = _load_example("full_pipeline")
-    model = init_params(torch.Generator().manual_seed(0), (32, 32))
-    print(f"examples study [{card}]: torch {torch.__version__}; init_params(seed 0) parameter "
-          f"sums {[float(p.detach().double().sum()) for p in model.parameters()]}", flush=True)
-    for stage in (4, 5):
-        for n in PIPELINE_SIZES:
-            row = []
-            for path in ("kernel", "plain", "f64"):
-                t0 = time.perf_counter()
-                torch.use_deterministic_algorithms(True)
-                plain_only = (contextlib.nullcontext() if path == "kernel" else
-                              _plain_only(f"full_pipeline stage {stage}, {path}"))
-                try:
-                    with plain_only:
-                        before, after = _pipeline_stage(fp, stage, n, N_RAYS, path, dev)
-                finally:
-                    torch.use_deterministic_algorithms(False)
-                row.append(f"{path} {before:.5f} -> {after:.5f} "
-                           f"({'holds' if after < before else 'fails'}, "
-                           f"{time.perf_counter() - t0:.1f} s)")
-            print(f"examples study [{card}]: stage {stage}, size {n}: " + "; ".join(row),
-                  flush=True)
-    return 0
-
-
 BENCHES = ("bench_torch.py", "bench_apps_torch.py")
 
 
@@ -3436,22 +3136,6 @@ ENTRY = os.path.join(ROOT, "diffus_tpu_torch", "build", "entry")   # git-ignored
 ENTRY_SOURCE = [129.3, 4.6, 127.4]   # recover-pose's initial guess; the true source is APEX
 # /recover's schedule on the nearest service (the default is 600 steps)
 ENTRY_PHASES = [[4.0, 0.3, 0.02, 20], [0.0, 0.1, 0.005, 20]]
-
-
-@contextlib.contextmanager
-def _parent_route():
-    """Run ``interp="trilinear"`` as the parent did, as the plain sampler
-    (``trilinear_plain``): the renderer's route is patched for the block."""
-    from diffus_tpu_torch.render import renderer
-
-    resolve = renderer._resolve_sampler
-    renderer._resolve_sampler = (
-        lambda interp, dtype: resolve("trilinear_plain" if interp == "trilinear" else interp,
-                                      dtype))
-    try:
-        yield
-    finally:
-        renderer._resolve_sampler = resolve
 
 
 def _entry_counts(what: str, training: bool) -> dict:
@@ -3530,28 +3214,15 @@ def _timed(run) -> tuple:
     return time.perf_counter() - t0, out
 
 
-def _entry_run(label: str, training: bool, run, card: str, study: bool = False) -> dict:
+def _entry_run(label: str, training: bool, run, card: str) -> dict:
     """``run()`` through the kernels, between a reset and a read of the
-    counts.  With ``study``, then twice on the parent's route (no K2, no
-    K2b) and once more through the kernels: the order kernel, parent,
-    parent, kernel spreads a drift of the host's speed over both routes.
-    Returns the launches and the wall times per route, in run order."""
+    counts.  Returns the launches and the wall time."""
     _counts_reset()
     wall, out = _timed(run)
     launches = _entry_counts(label, training)
-    walls = {"kernel": [wall], "parent": []}
-    if study:
-        with _parent_route(), _plain_only(f"{label} on the parent's route"):
-            for _ in range(2):
-                walls["parent"].append(_timed(run)[0])
-        walls["kernel"].append(_timed(run)[0])
-    parent = (f", on the parent's route (trilinear_plain) "
-              f"{' and '.join(f'{w:.3f}' for w in walls['parent'])} s (order kernel, parent, "
-              f"parent, kernel)") if study else ""
-    print(f"entry points [{card}]: {label}: "
-          f"{' and '.join(f'{w:.3f}' for w in walls['kernel'])} s through K2 and K2b{parent} "
-          f"(host clock to a synchronize); launches {launches}; result {out}", flush=True)
-    return {"launches": launches, "wall_s": walls}
+    print(f"entry points [{card}]: {label}: {wall:.3f} s through K2 and K2b (host clock to a "
+          f"synchronize); launches {launches}; result {out}", flush=True)
+    return {"launches": launches, "wall_s": wall}
 
 
 def _cli_json(argv: list) -> dict:
@@ -3575,11 +3246,10 @@ def _cli_json(argv: list) -> dict:
     return out
 
 
-def _entry_points_phase(dev, card: str, study: bool = False) -> dict:
+def _entry_points_phase(dev, card: str) -> dict:
     """Phase 15: the entry points that name ``trilinear``, each through K2
-    and K2b (with ``study``, also on the parent's route); one step of each
-    held to f64.  Returns the launches per entry point, their sums and the
-    walls."""
+    and K2b; one step of each held to f64.  Returns the launches per entry
+    point, their sums and the walls."""
     from diffus_tpu_torch.geometry import fan_directions_2d
     from diffus_tpu_torch.impedance import default_table_points, tabular_impedance_volume
     from diffus_tpu_torch.impedance.mlp import init_params
@@ -3624,16 +3294,13 @@ def _entry_points_phase(dev, card: str, study: bool = False) -> dict:
     # -- the CLI's train-impedance at its defaults ------------------------------
     train_argv = ["train-impedance", "--t1", t1_path, "--us", us_path, "--source",
                   *map(str, APEX)]
-    # one epoch on each route first, untimed: a process's first call pays
-    # one-time costs (lazy module loads, the first convolution) that would
-    # land on the first timed run
+    # one epoch first, untimed: a process's first call pays one-time costs
+    # (lazy module loads, the first convolution) that would land on the
+    # timed run
     _cli_json(train_argv + ["--epochs", "1"])
-    if study:
-        with _parent_route():
-            _cli_json(train_argv + ["--epochs", "1"])
     runs["train-impedance"] = _entry_run(
         "train-impedance (256 x 512, 50 epochs, SSIM)", True, lambda: _cli_json(train_argv),
-        card, study)
+        card)
     t1 = torch.from_numpy(t1_np).to(dev)
 
     def train_step_run(interp, dtype):
@@ -3676,7 +3343,7 @@ def _entry_points_phase(dev, card: str, study: bool = False) -> dict:
         for annealed in (False, True):
             label = f"recover-pose{' --annealed' if annealed else ''} ({rays} x {samples})"
             runs[label] = _entry_run(label, False, lambda: _cli_json(
-                base + size + (["--annealed"] if annealed else [])), card, study)
+                base + size + (["--annealed"] if annealed else [])), card)
 
             def pose_step_run(interp, dtype, annealed=annealed, geom=geom, tgt=cli_target):
                 cfg = PoseRecoveryConfig(geometry=geom, render=RenderConfig(
@@ -3716,7 +3383,7 @@ def _entry_points_phase(dev, card: str, study: bool = False) -> dict:
 
         runs["/recover (nearest service)"] = _entry_run(
             f"/recover on a nearest service ({N_RAYS} x {N_SAMPLES}, {STARTS} starts, "
-            f"{sum(p[3] for p in ENTRY_PHASES)} steps)", False, recover_http, card, study)
+            f"{sum(p[3] for p in ENTRY_PHASES)} steps)", False, recover_http, card)
     finally:
         http.close()
 
@@ -3755,8 +3422,7 @@ def _entry_points_phase(dev, card: str, study: bool = False) -> dict:
 
     runs["recover_pose (default config)"] = _entry_run(
         f"recover_pose, PoseRecoveryConfig() ({pcfg.geometry.n_rays} x "
-        f"{pcfg.geometry.num_samples}, {pcfg.steps} steps)", False, recover_default, card,
-        study)
+        f"{pcfg.geometry.num_samples}, {pcfg.steps} steps)", False, recover_default, card)
 
     def default_step_run(interp, dtype):
         cfg = dataclasses.replace(pcfg, render=dataclasses.replace(pcfg.render, interp=interp))
@@ -3772,7 +3438,7 @@ def _entry_points_phase(dev, card: str, study: bool = False) -> dict:
     held.append(_held_step("recover_pose (default config)", default_step_run, 1e-4))
     for line in held:
         print(f"entry points [{card}]: {line}", flush=True)
-    walls = sum(sum(w) for r in runs.values() for w in r["wall_s"].values())
+    walls = sum(r["wall_s"] for r in runs.values())
     shutil.rmtree(ENTRY, ignore_errors=True)
     totals = {k: sum(r["launches"][k] for r in runs.values())
               for k in next(iter(runs.values()))["launches"]}
@@ -4726,238 +4392,27 @@ def _horizon_only(dev, recovery: int | None, training: int | None) -> int:
     return 0
 
 
-def _k1b_autograd(r, grad, mode, att, *_):
-    """K1b's stand-in for ``--training-study``: autograd through the plain
-    scan at the same ``r``."""
-    from diffus_tpu_torch.kernels.propagation_cuda import echo_plain
-
-    with torch.enable_grad():
-        x = r.detach().requires_grad_(True)
-        return torch.autograd.grad(echo_plain(x, mode, att), x, grad)[0]
-
-
-def _k2b_autograd(volume, source, directions, num_samples, step, grad, need):
-    """K2b's stand-in for ``--training-study``: autograd through
-    ``march_trilinear`` at the same inputs."""
-    from diffus_tpu_torch.ops.sampling import march_trilinear
-
-    with torch.enable_grad():
-        ins = [t.detach().requires_grad_(bool(n)) for t, n in zip((volume, source, directions),
-                                                                   need)]
-        values = march_trilinear(*ins, num_samples, step, False)[1]
-        grads = iter(torch.autograd.grad(values, [t for t in ins if t.requires_grad], grad))
-    return tuple(next(grads) if t.requires_grad else None for t in ins)
-
-
-def _training_study(dev, card: str, steps: int) -> int:
-    """``--training-study``: phase 7's trajectory (``init_params(TRAIN_SEED)``,
-    lr 0.01) over ``steps`` steps, each way's distance from the f64 plain
-    path by step: the kernels, the plain path, one kernel pair at a time
-    (the other pair's plain version), K1b or K2b swapped for autograd
-    through its plain version, and a witness of f32 rounding alone (the
-    plain path from weights nudged one ulp).  Then the three ways at lower
-    rates over the 50 epochs."""
-    from diffus_tpu_torch.impedance.mlp import init_params
-    from diffus_tpu_torch.kernels import propagation_cuda, trilinear_cuda
-
-    vol, _ = _phase4_service(dev)
-    cfg, t1, src, dirs, target = _training_inputs(dev, vol)
-    del vol
-    us_norm, mask = _normalized(target)
-    train = {"t1": t1, "us_norm": us_norm, "mask": mask, "src": src, "dirs": dirs}
-    plain = dataclasses.replace(cfg, render=dataclasses.replace(
-        cfg.render, interp="trilinear_plain", use_pallas=False))
-    k1 = dataclasses.replace(cfg, render=dataclasses.replace(cfg.render,
-                                                             interp="trilinear_plain"))
-    k2 = dataclasses.replace(cfg, render=dataclasses.replace(cfg.render, use_pallas=False))
-    model0 = init_params(torch.Generator().manual_seed(TRAIN_SEED), cfg.hidden)
-    nudged = copy.deepcopy(model0)
-    with torch.no_grad():
-        for prm in nudged.parameters():
-            prm.copy_(torch.nextafter(prm, torch.full_like(prm, math.inf)))
-    swap_k1b = (propagation_cuda, "_launch_bwd", _k1b_autograd)
-    swap_k2b = (trilinear_cuda, "_launch_march_bwd", _k2b_autograd)
-    ways = {   # name: (initial weights, config, swap)
-        "kernels": (model0, cfg, None),
-        "plain": (model0, plain, None),
-        "K1 + K1b only": (model0, k1, None),
-        "K2 + K2b only": (model0, k2, None),
-        "kernels, K1b as plain autograd": (model0, cfg, swap_k1b),
-        "kernels, K2b as plain autograd": (model0, cfg, swap_k2b),
-        "plain, weights nudged one ulp": (nudged, plain, None),
-    }
-
-    def run(model, c, swap, n, dtype=torch.float32):
-        torch.use_deterministic_algorithms(True)
-        old = None
-        if swap is not None:
-            old = getattr(swap[0], swap[1])
-            setattr(swap[0], swap[1], swap[2])
-        plain_only = (_plain_only("training study, a trilinear_plain way")
-                      if c.render.interp == "trilinear_plain" else contextlib.nullcontext())
-        try:
-            with plain_only:
-                return _train_trajectory(model, train, c, n, dtype)
-        finally:
-            torch.use_deterministic_algorithms(False)
-            if old is not None:
-                setattr(swap[0], swap[1], old)
-
-    f64 = run(model0, plain, None, steps, torch.float64)
-    for name, way in ways.items():
-        # this way's distances from f64 (read as the "kernel" path's)
-        dist = _trajectory_distances({"kernel": run(*way, steps), "plain": f64, "f64": f64})
-
-        def worst(t, keep):
-            return max(float(d["kernel"][t].max()) for k, d in dist.items() if keep(k))
-
-        rows = [f"{t + 1}: " + "/".join(f"{worst(t, keep):.2e}" for keep in (
-            lambda k: k != "loss" and not k.startswith("grad "),
-            lambda k: k.startswith("grad "),
-            lambda k: k.startswith("grad ") and k.endswith("bias"),
-            lambda k: k == "loss")) for t in range(steps)]
-        print(f"training study [{card}], {name}: by step, distance from f64 (parameters/"
-              f"gradients/bias gradients/loss): " + "; ".join(rows), flush=True)
-
-    for lr in (1e-3, 3e-3):
-        at = {k: dataclasses.replace(c, lr=lr) for k, c in (("kernel", cfg), ("plain", plain))}
-        traj = {"kernel": run(model0, at["kernel"], None, cfg.epochs),
-                "plain": run(model0, at["plain"], None, cfg.epochs),
-                "f64": run(model0, at["plain"], None, cfg.epochs, torch.float64)}
-        losses = "; ".join(f"{k} {float(v['loss'][0]):.6f} -> {float(v['loss'][-1]):.6f} (min "
-                           f"{float(v['loss'].min()):.6f}, rises "
-                           f"{int((v['loss'][1:] > v['loss'][:-1]).sum())})"
-                           for k, v in traj.items())
-        out = _trajectory_check(f"training at lr {lr:g}", traj, 1e-3, 1e-3, strict=False)
-        print(f"training study [{card}], lr {lr:g}, {cfg.epochs} steps: {losses}; "
-              + _horizon_summary(out), flush=True)
-    return 0
-
-
-# Edits of csrc/trilinear_bwd.cu that --horizon-study checks phase 10's
-# trajectory check with, each anchor found once: a correct order of K2b's
-# points sums that differs from the shipped one in its last bits (B12's 64
-# slots a ray: lane l sums samples l, l + 64, ... in one slot and l + 32,
-# l + 96, ... in another, the two slots added before the warp's tree), and
-# two wrong gradients: the weight of one corner pair of dfz with its sign
-# flipped, and every point gradient doubled (Adam's first steps, lr times
-# the sign, and its second, see no constant factor: only the gradients'
-# own check sees it)
-_ACC = "  float acc[kSums] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};\n"
-_ACC_ADD = "#pragma unroll\n    for (int q = 0; q < kSums; ++q) acc[q] += t[q];\n  }\n"
-_HORIZON_STUDY = {
-    "shipped": [],
-    "64 slots a ray (B12)": [
-        (_ACC, _ACC + "  float acc2[kSums] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};\n"),
-        (_ACC_ADD,
-         "    if ((k / kLanes) & 1) {\n#pragma unroll\n"
-         "      for (int q = 0; q < kSums; ++q) acc2[q] += t[q];\n"
-         "    } else {\n#pragma unroll\n"
-         "      for (int q = 0; q < kSums; ++q) acc[q] += t[q];\n    }\n  }\n"
-         "#pragma unroll\n  for (int q = 0; q < kSums; ++q) acc[q] += acc2[q];\n")],
-    "a wrong gradient (one corner weight's sign flipped)": [
-        ("dc11 = dc1 * c.fy;\n  const float dfx", "dc11 = -(dc1 * c.fy);\n  const float dfx")],
-    "a wrong gradient (twice the points' gradients: Adam's steps the same)": [
-        ("  t[5] = c.in ? t[2] * c.t : 0.0f;\n}",
-         "  t[5] = c.in ? t[2] * c.t : 0.0f;\n#pragma unroll\n"
-         "  for (int q = 0; q < 6; ++q) t[q] *= 2.0f;\n}")],
-}
-
-
-def _study_copies(base, edits: dict, source: str) -> dict:
-    """A copy of the package and this script under ``base`` for each entry
-    of ``edits`` (``{name: [(anchor, replacement), ...]}``, applied to
-    ``csrc/<source>``), built together (one process each): ``{name: root}``."""
-    shutil.rmtree(base, ignore_errors=True)
-    from diffus_tpu_torch.kernels import _build
-
-    roots = {}
-    for i, (name, pairs) in enumerate(edits.items()):
-        root = base / str(i)
-        shutil.copytree(_build.SRC_DIR.parent, root / "diffus_tpu_torch",
-                        ignore=shutil.ignore_patterns("build", "__pycache__"))
-        shutil.copy(os.path.join(ROOT, "chip_smoke.py"), root)
-        src = root / "diffus_tpu_torch" / "csrc" / source
-        text = src.read_text()
-        for old, new in pairs:
-            if text.count(old) != 1:
-                raise AssertionError(f"study, {name}: an edit's anchor is not in {source} once")
-            text = text.replace(old, new)
-        src.write_text(text)
-        roots[name] = root
-    build = "from diffus_tpu_torch.kernels import _build; _build.library()"
-    procs = {name: subprocess.Popen([sys.executable, "-c", build], cwd=root,
-                                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for name, root in roots.items()}
-    for name, proc in procs.items():
-        out = proc.communicate(timeout=600)[0]
-        if proc.returncode != 0:
-            raise RuntimeError(f"study, {name}: build failed\n{out[-3000:]}")
-    return roots
-
-
-def _horizon_study(card: str) -> int:
-    """``--horizon-study``: phase 10's trajectory check (``--recovery-horizon``)
-    in copies of the package whose K2b is edited (``_HORIZON_STUDY``): the
-    shipped source and the 64-slot order must pass, the wrong gradient must
-    fail."""
-    from diffus_tpu_torch.kernels import _build
-
-    base = _build.BUILD_DIR / "study"
-    roots = _study_copies(base, _HORIZON_STUDY, "trilinear_bwd.cu")
-    failed = []
-    for name, root in roots.items():
-        t0 = time.perf_counter()
-        run = subprocess.run([sys.executable, "chip_smoke.py", "--recovery-horizon"], cwd=root,
-                             capture_output=True, text=True, timeout=600)
-        last = (run.stdout.strip().splitlines() or [""])[-1]
-        why = last if run.returncode == 0 else (run.stderr.strip().splitlines() or [""])[-1]
-        print(f"horizon study [{card}], {name}: exit {run.returncode} in "
-              f"{time.perf_counter() - t0:.1f} s; {why}", flush=True)
-        if (run.returncode == 0) != name.startswith(("shipped", "64 slots")):
-            failed.append(name)
-    shutil.rmtree(base, ignore_errors=True)
-    if failed:
-        raise AssertionError(f"horizon study: the check's verdict is wrong for {failed}")
-    return 0
-
-
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--requests", action="store_true",
                         help="time only the service's requests at each tier")
     parser.add_argument("--backward", action="store_true",
                         help="time only the backward kernels K1b and K2b (phase 5's readings)")
-    parser.add_argument("--points-study", nargs="*", metavar="WORD",
-                        help="time K2b's points path in copies with parts of its work left out "
-                             "(the entries whose names hold a WORD, if any are given)")
-    parser.add_argument("--points-time", action="store_true",
-                        help="time K2b's points path and K2 alone at recovery's shape (one line)")
     parser.add_argument("--recovery-step", action="store_true",
                         help="time only phase 10's recovery step and K2b on its inputs")
     parser.add_argument("--recovery-horizon", type=int, nargs="?", const=0, metavar="N",
                         help="only phase 10's trajectory check; with N, measure it over N steps")
     parser.add_argument("--training-horizon", type=int, nargs="?", const=0, metavar="N",
                         help="only phase 7's trajectory check; with N, measure it over N steps")
-    parser.add_argument("--training-study", type=int, nargs="?", const=8, metavar="N",
-                        help="phase 7's trajectory over N steps with one part of the kernel "
-                             "path swapped at a time, and at lower rates")
-    parser.add_argument("--horizon-study", action="store_true",
-                        help="phase 10's trajectory check on copies with K2b's points sums in "
-                             "another order and with a wrong gradient")
-    parser.add_argument("--examples-study", action="store_true",
-                        help="full_pipeline's stages 4 and 5 at every candidate size, three ways")
     parser.add_argument("--probe", action="store_true",
-                        help="only phase 6: K3 against float64, beside its earlier design")
+                        help="only phase 6: K3 against float64, and its times")
     parser.add_argument("--graphs", action="store_true",
                         help="only phase 16: the hot paths as captured CUDA graphs against eager")
     parser.add_argument("--artifacts", action="store_true",
                         help="only phase 17: the artifact stack's kernel K4 at the lung view")
     parser.add_argument("--entry-points", action="store_true",
-                        help="only phase 15: the entry points that name interp='trilinear', "
-                             "each also timed on the parent's route")
+                        help="only phase 15: the entry points that name interp='trilinear'")
     args = parser.parse_args(argv)
-    any_only = any(v is not None and v is not False for v in vars(args).values())
     t_start = time.perf_counter()
     # -- 1. device ---------------------------------------------------------
     if not torch.cuda.is_available():
@@ -4976,7 +4431,6 @@ def main(argv=None) -> int:
     # -- 2. build ----------------------------------------------------------
     stale = _build._stale()
     t0 = time.perf_counter()
-    parent_build = _start_parent_probe_build() if args.probe or not any_only else None
     _build.library()
     build_s = time.perf_counter() - t0
     regs = _ptxas_report(_build.LOG_PATH.read_text())
@@ -4986,25 +4440,15 @@ def main(argv=None) -> int:
         return _requests_only(dev, card)
     if args.backward:
         return _backward_only(dev, card)
-    if args.points_time:
-        return _points_time(dev)
-    if args.points_study is not None:
-        return _points_study(card, args.points_study)
     if args.recovery_step:
         return _recovery_step_only(dev, card)
     if args.recovery_horizon is not None or args.training_horizon is not None:
         return _horizon_only(dev, args.recovery_horizon, args.training_horizon)
-    if args.training_study is not None:
-        return _training_study(dev, card, args.training_study)
-    if args.horizon_study:
-        return _horizon_study(card)
-    if args.examples_study:
-        return _examples_study(dev, card)
     if args.probe:
-        _gather_probe_phase(dev, _parent_probe(parent_build))
+        _gather_probe_phase(dev)
         return 0
     if args.entry_points:
-        _entry_points_phase(dev, card, study=True)
+        _entry_points_phase(dev, card)
         return 0
     if args.graphs:
         graphed = _graphs_phase(dev, _phase4_service(dev)[0], card)
@@ -5022,11 +4466,8 @@ def main(argv=None) -> int:
         echo_fused,
         echo_plain,
     )
-    from diffus_tpu_torch.kernels.trilinear_cuda import (
-        march_trilinear_fused,
-        sample_trilinear_fused,
-    )
-    from diffus_tpu_torch.ops.sampling import march_trilinear, ray_points, sample_trilinear
+    from diffus_tpu_torch.kernels.trilinear_cuda import march_trilinear_fused
+    from diffus_tpu_torch.ops.sampling import march_trilinear, ray_points
     from diffus_tpu_torch.phantoms import brain_phantom_3d
     from diffus_tpu_torch.render.renderer import render_bmode, render_frame, simulate_rays
     from diffus_tpu_torch.types import RenderConfig
@@ -5108,26 +4549,6 @@ def main(argv=None) -> int:
           f"bit for bit, parity + symmetric, shipped {k1.LANES} lanes on nearest and "
           f"trilinear reflections, 8/16/32 lanes on nearest", flush=True)
 
-    pts = ray_points(src32, dirs.expand(32, -1, -1), N_SAMPLES).contiguous()
-    pts[:, ::16] = torch.from_numpy(
-        rng.uniform(-20.0, 276.0, size=pts[:, ::16].shape).astype(np.float32)).to(dev)
-    # a diverged pose's NaN components: the value is NaN in both, index 0
-    pts[0, 0, 7:10] = torch.tensor([[float("nan"), 9.5, 9.5], [9.5, float("nan"), 9.5],
-                                    [9.5, 9.5, float("nan")]])
-    idx_k, val_k = sample_trilinear_fused(vol, pts)
-    idx_p, val_p = sample_trilinear(vol, pts)
-    torch.cuda.synchronize()
-    _assert_close(val_k, val_p, 1e-6, 1e-7, "K2", equal_nan=True)
-    if not torch.equal(idx_k, idx_p):
-        raise AssertionError("K2 idx differs from the plain sampler's")
-    n_nan = int(torch.isnan(val_k).sum())
-    if n_nan != 3 or not bool(torch.isnan(val_k[0, 0, 7:10]).all()):
-        raise AssertionError(f"K2: {n_nan} NaN values, expected the 3 NaN points")
-    k2_err = float((val_k - val_p).nan_to_num(0.0).abs().max())
-    print(f"K2 points form vs plain at {tuple(pts.shape[:-1])} points on the "
-          f"{SHAPE} phantom: ok, max_abs_err {k2_err:.3e} (rtol 1e-6, atol 1e-7; 3 NaN "
-          f"points NaN in both)", flush=True)
-
     # K2's ray form, the renderer's: the service's fan, shared by every pose
     # (stride 0), from 32 sources, one with a NaN component and two outside
     # the volume, beyond every face between them
@@ -5137,10 +4558,6 @@ def main(argv=None) -> int:
     src_m[2] = torch.tensor([300.0, 290.0, -20.0])
     dirs32 = dirs.expand(32, -1, -1)
     idx_p, val_p = march_trilinear(vol, src_m, dirs32, N_SAMPLES)
-    pts_m = ray_points(src_m, dirs32, N_SAMPLES)
-    idx_q, val_q = sample_trilinear_fused(vol, pts_m)
-    if not (_same(val_q, val_p) and torch.equal(idx_q, idx_p)):
-        raise AssertionError("K2's points form fed ray_points differs from march_trilinear")
     for with_idx in (True, False):
         idx_k, val_k = march_trilinear_fused(vol, src_m, dirs32, N_SAMPLES, with_idx=with_idx)
         torch.cuda.synchronize()
@@ -5149,11 +4566,12 @@ def main(argv=None) -> int:
                                  f"max abs {float((val_k - val_p).nan_to_num(0).abs().max()):.3e}")
         if with_idx and not torch.equal(idx_k, idx_p) or not with_idx and idx_k is not None:
             raise AssertionError(f"K2's ray form idx (with_idx {with_idx}) differs")
+    k2_err = float((val_k - val_p).nan_to_num(0).abs().max())
     if not (bool(torch.isnan(val_p[0]).all()) and bool(torch.isfinite(val_p[1:]).all())):
         raise AssertionError("K2's ray form: the NaN source must give NaN values, the rest none")
     print(f"K2 ray form vs march_trilinear at {tuple(val_p.shape)} (a NaN source, 2 poses "
-          f"outside the volume): equal bit for bit, values and idx, with and without idx; "
-          f"the points form fed ray_points equal too", flush=True)
+          f"outside the volume): equal bit for bit, values and idx, with and without idx",
+          flush=True)
     bwd_checks = _backward_checks(dev, vol, r, r_tri, src_m, dirs, rng)
 
     # -- 4. main path: the service ------------------------------------------
@@ -5220,9 +4638,8 @@ def main(argv=None) -> int:
           + ", ".join(f"{k} {v:.4f} ms" for k, v in k1_variants.items()), flush=True)
     k1_main = k1_by_rays[32 * N_RAYS]
 
-    # K2 at the 32-pose request's shapes: the ray form (values only, as the
-    # service and recovery run it; with idx, as training does) and the points
-    # form, alone and behind ray_points
+    # K2 at the 32-pose request's shapes: values only, as the service and
+    # recovery run it, and with idx, as training does
     pts_main = ray_points(src32, dirs32, N_SAMPLES)
 
     def march(with_idx=False):
@@ -5233,15 +4650,6 @@ def main(argv=None) -> int:
     k2_idx_ms = _event_ms(lambda: march(True), 20)
     k2_us = _kernel_device_us(march, "trilinear_march_kernel", 20)
     k2_idx_us = _kernel_device_us(lambda: march(True), "trilinear_march_kernel", 20)
-    points_ms = _event_ms(lambda: sample_trilinear_fused(vol, pts_main), 20)
-    points_us = _kernel_device_us(lambda: sample_trilinear_fused(vol, pts_main),
-                                  "trilinear_points_kernel", 20)
-    rp_ms = _event_ms(lambda: ray_points(src32, dirs32, N_SAMPLES), 20)
-    old_way_ms = _event_ms(lambda: sample_trilinear_fused(
-        vol, ray_points(src32, dirs32, N_SAMPLES)), 20)
-    # the shipped forms side by side, device time per launch (profiler)
-    k2_variants = {"ray values only": k2_us / 1e3, "ray with idx": k2_idx_us / 1e3,
-                   "points": points_us / 1e3}
     # the library's values-only yardstick; it writes no idx
     grid = _grid_sample_grid(pts_main, tuple(vol.shape))
     vol5 = vol[None, None]
@@ -5264,7 +4672,6 @@ def main(argv=None) -> int:
     sectors = corner_sectors(vol, pts_main)
     k2_bound = _k2_march_bound(n_pts, sectors, 32, N_RAYS, False)
     k2_idx_bound = _k2_march_bound(n_pts, sectors, 32, N_RAYS, True)
-    points_bound = _bound(28.0 * n_pts + 32.0 * sectors, K2_OPS_PER_POINT * n_pts)
     print(f"times [{card}]: K2 ray form {tuple(pts_main.shape[:-1])}, values only {k2_ms:.4f} ms "
           f"(CUDA events, wrapper included; {k2_us:.2f} us alone, profiler; the wrapper's host "
           f"time {k2_host_us:.2f} us a call in the same runs) vs plain "
@@ -5278,18 +4685,12 @@ def main(argv=None) -> int:
           f"bound 16 B a point = {k2_idx_bound['bound_bytes'] / 1e6:.2f} MB -> "
           f"{k2_idx_bound['bound_ms']:.4f} ms: {k2_idx_bound['bound_ms'] / k2_idx_ms:.1%} with "
           f"the wrapper, {k2_idx_bound['bound_ms'] * 1e3 / k2_idx_us:.1%} alone", flush=True)
-    print(f"times [{card}]: K2 points form {points_ms:.4f} ms ({points_us:.2f} us alone; bound "
-          f"28 B a point = {points_bound['bound_bytes'] / 1e6:.2f} MB -> "
-          f"{points_bound['bound_ms']:.4f} ms, {points_bound['bound_ms'] * 1e3 / points_us:.1%} "
-          f"alone); ray_points alone {rp_ms:.4f} ms; ray_points + points form (the renderer's "
-          f"way before the ray form) {old_way_ms:.4f} ms vs the ray form's {k2_ms:.4f} ms",
-          flush=True)
     bwd_times = _backward_times(dev, vol, r_tri, src32, dirs, rng, card)
     _tier_latencies(svc, rng, card, "request")
     _request_profiles(svc, rng, card, "request")
 
     # -- 6. K3 against its plain version, then its path ----------------------
-    k3 = _gather_probe_phase(dev, _parent_probe(parent_build))
+    k3 = _gather_probe_phase(dev)
 
     # -- 7. training path -----------------------------------------------------
     train = _training_phase(dev, vol)
@@ -5351,12 +4752,8 @@ def main(argv=None) -> int:
          "device_us": k2_us, "host_us": k2_host_us, "bound_bytes": k2_bound["bound_bytes"],
          "volume_sectors": sectors,
          "form": "ray (values only)",
-         "variants_ms": k2_variants,
          "with_idx": {"ms": k2_idx_ms, "device_us": k2_idx_us, **k2_idx_bound},
-         "points_form": {"ms": points_ms, "device_us": points_us, **points_bound,
-                         "with_ray_points_ms": old_way_ms},
-         "ray_points_ms": rp_ms, "idx_launches": launches["trilinear_idx"],
-         "points_launches": launches["trilinear_points"]},
+         "idx_launches": launches["trilinear_idx"]},
         {"name": "gather_probe", "route": "cuda",
          "source": "diffus_tpu_torch/csrc/gather_probe.cu",
          "replaces": "diffus_tpu/kernels/gather_dma_probe.py:43",
@@ -5366,7 +4763,7 @@ def main(argv=None) -> int:
          "device_us": k3["device_us"], "device_us_cold": k3["device_us_cold"],
          "distinct_rows": k3["distinct_rows"], "ns_per_row": k3["ns_per_row"],
          "ns_per_distinct_row": k3["ns_per_distinct_row"],
-         "plain_ns_per_row": k3["plain_ns_per_row"], "variants": k3["variants"]},
+         "plain_ns_per_row": k3["plain_ns_per_row"], "runs": k3["runs"]},
     ]
     # the backward kernels' path is training's (phase 7): launches there
     k1b_rec, k2b_vol = bwd_times["k1b_recovery"], bwd_times["k2b_volume"]

@@ -1,29 +1,27 @@
-// Exact trilinear volume sample (kernel K2), in two forms.
+// Exact trilinear volume sample along rays (kernel K2), in one form.
 //
 // Replaces the Pallas TPU kernel diffus_tpu/kernels/tile_select_pallas.py
-// (_kernel, :46, launched by tile_select, :88-145), reached through
-// sample_trilinear_tile_fused (diffus_tpu/ops/sampling.py:664-700).  On the
+// (_kernel, :46, launched by tile_select, :88-145), reached through the
+// trilinear_tile_fused sampler (diffus_tpu/ops/sampling.py:664-700).  On the
 // TPU the corners come from XLA row gathers of a 128-lane tile table and
 // the kernel selects and blends lanes; what it computes is the exact
 // trilinear value of the volume at the point.  Here the 8 corners come
 // straight from the contiguous (D, H, W) f32 volume: no tile table.
 //
-// - The ray form (trilinear_march_kernel, diffus_trilinear_march) marches the rays
-//   itself: sample k of ray r of pose p is at
-//   source[p] + (float(k) * step) * dir[p, r], the three IEEE roundings of
-//   ray_points (arange * step, then * dir, then + source), so no (..., 3)
-//   point tensor is written and read back.  The idx is written only when
-//   the caller passes an idx buffer: the service and pose recovery read
-//   the values alone, as XLA drops the unread idx in the reference.
-// - The points form (trilinear_points_kernel, diffus_trilinear_sample) samples
-//   arbitrary (n, 3) points.
+// The kernel (trilinear_march_kernel, diffus_trilinear_march) marches the
+// rays itself: sample k of ray r of pose p is at
+// source[p] + (float(k) * step) * dir[p, r], the three IEEE roundings of
+// ray_points (arange * step, then * dir, then + source), so no (..., 3)
+// point tensor is written and read back.  The idx is written only when
+// the caller passes an idx buffer: the service and pose recovery read
+// the values alone, as XLA drops the unread idx in the reference.
 //
-// Both call trilinear_at, so they cannot drift apart.  Arithmetic,
-// identical to the plain sample_trilinear (diffus_tpu_torch/ops/sampling.py,
-// JAX ops/sampling.py:109-152): clamp each component to [0, dim-1], floor,
-// i1 = min(i0 + 1, dim - 1), blend z, then y, then x.  Built with
-// --fmad=false, so each a*b + c rounds twice like the plain path's separate
-// PyTorch ops and the values agree bit for bit.  idx = round-half-even
+// Arithmetic (trilinear_at), identical to the plain sample_trilinear
+// (diffus_tpu_torch/ops/sampling.py, JAX ops/sampling.py:109-152): clamp
+// each component to [0, dim-1], floor, i1 = min(i0 + 1, dim - 1), blend z,
+// then y, then x.  Built with --fmad=false, so each a*b + c rounds twice
+// like the plain path's separate PyTorch ops and the values agree bit for
+// bit.  idx = round-half-even
 // (rintf; roundf rounds half away from zero), clamped per axis.  A NaN
 // component gives a NaN value and index 0 on that axis, like the plain
 // sampler.  Flat offsets are 64-bit.  Texture filtering is not used: its
@@ -146,39 +144,11 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// The points form: one point a thread.
-__global__ void __launch_bounds__(kThreads)
-    trilinear_points_kernel(const float* __restrict__ vol, const float* __restrict__ pts,
-                            float* __restrict__ out, int32_t* __restrict__ idx, int64_t n,
-                            int d, int h, int w, bool quad) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i >= n) return;
-  const float px = __ldg(pts + 3 * i), py = __ldg(pts + 3 * i + 1), pz = __ldg(pts + 3 * i + 2);
-  out[i] = trilinear_at(vol, px, py, pz, d, h, w, quad);
-  idx[3 * i] = round_clamp(px, d);
-  idx[3 * i + 1] = round_clamp(py, h);
-  idx[3 * i + 2] = round_clamp(pz, w);
-}
-
 bool rows_aligned(const float* vol, int w) {
   return w % 4 == 0 && reinterpret_cast<uintptr_t>(vol) % 16 == 0;
 }
 
 }  // namespace
-
-// vol: (d, h, w) f32 contiguous; pts: (n, 3) f32 contiguous; out: (n,) f32;
-// idx: (n, 3) int32.  Launches on `stream`; returns cudaGetLastError().
-extern "C" int diffus_trilinear_sample(const float* vol, const float* pts, float* out,
-                                       int32_t* idx, int64_t n, int d, int h, int w,
-                                       void* stream) {
-  if (n == 0) return static_cast<int>(cudaSuccess);
-  const int64_t blocks = (n + kThreads - 1) / kThreads;
-  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
-  trilinear_points_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(vol, pts, out, idx, n, d, h,
-                                                                 w, rows_aligned(vol, w));
-  return static_cast<int>(cudaGetLastError());
-}
 
 // vol: (d, h, w) f32 contiguous; src: (p, 3) f32 contiguous; dirs: rays of
 // 3 f32, ray r of pose q at dirs + q * dir_pose_stride + 3 r (stride 0: one

@@ -81,8 +81,8 @@
 // Timed at recovery's 8 poses x 256 rays x 512 samples on the 256^3
 // phantom, on the recovery step's own inputs, with L2 flushed before each
 // call (as the step's other kernels leave it) and back to back
-// (chip_smoke.py --points-study and --recovery-step; NVIDIA H100 80GB HBM3,
-// 700 W):
+// (chip_smoke.py --recovery-step, the variants in edited copies of this
+// file; NVIDIA H100 80GB HBM3, 700 W):
 // - shipped: 21.0 and 19.2 us; the earlier design (a warp a ray, its sums
 //   in a second kernel) 25.8-26.5 and 24.2-24.4 us on the same inputs;
 // - the corners as K2 reads them (one float4 for z0 and z1 where aligned,

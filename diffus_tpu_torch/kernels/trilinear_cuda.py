@@ -1,29 +1,26 @@
-"""Kernel K2: exact trilinear sample, hand-written CUDA, in two forms.
+"""Kernel K2: exact trilinear sample along rays, hand-written CUDA.
 
 Replaces ``diffus_tpu/kernels/tile_select_pallas.py`` (the Pallas
-``_kernel`` at :46, launched by ``tile_select`` at :88-145 from
-``sample_trilinear_tile_fused``, ``diffus_tpu/ops/sampling.py:664-700``).
+``_kernel`` at :46, launched by ``tile_select`` at :88-145 from the
+``trilinear_tile_fused`` sampler, ``diffus_tpu/ops/sampling.py:664-700``).
 The TPU kernel blends lanes of gathered tile rows; what it computes is the
 trilinear value of the volume at each point, which ``csrc/trilinear.cu``
 reads straight from the ``(D, H, W)`` volume.
 
-- :func:`march_trilinear_fused` is the ray form, the renderer's: it takes
-  the rays' sources and directions, computes each sample's point in the
-  kernel exactly as :func:`~diffus_tpu_torch.ops.sampling.ray_points`
-  does, and writes the idx only when asked (``with_idx``).  Its plain
-  version is :func:`~diffus_tpu_torch.ops.sampling.march_trilinear`.
-- :func:`sample_trilinear_fused` is the points form, for arbitrary points
-  (``SAMPLERS['trilinear_fused']``); its plain version is
-  :func:`~diffus_tpu_torch.ops.sampling.sample_trilinear`.
+:func:`march_trilinear_fused`, the renderer's route for every exact
+trilinear name, takes the rays' sources and directions, computes each
+sample's point in the kernel exactly as
+:func:`~diffus_tpu_torch.ops.sampling.ray_points` does, and writes the idx
+only when asked (``with_idx``).  Its plain version is
+:func:`~diffus_tpu_torch.ops.sampling.march_trilinear`.
 
-On a CPU tensor each runs its plain version; on a CUDA tensor it launches
-the kernel or raises.  There is no fallback, and the kernels take f32
-only: a bf16 or f64 CUDA tensor raises.  Each counts its launches
-(``.launches``; the ray form also counts those that wrote an idx,
-``.idx_launches``, and its backward's, ``.bwd_launches``, of which
-``.bwd_volume_launches`` ran the volume path and ``.bwd_points_launches``
-the points path).  What bounds the kernels on the card is in the
-source's header note.
+On a CPU tensor it runs its plain version; on a CUDA tensor it launches
+the kernel or raises.  There is no fallback, and the kernel takes f32
+only: a bf16 or f64 CUDA tensor raises.  It counts its launches
+(``.launches``), those that wrote an idx (``.idx_launches``), and its
+backward's (``.bwd_launches``, of which ``.bwd_volume_launches`` ran the
+volume path and ``.bwd_points_launches`` the points path).  What bounds
+the kernels on the card is in the sources' header notes.
 
 Gradient: the ray form's ``torch.autograd.Function`` has a backward that
 launches ``csrc/trilinear_bwd.cu`` (kernel K2b), the VJP that JAX's
@@ -38,9 +35,6 @@ per ray, per pose and over the poses in a fixed order by index (a point
 kernel, then a launch for the sums), with no float atomics: deterministic
 by construction too.
 :func:`march_trilinear_backward_plain` is K2b's order in plain PyTorch.
-The points form's backward still runs autograd through
-:func:`~diffus_tpu_torch.ops.sampling.sample_trilinear`; no path of the
-port reaches that form.
 """
 
 from __future__ import annotations
@@ -51,7 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from diffus_tpu_torch.kernels import _build
-from diffus_tpu_torch.ops.sampling import march_trilinear, sample_trilinear
+from diffus_tpu_torch.ops.sampling import march_trilinear
 from diffus_tpu_torch.utils.graphs import count
 
 _INT32_MAX = 2**31 - 1
@@ -76,29 +70,6 @@ def _check(volume: torch.Tensor, **others: torch.Tensor) -> None:
             raise ValueError(f"volume on {volume.device}, {name} on {t.device}")
     if volume.dim() != 3:
         raise ValueError(f"need a (D, H, W) volume, got {tuple(volume.shape)}")
-
-
-def _launch(volume: torch.Tensor, points: torch.Tensor):
-    _check(volume, points=points)
-    if points.shape[-1] != 3:
-        raise ValueError(f"need (..., 3) points, got {tuple(points.shape)}")
-    vol = volume.contiguous()
-    pts = points.reshape(-1, 3).contiguous()
-    n = pts.shape[0]
-    values = torch.empty((n,), dtype=torch.float32, device=vol.device)
-    idx = torch.empty((n, 3), dtype=torch.int32, device=vol.device)
-    d, h, w = vol.shape
-    lib = _build.library()
-    stream = torch.cuda.current_stream(vol.device).cuda_stream
-    with torch.cuda.device(vol.device):
-        status = lib.diffus_trilinear_sample(
-            vol.data_ptr(), pts.data_ptr(), values.data_ptr(), idx.data_ptr(),
-            n, d, h, w, stream,
-        )
-    _build.check(status, "trilinear sample")
-    count("trilinear_points", sample_trilinear_fused, "launches", stream)
-    lead = points.shape[:-1]
-    return idx.reshape(lead + (3,)), values.reshape(lead)
 
 
 def _march_args(source: torch.Tensor, directions: torch.Tensor, num_samples: int):
@@ -342,25 +313,6 @@ def _launch_march_bwd(volume: torch.Tensor, source: torch.Tensor, directions: to
     return dvol, dsrc, ddir
 
 
-class _TrilinearFused(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, volume, points):
-        ctx.save_for_backward(volume, points)
-        idx, values = _launch(volume, points)
-        ctx.mark_non_differentiable(idx)
-        return idx, values
-
-    @staticmethod
-    def backward(ctx, _grad_idx, grad_values):
-        volume, points = ctx.saved_tensors
-        with torch.enable_grad():
-            v = volume.detach().requires_grad_(ctx.needs_input_grad[0])
-            p = points.detach().requires_grad_(ctx.needs_input_grad[1])
-            inputs = [t for t in (v, p) if t.requires_grad]
-            grads = iter(torch.autograd.grad(sample_trilinear(v, p)[1], inputs, grad_values))
-        return tuple(next(grads) if t.requires_grad else None for t in (v, p))
-
-
 class _MarchFused(torch.autograd.Function):
     @staticmethod
     def forward(ctx, volume, source, directions, num_samples, step, with_idx):
@@ -376,23 +328,6 @@ class _MarchFused(torch.autograd.Function):
         grads = _launch_march_bwd(*ctx.saved_tensors, *ctx.march, grad_values,
                                   ctx.needs_input_grad[:3])
         return (*grads, None, None, None)
-
-
-def sample_trilinear_fused(volume: torch.Tensor, points: torch.Tensor):
-    """Exact trilinear sample at arbitrary points through K2's points form
-    (plain version on CPU).
-
-    Args:
-      volume: ``(D, H, W)``; points: ``(..., 3)`` voxel coordinates.
-    Returns:
-      ``(idx, values)``: rounded, clamped int32 coords ``(..., 3)`` and the
-      interpolated values ``(...,)``.
-    """
-    if volume.device.type == "cpu":
-        return sample_trilinear(volume, points)
-    if volume.device.type != "cuda":
-        raise ValueError(f"trilinear kernel runs on CUDA tensors, got {volume.device}")
-    return _TrilinearFused.apply(volume, points)
 
 
 def march_trilinear_fused(volume: torch.Tensor, source: torch.Tensor, directions: torch.Tensor,
@@ -434,8 +369,7 @@ def corner_sectors(volume: torch.Tensor, points: torch.Tensor) -> int:
     return int(torch.unique(lin.reshape(-1) // 8).numel())
 
 
-sample_trilinear_fused.launches = 0  # kernel launches so far; reset it to count a run
-march_trilinear_fused.launches = 0
+march_trilinear_fused.launches = 0  # kernel launches so far; reset it to count a run
 march_trilinear_fused.idx_launches = 0  # of those, the launches that wrote an idx
 march_trilinear_fused.bwd_launches = 0  # K2b's launches (the ray form's gradient)
 march_trilinear_fused.bwd_volume_launches = 0  # of those, the ones with its volume path

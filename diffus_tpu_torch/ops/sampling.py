@@ -8,8 +8,10 @@ names map onto these samplers by what each name is (:data:`SAMPLER_KINDS`):
 
 - ``nearest``: the nearest gather;
 - ``bf16``: exact trilinear of bf16 corners, plain PyTorch;
-- ``exact``: exact trilinear in f32, which the card runs through the
-  CUDA kernel K2 (as JAX runs its TPU sampler for these names);
+- ``exact``: exact trilinear in f32, which the renderer marches along
+  rays through the CUDA kernel K2 on the card (as JAX runs its TPU
+  sampler for these names); at arbitrary points (:data:`SAMPLERS`), the
+  plain sampler;
 - ``plain``: ``trilinear_plain``, exact trilinear in plain PyTorch on every
   device, the reference the kernel paths are held to.
 
@@ -124,15 +126,6 @@ def sample_trilinear_bf16(volume: torch.Tensor, points: torch.Tensor):
     return sample_trilinear(volume.to(torch.bfloat16), points)
 
 
-def sample_trilinear_tile_fused(volume: torch.Tensor, points: torch.Tensor):
-    """Exact trilinear through the CUDA kernel K2 (the plain
-    :func:`sample_trilinear` on CPU tensors); see
-    :mod:`diffus_tpu_torch.kernels.trilinear_cuda`."""
-    from diffus_tpu_torch.kernels.trilinear_cuda import sample_trilinear_fused
-
-    return sample_trilinear_fused(volume, points)
-
-
 # What each interp name is (the renderer routes by it, not by the function):
 # JAX's nearest names, its bf16 ones, its exact f32 trilinear ones (which the
 # card runs through K2) and the port's own plain exact trilinear.
@@ -159,8 +152,9 @@ SAMPLER_KINDS = {
 # XLA samplers do.
 KERNEL_NAMES = frozenset({"trilinear_fused", "trilinear_tile_fused"})
 
-# Each name's sampler at arbitrary points: an exact name through K2's points
-# form (the plain sampler on CPU tensors)
+# Each name's sampler at arbitrary points, the counterpart of JAX's table: an
+# exact name is the plain exact sampler, which K2's ray form equals bit for
+# bit (the renderer routes by SAMPLER_KINDS, not by this table)
 SAMPLERS = {name: {"nearest": sample_nearest, "bf16": sample_trilinear_bf16,
-                   "exact": sample_trilinear_tile_fused, "plain": sample_trilinear}[kind]
+                   "exact": sample_trilinear, "plain": sample_trilinear}[kind]
             for name, kind in SAMPLER_KINDS.items()}

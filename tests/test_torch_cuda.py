@@ -23,7 +23,7 @@ from diffus_tpu_torch.kernels.propagation_cuda import (
     echo_plain,
 )
 from diffus_tpu_torch.kernels import trilinear_cuda as k2
-from diffus_tpu_torch.kernels.trilinear_cuda import march_trilinear_fused, sample_trilinear_fused
+from diffus_tpu_torch.kernels.trilinear_cuda import march_trilinear_fused
 from diffus_tpu_torch.ops.sampling import march_trilinear, ray_points, sample_trilinear
 from diffus_tpu_torch.phantoms import brain_phantom_3d
 from diffus_tpu_torch.render.renderer import simulate_rays
@@ -218,68 +218,12 @@ def test_echo_kernel_rejects_physical_and_f64(cuda):
         echo_fused(torch.zeros((2, 8), device=cuda, dtype=torch.float64), "parity", 0.1)
 
 
-def _points(rng, shape, n):
-    lo, hi = -3.0, max(shape) + 3.0
-    pts = rng.uniform(lo, hi, (n, 3)).astype(np.float32)
-    border = np.array([[-1.0, -2.0, -3.0], [s - 1.0 for s in shape],
-                       [s - 0.1 for s in shape], [20.0, 20.0, 20.0],
-                       [4.5, shape[1] - 1.01, 0.0], [0.0, 0.0, shape[2] - 0.51]],
-                      np.float32)
-    return np.concatenate([pts, border])
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(9, 10, 11), (64, 48, 40)])
-def test_trilinear_kernel_matches_plain(cuda, shape):
-    rng = np.random.default_rng(2)
-    vol = torch.from_numpy(rng.uniform(0.5, 2.0, shape).astype(np.float32)).to(cuda)
-    pts = torch.from_numpy(_points(rng, shape, 5000)).to(cuda)
-    before = sample_trilinear_fused.launches
-    idx_k, val_k = sample_trilinear_fused(vol, pts)
-    idx_p, val_p = sample_trilinear(vol, pts)
-    assert sample_trilinear_fused.launches == before + 1
-    assert torch.equal(idx_k, idx_p)
-    torch.testing.assert_close(val_k, val_p, rtol=1e-6, atol=1e-7)
-
-
-@pytest.mark.cuda
-def test_trilinear_kernel_nan_points_match_plain(cuda):
-    """A NaN component gives a NaN value and index 0 on its axis, in the
-    kernel and the plain sampler alike (a diverged pose reads NaN, not a
-    voxel's value); the other components are sampled as usual."""
-    rng = np.random.default_rng(4)
-    vol = torch.from_numpy(rng.uniform(0.5, 2.0, (9, 10, 11)).astype(np.float32)).to(cuda)
-    nan = float("nan")
-    pts = torch.tensor([[nan, 3.2, 4.7], [2.5, nan, 4.7], [2.5, 3.2, nan], [nan, nan, nan],
-                        [2.5, 3.2, 4.7], [float("inf"), -float("inf"), 4.7]], device=cuda)
-    idx_k, val_k = sample_trilinear_fused(vol, pts)
-    idx_p, val_p = sample_trilinear(vol, pts)
-    assert torch.equal(idx_k, idx_p)
-    assert torch.isnan(val_k[:4]).all() and torch.isfinite(val_k[4:]).all()
-    torch.testing.assert_close(val_k, val_p, rtol=1e-6, atol=1e-7, equal_nan=True)
-    assert idx_k[0, 0].item() == 0 and idx_k[1, 1].item() == 0 and idx_k[2, 2].item() == 0
-
-
-@pytest.mark.cuda
-def test_trilinear_kernel_gradients_match_plain(cuda):
-    rng = np.random.default_rng(3)
-    vol0 = torch.from_numpy(brain_phantom_3d((20, 24, 22)) / 1e6).to(cuda)
-    pts0 = torch.from_numpy(rng.uniform(-1.0, 23.0, (6, 30, 3)).astype(np.float32)).to(cuda)
-    grads = []
-    for fn in (sample_trilinear_fused, sample_trilinear):
-        vol = vol0.clone().requires_grad_(True)
-        pts = pts0.clone().requires_grad_(True)
-        (fn(vol, pts)[1] ** 2).sum().backward()
-        grads.append((vol.grad, pts.grad))
-    torch.testing.assert_close(grads[0][1], grads[1][1], rtol=1e-4, atol=1e-5)
-    torch.testing.assert_close(grads[0][0], grads[1][0], rtol=1e-4, atol=1e-6)
-
-
 @pytest.mark.cuda
 def test_trilinear_kernel_rejects_bf16(cuda):
     vol = torch.ones((4, 4, 4), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(TypeError, match="float32"):
-        sample_trilinear_fused(vol, torch.zeros((2, 3), device=cuda))
+        march_trilinear_fused(vol, torch.zeros((2, 3), device=cuda),
+                              torch.ones((3, 3), device=cuda), 4)
 
 
 def _same(got, want):
@@ -324,16 +268,17 @@ def test_march_kernel_matches_plain_bit_for_bit(cuda, per_pose, w):
 
 @pytest.mark.cuda
 def test_march_kernel_matches_points_form_and_counts(cuda):
+    """The ray form on a phantom equals the plain sampler at ray_points,
+    and counts its launches and those that wrote an idx."""
     vol = torch.from_numpy(brain_phantom_3d((64, 48, 40))).to(cuda)
     dirs = fan_directions_2d([0.0, 1.0], np.radians(45.0), 45, device=cuda)
     src = torch.tensor([[32.0, 2.0, 18.0], [31.3, 1.7, 19.0], [33.1, 2.2, 20.3]], device=cuda)
-    before = (march_trilinear_fused.launches, march_trilinear_fused.idx_launches,
-              sample_trilinear_fused.launches)
+    before = (march_trilinear_fused.launches, march_trilinear_fused.idx_launches)
     idx, got = march_trilinear_fused(vol, src, dirs, 70)
     none, got2 = march_trilinear_fused(vol, src, dirs.expand(3, -1, -1), 70, with_idx=False)
-    idx_p, want = sample_trilinear_fused(vol, ray_points(src, dirs, 70))
-    assert (march_trilinear_fused.launches, march_trilinear_fused.idx_launches,
-            sample_trilinear_fused.launches) == (before[0] + 2, before[1] + 1, before[2] + 1)
+    idx_p, want = sample_trilinear(vol, ray_points(src, dirs, 70))
+    assert (march_trilinear_fused.launches,
+            march_trilinear_fused.idx_launches) == (before[0] + 2, before[1] + 1)
     assert none is None and got.shape == (3, 45, 70) and idx.shape == (3, 45, 70, 3)
     assert _same(got, want) and _same(got2, want) and torch.equal(idx, idx_p)
 
@@ -825,12 +770,10 @@ def test_trilinear_runs_k2_and_k2b_on_the_card(cuda):
 def test_trilinear_plain_launches_nothing_on_the_card(cuda):
     """``trilinear_plain`` is the plain sampler on the card: no K2 or K2b."""
     vol, src, dirs, cfg = _routing_scene(cuda)
-    before = (march_trilinear_fused.launches, march_trilinear_fused.bwd_launches,
-              sample_trilinear_fused.launches)
+    before = (march_trilinear_fused.launches, march_trilinear_fused.bwd_launches)
     _render_grads(vol, src, dirs, cfg("trilinear_plain"))
     torch.cuda.synchronize()
-    assert (march_trilinear_fused.launches, march_trilinear_fused.bwd_launches,
-            sample_trilinear_fused.launches) == before
+    assert (march_trilinear_fused.launches, march_trilinear_fused.bwd_launches) == before
 
 
 @pytest.mark.cuda

@@ -15,7 +15,7 @@ import torch
 from diffus_tpu_torch.kernels import _build
 from diffus_tpu_torch.kernels.gather_probe import gather_probe
 from diffus_tpu_torch.kernels.propagation_cuda import echo_fused
-from diffus_tpu_torch.kernels.trilinear_cuda import sample_trilinear_fused
+from diffus_tpu_torch.kernels.trilinear_cuda import march_trilinear_fused
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -102,12 +102,12 @@ def test_cpu_tensors_launch_no_kernel():
     from diffus_tpu_torch.render.renderer import render_frame
     from diffus_tpu_torch.types import RenderConfig
 
-    before = (echo_fused.launches, sample_trilinear_fused.launches)
+    before = (echo_fused.launches, march_trilinear_fused.launches)
     vol = torch.from_numpy(brain_phantom_3d((16, 16, 16)))
     cfg = RenderConfig(interp="trilinear_fused", use_pallas=True)
     frame = render_frame(vol, [8.3, 1.2, 7.9], [[0.0, 1.0, 0.0], [0.1, 0.99, 0.0]], 12, cfg)[3]
     assert frame.shape == (2, 12) and bool(torch.isfinite(frame).all())
-    assert (echo_fused.launches, sample_trilinear_fused.launches) == before
+    assert (echo_fused.launches, march_trilinear_fused.launches) == before
     probe_before = gather_probe.launches
     assert gather_probe(5, torch.ones((64, 128)), 48, 4).shape == (1, 128)
     assert gather_probe.launches == probe_before

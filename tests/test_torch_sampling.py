@@ -22,7 +22,6 @@ from diffus_tpu_torch.kernels.trilinear_cuda import (
     _warp_sum,
     march_trilinear_backward_plain,
     march_trilinear_fused,
-    sample_trilinear_fused,
 )
 from diffus_tpu_torch.render.renderer import trace_rays
 from torch_parity import assert_parity, seeded
@@ -78,31 +77,33 @@ def test_trilinear_matches(which):
     assert_parity(js.sample_trilinear, ts.sample_trilinear, vol, pts, rtol=1e-6, atol=1e-7)
 
 
+# JAX's Pallas sampler (``tile_select`` in interpret mode on the CPU) by
+# its table name
+PALLAS_SAMPLER = js.SAMPLERS["trilinear_tile_fused"]
+
+
 @pytest.mark.parametrize("which", ["fixture", "border"])
 def test_fused_plain_path_matches_pallas(which):
-    """K2's plain path against ``sample_trilinear_tile_fused`` (Pallas
-    ``tile_select`` in interpret mode), including border-clamp points."""
+    """The plain exact sampler, which K2's ray form equals bit for bit,
+    against JAX's Pallas sampler, including border-clamp points."""
     if which == "fixture":
         vol, _, _, pts = _fused_fixture()
     else:
         vol = seeded(33).uniform(0.5, 2.0, (9, 10, 11)).astype(np.float32)
         pts = BORDER
-    before = sample_trilinear_fused.launches
-    assert_parity(js.sample_trilinear_tile_fused, sample_trilinear_fused, vol, pts,
-                  rtol=1e-6, atol=1e-7)
-    assert sample_trilinear_fused.launches == before  # CPU tensors run the plain version
+    assert_parity(PALLAS_SAMPLER, ts.sample_trilinear, vol, pts, rtol=1e-6, atol=1e-7)
 
 
 def test_fused_gradients_match_pallas():
     vol0, _, _, pts0 = _fused_fixture()
-    g_pts = jax.grad(lambda p: jnp.sum(js.sample_trilinear_tile_fused(
+    g_pts = jax.grad(lambda p: jnp.sum(PALLAS_SAMPLER(
         jnp.asarray(vol0), p)[1] ** 2))(jnp.asarray(pts0))
-    g_vol = jax.grad(lambda v: jnp.sum(js.sample_trilinear_tile_fused(
+    g_vol = jax.grad(lambda v: jnp.sum(PALLAS_SAMPLER(
         v, jnp.asarray(pts0))[1]))(jnp.asarray(vol0))
     pts = torch.from_numpy(pts0.copy()).requires_grad_(True)
-    (sample_trilinear_fused(torch.from_numpy(vol0), pts)[1] ** 2).sum().backward()
+    (ts.sample_trilinear(torch.from_numpy(vol0), pts)[1] ** 2).sum().backward()
     vol = torch.from_numpy(vol0.copy()).requires_grad_(True)
-    sample_trilinear_fused(vol, torch.from_numpy(pts0))[1].sum().backward()
+    ts.sample_trilinear(vol, torch.from_numpy(pts0))[1].sum().backward()
     np.testing.assert_allclose(pts.grad.numpy(), np.asarray(g_pts), rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(vol.grad.numpy(), np.asarray(g_vol), rtol=1e-4, atol=1e-6)
 
@@ -187,8 +188,7 @@ def test_march_trilinear_matches_jax_trace_rays(source, step):
     src = np.array(source, np.float32)
     want_idx, want = jax_trace_rays(jnp.asarray(vol.numpy()), jnp.asarray(src),
                                     jnp.asarray(dirs.numpy()), 30, "trilinear_fused", step)
-    before = (march_trilinear_fused.launches, march_trilinear_fused.idx_launches,
-              sample_trilinear_fused.launches)
+    before = (march_trilinear_fused.launches, march_trilinear_fused.idx_launches)
     idx, values = ts.march_trilinear(vol, torch.from_numpy(src), dirs, 30, step)
     np.testing.assert_array_equal(idx.numpy(), np.asarray(want_idx))
     np.testing.assert_allclose(values.numpy(), np.asarray(want), rtol=1e-6, atol=1e-7)
@@ -197,8 +197,8 @@ def test_march_trilinear_matches_jax_trace_rays(source, step):
         got_idx, got = fn()
         assert torch.equal(got_idx, idx) and torch.equal(got, values)
     assert trace_rays(vol, src, dirs, 30, "trilinear_fused", step, _with_idx=False)[0] is None
-    assert (march_trilinear_fused.launches, march_trilinear_fused.idx_launches,
-            sample_trilinear_fused.launches) == before  # CPU tensors run the plain version
+    assert (march_trilinear_fused.launches,
+            march_trilinear_fused.idx_launches) == before  # CPU tensors run the plain version
 
 
 def test_march_gradients_match_jax():
