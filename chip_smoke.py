@@ -11,6 +11,7 @@
     python3 chip_smoke.py --entry-points  # phases 1, 2 and 15
     python3 chip_smoke.py --graphs  # phases 1, 2 and 16: the captured CUDA graphs against eager
     python3 chip_smoke.py --artifacts  # phases 1, 2 and 17: the artifact stack's kernel K4
+    python3 chip_smoke.py --nearest  # phases 1, 2 and 18: the nearest sampler's kernel K5
 
 ``--requests`` times the serving path alone (latency and device-time split
 per tier: K1, K2, ``ray_points`` and the rest), ``--backward`` the
@@ -276,7 +277,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    (``max_sigma`` 0.1); every artifacted ``render_sweep`` call launches
    K4 once, eager and through replays; K4's time with the wrapper and
    alone, the plain chain's (plain, kernel, kernel, plain), its bound, and
-   a graphed ``render_sweep`` call's.
+   a graphed ``render_sweep`` call's;
+18. the nearest sampler's kernel K5 (``csrc/nearest.cu``) against its plain
+   chain ``march_nearest`` bit for bit, values and idx: at the service's
+   chunk (32 poses x 256 rays x 512 samples of the served fan on the 256^3
+   phantom, from phase 3's sources with the NaN source and the two poses
+   outside the volume), values only and with idx, and at the lung view
+   (256 apexes x 200 rays x 100 samples on phase 17's chest CT), with idx;
+   a nearest service's 32-pose request launches K5 once through its
+   tier's replay, without idx; K5's time with the wrapper and alone at
+   both, the plain chain's (plain, kernel, kernel, plain), and its bound
+   by the benchmark's rule (the distinct 32-byte volume sectors the
+   samples touch, counted on the card, the values out once, with the idx
+   where it is written, the sources and the fan in).
 
 TF32 is off for matmuls and cuDNN (``torch.backends``), so no comparison
 depends on those defaults.  The line before the last is a JSON object of
@@ -1455,10 +1468,13 @@ def _counts_reset() -> None:
     from diffus_tpu_torch.kernels import gather_probe as probe
     from diffus_tpu_torch.utils import graphs
     from diffus_tpu_torch.kernels.propagation_cuda import echo_fused
+    from diffus_tpu_torch.kernels.nearest_cuda import march_nearest_fused
     from diffus_tpu_torch.kernels.trilinear_cuda import march_trilinear_fused
 
     graphs.replayed.clear()
     probe.gather_probe.launches = 0
+    march_nearest_fused.launches = 0
+    march_nearest_fused.idx_launches = 0
     echo_fused.launches = 0
     echo_fused.bwd_launches = 0
     march_trilinear_fused.launches = 0
@@ -4346,6 +4362,113 @@ def _artifact_stack_phase(dev, card: str) -> dict:
             "sweep_ms": sweep_ms, "shape": list(clean.shape)}
 
 
+def _k5_bound(shape, idx: torch.Tensor, p: int, n_rays: int, with_idx: bool) -> dict:
+    """K5 by the benchmark's rule (``benchmark/harness/work.py``): the
+    distinct 32-byte sectors (8 float32 voxels) of the ``shape`` volume
+    that the samples at ``idx`` touch, the values out (with the idx, 16 B a
+    sample), each pose's source and the fan in.  No operation count bounds
+    it."""
+    _, h, w = shape
+    lin = (idx[..., 0].long() * h + idx[..., 1]) * w + idx[..., 2]
+    sectors = int(torch.unique(lin // 8).numel())
+    n_pts = idx[..., 0].numel()
+    bound = _bound((16.0 if with_idx else 4.0) * n_pts + 32.0 * sectors + 12.0 * (p + n_rays), 0)
+    return {**bound, "sectors": sectors}
+
+
+def _nearest_phase(dev, card: str) -> dict:
+    """Phase 18: K5 against ``march_nearest`` bit for bit at the service's
+    chunk and at the lung view, its launches through a nearest tier's
+    replay, and its times beside its bound."""
+    from diffus_tpu_torch.geometry import fan_directions_2d
+    from diffus_tpu_torch.impedance import schneider_webb_impedance
+    from diffus_tpu_torch.kernels.nearest_cuda import march_nearest_fused
+    from diffus_tpu_torch.ops.sampling import march_nearest
+    from diffus_tpu_torch.phantoms import brain_phantom_3d, ct_lung_phantom_3d
+    from diffus_tpu_torch.serve import RendererService
+    from diffus_tpu_torch.types import BeamGeometry, RenderConfig
+    from diffus_tpu_torch.utils import graphs
+
+    vol = torch.from_numpy(brain_phantom_3d(SHAPE)).to(dev)
+    near = RendererService(vol, BeamGeometry(N_RAYS, N_SAMPLES),
+                           RenderConfig(attenuation_coeff=ATT, interp="nearest",
+                                        use_pallas=True),
+                           batch_tiers=TIERS, device=dev, coalesce=False)
+    dirs = near.directions
+    src32 = _sources(np.random.default_rng(0), 32).to(dev)
+    src_m = src32.clone()
+    src_m[0, 1] = float("nan")
+    src_m[1] = torch.tensor([-40.0, -30.0, 300.0])
+    src_m[2] = torch.tensor([300.0, 290.0, -20.0])
+    lung = schneider_webb_impedance(torch.from_numpy(ct_lung_phantom_3d((LUNG_CT,) * 3)).to(dev))
+    lung_dirs = fan_directions_2d((0.0, -1.0), LUNG_OPENING, LUNG_RAYS, device=dev)
+    lung_srcs = torch.tensor(LUNG_APEX, device=dev).repeat(256, 1)
+    lung_srcs[:, 0] += (torch.arange(256, device=dev) - 127.5) * 0.5
+    views = {"service chunk": (vol, src_m, dirs, N_SAMPLES, (False, True)),
+             "lung view": (lung, lung_srcs, lung_dirs, LUNG_SAMPLES, (True,))}
+    for what, (v, s, d, n, idx_modes) in views.items():
+        want_idx, want = march_nearest(v, s, d, n)
+        for with_idx in idx_modes:
+            before = (march_nearest_fused.launches, march_nearest_fused.idx_launches)
+            idx, got = march_nearest_fused(v, s, d, n, with_idx=with_idx)
+            torch.cuda.synchronize()
+            if not _same(got, want):
+                raise AssertionError(f"K5 at the {what} (idx {with_idx}) differs from "
+                                     f"march_nearest: {int((got != want).sum())} values")
+            if with_idx and not torch.equal(idx, want_idx) or not with_idx and idx is not None:
+                raise AssertionError(f"K5's idx at the {what} (with_idx {with_idx}) differs")
+            launched = (march_nearest_fused.launches - before[0],
+                        march_nearest_fused.idx_launches - before[1])
+            if launched != (1, int(with_idx)):
+                raise AssertionError(f"K5 at the {what}: launches, idx launches {launched}")
+    print(f"K5 nearest march vs march_nearest: equal bit for bit at the service chunk "
+          f"(32, {N_RAYS}, {N_SAMPLES}) (a NaN source, "
+          f"2 poses outside the volume; values only and with idx) and at the lung view "
+          f"(256, {LUNG_RAYS}, {LUNG_SAMPLES}) with idx", flush=True)
+
+    near.warmup()
+    _counts_reset()
+    near.render(src32.cpu())
+    torch.cuda.synchronize()
+    through = (march_nearest_fused.launches, graphs.replayed["nearest_march"],
+               march_nearest_fused.idx_launches)
+    if through != (1, 1, 0):
+        raise AssertionError(f"a 32-pose nearest request: K5 launches, through replays, with idx "
+                             f"{through}")
+
+    rows = {}
+    for what, (v, s, d, n, idx_modes) in views.items():
+        s = src32 if what == "service chunk" else s
+        for with_idx in idx_modes:
+            def kernel():
+                return march_nearest_fused(v, s, d, n, with_idx=with_idx)
+
+            def plain():
+                return march_nearest(v, s, d, n, with_idx=with_idx)
+
+            ms, plain_ms, host_us = _paired_ms(kernel, plain, 20)
+            alone_us = _kernel_device_us(kernel, "nearest_march_kernel", 20)
+            bound = _k5_bound(v.shape, march_nearest(v, s, d, n)[0], s.shape[0], d.shape[-2],
+                              with_idx)
+            key = f"{what}{' with idx' if with_idx else ''}"
+            rows[key] = {"ms": ms, "plain_ms": plain_ms, "host_us": host_us,
+                         "device_us": alone_us, **bound}
+            print(f"times [{card}]: K5 at the {key} ({s.shape[0]}, {d.shape[-2]}, {n}): "
+                  f"{ms:.4f} ms with the wrapper (host {host_us:.1f} us a call), "
+                  f"{alone_us:.2f} us alone (profiler), plain chain {plain_ms:.4f} ms (plain, "
+                  f"kernel, kernel, plain; CUDA events, 20 calls); bound "
+                  f"{bound['bound_ms'] * 1e3:.2f} us ({bound['bound_bytes'] / 1e6:.2f} MB, "
+                  f"{bound['sectors']} sectors): {bound['bound_ms'] * 1e3 / alone_us:.1%} of it "
+                  f"alone, {bound['bound_ms'] / ms:.1%} with the wrapper", flush=True)
+    main = rows["service chunk"]
+    return {"name": "nearest_march", "route": "cuda",
+            "source": "diffus_tpu_torch/csrc/nearest.cu", "replaces": None,
+            "launches": through[0], "replay_launches": through[1],
+            "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": None, "device_us": main["device_us"],
+            "host_us": main["host_us"], "by_view": rows}
+
+
 def _phase4_service(dev):
     """``(volume, service)``: phase 4's service on the 256^3 phantom, nothing
     rendered yet; ``coalesce=False``: phases 4-5 time a request's render path
@@ -4412,6 +4535,8 @@ def main(argv=None) -> int:
                         help="only phase 17: the artifact stack's kernel K4 at the lung view")
     parser.add_argument("--entry-points", action="store_true",
                         help="only phase 15: the entry points that name interp='trilinear'")
+    parser.add_argument("--nearest", action="store_true",
+                        help="only phase 18: the nearest sampler's kernel K5")
     args = parser.parse_args(argv)
     t_start = time.perf_counter()
     # -- 1. device ---------------------------------------------------------
@@ -4456,6 +4581,9 @@ def main(argv=None) -> int:
         return 0
     if args.artifacts:
         print(json.dumps({"kernels": [_artifact_stack_phase(dev, card)]}), flush=True)
+        return 0
+    if args.nearest:
+        print(json.dumps({"kernels": [_nearest_phase(dev, card)]}), flush=True)
         return 0
 
     import torch.nn.functional as F
@@ -4735,6 +4863,9 @@ def main(argv=None) -> int:
     # -- 17. the artifact stack's kernel K4 at the lung view -------------------------
     artifacts = _artifact_stack_phase(dev, card)
 
+    # -- 18. the nearest sampler's kernel K5 at the service's chunk and the lung view --
+    nearest = _nearest_phase(dev, card)
+
     kernels = [
         {"name": "echo_scan", "route": "cuda", "source": "diffus_tpu_torch/csrc/echo_scan.cu",
          "replaces": "diffus_tpu/kernels/propagation_pallas.py:45",
@@ -4814,7 +4945,7 @@ def main(argv=None) -> int:
         kernels[1][f"{path}_idx_launches"] = run["launches"]["trilinear_idx"]
     artifacts["image_formation_launches"] = bmode["artifact_stack_launches"]
     artifacts["image_formation_frame_gap"] = bmode["artifact_sweep_gap"]
-    kernels.append(artifacts)
+    kernels += [artifacts, nearest]
     print(f"times [{card}]: the whole run {time.perf_counter() - t_start:.1f} s (build "
           f"included)", flush=True)
     print(json.dumps({"kernels": kernels}))

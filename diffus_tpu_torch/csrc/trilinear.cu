@@ -66,11 +66,6 @@ namespace {
 
 constexpr int kThreads = 256;
 
-// Clamped in floats first, as the plain sampler does: NaN gives index 0.
-__device__ __forceinline__ int round_clamp(float p, int dim) {
-  return static_cast<int>(rintf(fminf(fmaxf(p, 0.0f), static_cast<float>(dim - 1))));
-}
-
 // The corners z0 and z1 of one (x, y) column.  With `quad` (rows 16-byte
 // aligned), one aligned float4 load covers both when z1 = z0 + 1 and
 // z0 % 4 != 3.

@@ -1,6 +1,7 @@
-// Device helpers shared by the trilinear sampler (trilinear.cu, kernel K2)
-// and its backward (trilinear_bwd.cu, kernel K2b), so that the backward sees
-// the forward's points, corners and fractions.
+// Device helpers shared by the trilinear sampler (trilinear.cu, kernel K2),
+// its backward (trilinear_bwd.cu, kernel K2b) and the nearest sampler
+// (nearest.cu, kernel K5), so that the backward sees the forward's points,
+// corners and fractions, and both samplers round their idx alike.
 
 #pragma once
 
@@ -27,6 +28,30 @@ __device__ __forceinline__ float3 march_point(const float* __restrict__ s,
   const float t = static_cast<float>(k) * step;
   return make_float3(__ldg(s) + t * __ldg(dv), __ldg(s + 1) + t * __ldg(dv + 1),
                      __ldg(s + 2) + t * __ldg(dv + 2));
+}
+
+// One coordinate of the same, for sources of type S and directions of type
+// D (K5 takes float and double): k * step and its product with the
+// direction in D, their sum with the source in the wider of the two types,
+// as PyTorch promotes them in ray_points.
+template <typename S, typename D>
+__device__ __forceinline__ decltype(S() + D()) march_coord(const S* __restrict__ s,
+                                                           const D* __restrict__ dv, int k,
+                                                           D step) {
+  using P = decltype(S() + D());
+  return static_cast<P>(__ldg(s)) + static_cast<P>((static_cast<D>(k) * step) * __ldg(dv));
+}
+
+// The nearest index of a coordinate on an axis of `dim` voxels: clamped in
+// floats to [0, dim - 1] first, as the plain sampler does (fmaxf/fminf send
+// NaN to 0 and +-inf to the bounds), then rounded half to even (rintf;
+// roundf rounds half away from zero).
+__device__ __forceinline__ int round_clamp(float p, int dim) {
+  return static_cast<int>(rintf(fminf(fmaxf(p, 0.0f), static_cast<float>(dim - 1))));
+}
+
+__device__ __forceinline__ int round_clamp(double p, int dim) {
+  return static_cast<int>(rint(fmin(fmax(p, 0.0), static_cast<double>(dim - 1))));
 }
 
 }  // namespace

@@ -49,6 +49,11 @@ _SIGNATURES = {
     "diffus_trilinear_march": (_c, _c, _c, ctypes.c_int64, _c, _c, ctypes.c_int64,
                                ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
                                ctypes.c_int, ctypes.c_int, _c),
+    # vol, vol_bytes, src, src_bytes, dirs, dir_bytes, dir_pose_stride, out, idx, p, n_rays,
+    # n, step, d, h, w, stream
+    "diffus_nearest_march": (_c, ctypes.c_int, _c, ctypes.c_int, _c, ctypes.c_int,
+                             ctypes.c_int64, _c, _c, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+                             ctypes.c_double, ctypes.c_int, ctypes.c_int, ctypes.c_int, _c),
     # vol, src, dirs, dir_pose_stride, grad, p, n_rays, n, step, d, h, w, dvol, acc, masks,
     # base, dsrc_pose, ddir_pose, dsrc_sum, ddir_sum, ray_src, stream
     "diffus_trilinear_march_bwd": (_c, _c, _c, ctypes.c_int64, _c, ctypes.c_int64, ctypes.c_int,

@@ -6,7 +6,9 @@ round-half-even + per-axis clamp) and exact ``trilinear``
 row tables are TPU gather-layout workarounds and are not ported; their
 names map onto these samplers by what each name is (:data:`SAMPLER_KINDS`):
 
-- ``nearest``: the nearest gather;
+- ``nearest``: the nearest gather, which the renderer marches along rays
+  through the CUDA kernel K5 on the card (:func:`march_nearest` is its
+  plain version);
 - ``bf16``: exact trilinear of bf16 corners, plain PyTorch;
 - ``exact``: exact trilinear in f32, which the renderer marches along
   rays through the CUDA kernel K2 on the card (as JAX runs its TPU
@@ -16,8 +18,8 @@ names map onto these samplers by what each name is (:data:`SAMPLER_KINDS`):
   device, the reference the kernel paths are held to.
 
 The renderer picks the route from the kind and the volume's dtype
-(``render.renderer._resolve_sampler``); K2's wrapper launches the kernel
-on a CUDA volume and runs its plain version on a CPU one.
+(``render.renderer._resolve_sampler``); K2's and K5's wrappers launch
+their kernels on a CUDA volume and run their plain versions on a CPU one.
 """
 
 from __future__ import annotations
@@ -75,6 +77,20 @@ def sample_nearest(volume: torch.Tensor, points: torch.Tensor):
     idx = _round_idx(volume, points)
     li = idx.long()
     return idx, volume[li[..., 0], li[..., 1], li[..., 2]]
+
+
+def march_nearest(volume: torch.Tensor, source: torch.Tensor, directions: torch.Tensor,
+                  num_samples: int, step: float = 1.0, with_idx: bool = True):
+    """:func:`sample_nearest` at :func:`ray_points`: the plain version of
+    the nearest kernel K5
+    (:func:`~diffus_tpu_torch.kernels.nearest_cuda.march_nearest_fused`),
+    which computes the points itself.
+
+    Returns ``(idx, values)`` of shapes ``(..., n_rays, num_samples, 3)`` and
+    ``(..., n_rays, num_samples)``; ``idx`` is None without ``with_idx``.
+    """
+    idx, values = sample_nearest(volume, ray_points(source, directions, num_samples, step))
+    return (idx if with_idx else None), values
 
 
 def sample_trilinear(volume: torch.Tensor, points: torch.Tensor):

@@ -14,12 +14,14 @@ clip ranges are per frame, and each frame draws its own noise.
 every exact-trilinear interp (``trilinear``, ``trilinear_fused`` and JAX's
 other exact names) marches the rays of a CUDA volume through K2's ray form,
 which computes the sample points itself (:func:`_resolve_sampler`, the
-counterpart of JAX's TPU upgrade); on CPU tensors both run their plain
-PyTorch versions, and ``trilinear_plain`` runs the plain sampler anywhere.
+counterpart of JAX's TPU upgrade); ``nearest`` marches them through
+the nearest kernel K5, which computes, rounds and gathers every sample in
+one launch; on CPU tensors all three run their plain PyTorch versions, and
+``trilinear_plain`` runs the plain sampler anywhere.
 :func:`_render` can leave the sample coordinates out,
 for callers that read the intensities alone (the service, pose recovery):
-XLA drops that unread output of JAX's jitted renders, and K2 then writes
-no idx.  The pulse and envelope stages are plain PyTorch (the JAX package
+XLA drops that unread output of JAX's jitted renders, and K2 and K5 then
+write no idx.  The pulse and envelope stages are plain PyTorch (the JAX package
 computes them outside Pallas too); after the frames' normal draws, the
 artifact stack is one kernel on the card, K4
 (:func:`~diffus_tpu_torch.kernels.artifacts_cuda.artifact_stack`), and its
@@ -51,6 +53,7 @@ import warnings
 import torch
 
 from diffus_tpu_torch.kernels.artifacts_cuda import artifact_stack
+from diffus_tpu_torch.kernels.nearest_cuda import march_nearest_fused
 from diffus_tpu_torch.kernels.propagation_cuda import echo_fused
 from diffus_tpu_torch.kernels.trilinear_cuda import march_trilinear_fused
 from diffus_tpu_torch.ops.artifacts import draw_speckle_arcs
@@ -67,7 +70,6 @@ from diffus_tpu_torch.ops.sampling import (
     SAMPLER_KINDS,
     march_trilinear,
     ray_points,
-    sample_nearest,
     sample_trilinear_bf16,
 )
 from diffus_tpu_torch.types import RenderConfig, Volume
@@ -90,7 +92,9 @@ def _resolve_sampler(interp: str, dtype: torch.dtype) -> str:
       Pallas kernel's (:data:`KERNEL_NAMES`) on a bf16 volume, the plain
       bf16 sampler (JAX samples a bf16 volume with its XLA sampler);
     - ``"trilinear_plain"``: the plain sampler on every device;
-    - ``"nearest"``: the nearest gather.
+    - ``"nearest"``: the nearest gather along rays
+      (:func:`march_nearest_fused`): on a CUDA volume kernel K5, on a CPU
+      one its plain version.
 
     Decided by the name and the volume alone: nothing falls back to the
     plain sampler when the kernel fails."""
@@ -114,19 +118,20 @@ def trace_rays(volume, source, directions, num_samples: int, interp: str = "near
     Returns ``(idx, values)``: int32 coords ``(..., n_rays, num_samples, 3)``
     and values ``(..., n_rays, num_samples)``.  The route is
     :func:`_resolve_sampler`'s: exact trilinear goes through K2's ray form
-    (the kernel on a CUDA volume), which takes ``source`` and
-    ``directions`` as they are (float32 on the card); with
-    ``_with_idx=False`` the exact routes compute no coords and ``idx`` is
-    None (nearest and bf16 return theirs regardless).
+    and nearest through K5 (the kernels on a CUDA volume), which take
+    ``source`` and ``directions`` as they are (float32 on the card for
+    K2); with ``_with_idx=False`` the exact and nearest routes compute no
+    coords and ``idx`` is None (bf16 returns its coords regardless).
     """
     source, directions = _on(volume, source), _on(volume, directions)
     route = _resolve_sampler(interp, volume.dtype)
     if route == "k2":
         return march_trilinear_fused(volume, source, directions, num_samples, step, _with_idx)
+    if route == "nearest":
+        return march_nearest_fused(volume, source, directions, num_samples, step, _with_idx)
     if route == "trilinear_plain":
         return march_trilinear(volume, source, directions, num_samples, step, _with_idx)
-    sampler = sample_nearest if route == "nearest" else sample_trilinear_bf16
-    return sampler(volume, ray_points(source, directions, num_samples, step))
+    return sample_trilinear_bf16(volume, ray_points(source, directions, num_samples, step))
 
 
 def simulate_rays(volume, source, directions, num_samples: int, interp: str = "nearest"):
